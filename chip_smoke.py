@@ -16,12 +16,27 @@ Phases (any failure raises and exits non-zero):
      gpu.schemes.dispatch_bls_compressed — a valid batch must verify and
      five bad batches must not; a few aggregates are cross-checked with
      the host anchor;
-  4. each kernel again against its plain version, exactly, on the
+  4. the block-verify path: one mainnet block's 131 signature sets (128
+     attestation aggregates of 87–130 members, the proposer's signature,
+     the RANDAO reveal, a 512-member sync aggregate) through
+     consensus.verifier.TorchVerifier — valid → True, a forged set, a
+     swapped message and an ∞ key → False, a signature outside G2 raises
+     SignatureInvalid at host decompression — and the same sets through
+     multi_verify_compressed (outside G2 → False) and multi_verify_indexed;
+     the new kernels against their plain versions on edge rows (∞ and
+     non-G2 rows, registry rows 0 and 49,999, N = 1);
+  5. a replay window of 8 such blocks (1,048 sets) through
+     runtime.replay.dispatch_window (g2_subgroup_check_batch_async +
+     multi_verify_async): valid → True, a forged set in block 5 or a
+     signature outside G2 → False; and the slot's 192 aggregates through
+     gpu.schemes.dispatch_bls_host_decompress (outside G2 → False);
+  6. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
-     members), and its time there (CUDA events, after warm-up) beside the
-     plain version's and its bound; end-to-end batch p50 with the
-     hash-to-G2 cache warm and cold, host prep kept apart from device
-     time.
+     members; the block's 131 sets; the window's 1,048 sets), and its time
+     there (CUDA events, after warm-up) beside the plain version's and its
+     bound; end-to-end p50 of the gossip batch, the block and the window
+     with the hash-to-G2 cache warm and cold, host prep kept apart from
+     device time.
 Prints the card's name and power limit, one `kernels` JSON line, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -41,6 +56,13 @@ N_VALIDATORS = 50_000
 SLOTS_PER_EPOCH = 32
 AGGREGATORS_PER_COMMITTEE = 16
 E2E_BATCHES = 10
+#: one mainnet block's signature sets at the pre-Electra maximum
+ATTESTATIONS_PER_BLOCK = 128
+SYNC_COMMITTEE_SIZE = 512
+#: a replay window, cut from the JAX package's 32 blocks (signing its
+#: ~4,200 distinct messages on the host would take ~5 minutes)
+WINDOW_BLOCKS = 8
+BLOCK_REPS_WARM, BLOCK_REPS_COLD, WINDOW_REPS_WARM = 5, 3, 3
 #: H100 HBM3 rate (NVIDIA data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer multiply / multiply-add results per clock per SM for
@@ -114,6 +136,24 @@ def slot_committees(rng, n):
     return [slot[i::count] for i in range(count)]
 
 
+def make_block(rng, n, sks, R, sign):
+    """One block's signature sets as (signing root, signer indices,
+    signature): 128 attestation aggregates of 87–130 members, each over
+    its own attestation data root; the proposer's block signature and
+    RANDAO reveal; a 512-member sync aggregate. Signer indices avoid the
+    last key (r − sk₀)."""
+    sets = []
+    for _ in range(ATTESTATIONS_PER_BLOCK):
+        sets.append((rng.randbytes(32),
+                     sorted(rng.sample(range(n - 1), rng.randint(87, 130)))))
+    proposer = rng.randrange(n - 1)
+    sets += [(rng.randbytes(32), [proposer]), (rng.randbytes(32), [proposer]),
+             (rng.randbytes(32),
+              sorted(rng.sample(range(n - 1), SYNC_COMMITTEE_SIZE)))]
+    return [(root, mem, sign(root, sum(sks[i] for i in mem) % R))
+            for root, mem in sets]
+
+
 # --- the bound of each kernel (operation counts at this run's shapes) ----
 
 
@@ -130,6 +170,7 @@ class OpModel:
         self.fq2_sqrt = 2 + 3 * self.sqrt + 2 + 2 * (self.sqrt + self.inv + 4)
         psi = (64 * self.dbl1 + (bin(abs_x).count("1") - 1) * self.madd1
                + self.add1) * 3 + 2 * 3
+        self.psi = psi
         self.g1_row = 6 + self.sqrt
         self.g2_row = 2 + 6 + self.fq2_sqrt + 2 + psi + 4
         fp2_inv = 4 + self.inv
@@ -158,9 +199,28 @@ class OpModel:
             total += 4 + 6 + 4
         return total
 
+    def subgroup(self, live):
+        """g2_subgroup_check over `live` rows that are not ∞."""
+        return live * (4 + self.psi)
+
+    def multi(self, r01, sig_live):
+        """multi_rlc_scale: per set the G1 ladder from an affine key and,
+        on live signature rows, the G2 ladder (3 Fp products an Fp2 one)."""
+        total = 0
+        for (r0, r1), live in zip(r01, sig_live):
+            adds = bin(r0).count("1") + bin(r1).count("1")
+            ladder = 32 * self.dbl1 + self.madd1 * max(0, adds - 1)
+            total += 2 + 2 + ladder + 3
+            total += 6 + (4 + 4 + 3 * ladder if live else 0)
+        return total
+
     def finish(self, m):
+        """rlc_finish: the G2 sum, the Miller loop of (−g1, Σ), each term's
+        conversion and product, the 127-step product tree and the last
+        product, the final exponentiation."""
         tree = self.add1 * 3 * (max(0, m - 128) + 127)
-        return tree + 9 + self.miller + m * (self.fp12 + 12) + self.final_exp
+        return (tree + 9 + self.miller + m * (self.fp12 + 12)
+                + 128 * self.fp12 + self.final_exp)
 
 
 def bound_ms(fp_muls, nbytes, sms, clock_hz):
@@ -196,7 +256,13 @@ def main() -> None:
     from grandine_tpu_torch.gpu import limbs as L
     from grandine_tpu_torch.gpu import pairing as TP
     from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
-    from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
+    from grandine_tpu_torch.consensus.verifier import (
+        SignatureInvalid, TorchVerifier)
+    from grandine_tpu_torch.crypto.curves import B1, Point, g2_infinity
+    from grandine_tpu_torch.crypto.fields import Fq
+    from grandine_tpu_torch.gpu.schemes import (
+        dispatch_bls_compressed, dispatch_bls_host_decompress)
+    from grandine_tpu_torch.runtime.replay import dispatch_window
     from grandine_tpu_torch.runtime.verify_scheduler import VerifyItem
 
     dev = torch.device("cuda:0")
@@ -213,7 +279,9 @@ def main() -> None:
     kernels = {
         "g1_decompress": C.g1_decompress,
         "g2_decompress_subgroup": C.g2_decompress_subgroup,
+        "g2_subgroup_check": C.g2_subgroup_check,
         "aggregate_rlc_scale": B.aggregate_rlc_scale,
+        "multi_rlc_scale": B.multi_rlc_scale,
         "miller_loop_pairs": TP.miller_loop_pairs,
         "rlc_finish": B.rlc_finish,
     }
@@ -354,11 +422,13 @@ def main() -> None:
     log(f"main path: registry {registry.count} keys at capacity "
         f"{registry.capacity} ingested on the card, valid batch of {m_aggs} "
         f"aggregates -> {ok} ({first_s:.2f} s incl. ingest) {at}")
-    log(f"launches on the main path: {json.dumps(launches)}")
+    log(f"launches on the gossip path: {json.dumps(launches)}")
     if ok is not True:
         fail("the valid batch did not verify")
-    if any(v < 1 for v in launches.values()):
-        fail(f"a kernel of the path was not launched: {launches}")
+    gossip_kernels = ("g1_decompress", "g2_decompress_subgroup",
+                      "aggregate_rlc_scale", "miller_loop_pairs", "rlc_finish")
+    if any(launches[k] < 1 for k in gossip_kernels):
+        fail(f"a kernel of the gossip path was not launched: {launches}")
     rx, ry, _ = registry.arrays()
     for i in (0, 1, N_VALIDATORS - 1):
         aff = A.g1_from_bytes(pubkeys[i], subgroup_check=False).to_affine()
@@ -419,7 +489,194 @@ def main() -> None:
             fail(f"host anchor rejects aggregate {i}")
     log("host anchor: 3 aggregates verify on the host")
 
-    # 4. timings -----------------------------------------------------------------
+    # 4. the block-verify path -------------------------------------------------
+    brng = random.Random(20261019)
+    t0 = time.perf_counter()
+    blocks = [make_block(brng, N_VALIDATORS, sks, R,
+                         lambda m, k: A.g2_to_bytes(
+                             hash_to_g2(m, DST_SIGNATURE).mul(k)))
+              for _ in range(WINDOW_BLOCKS)]
+    block = blocks[0]
+    # the validators' keys as the state holds them (affine, decompressed
+    # once): from the registry rows the card decompressed
+    xs, ys = L.words_to_ints(rx[:N_VALIDATORS]), L.words_to_ints(
+        ry[:N_VALIDATORS])
+    keys = [A.PublicKey(Point.from_affine(Fq(x), Fq(y), B1))
+            for x, y in zip(xs, ys)]
+    n_sets = len(block)
+    log(f"host prep: {WINDOW_BLOCKS} blocks of {n_sets} signature sets "
+        f"({ATTESTATIONS_PER_BLOCK} attestation aggregates of 87-130, "
+        f"proposer, RANDAO, a {SYNC_COMMITTEE_SIZE}-member sync aggregate) "
+        f"signed: {time.perf_counter() - t0:.1f} s (host, not device)")
+
+    def feed(verifier, sets):
+        """The transition's calls: one key a singular set, the members'
+        keys (aggregated by the verifier) an aggregate."""
+        for root, mem, sig in sets:
+            if len(mem) == 1:
+                verifier.verify_singular(root, sig, keys[mem[0]])
+            else:
+                verifier.verify_aggregate(root, sig, [keys[i] for i in mem])
+
+    def block_verdict(sets, be):
+        v = TorchVerifier(be)
+        feed(v, sets)
+        try:
+            v.finish()
+        except SignatureInvalid:
+            return False
+        return True
+
+    def with_set(sets, i, root=None, mem=None, sig=None):
+        out = list(sets)
+        r0, m0, s0 = out[i]
+        out[i] = (root or r0, mem or m0, sig or s0)
+        return out
+
+    block_backend = B.TorchBlsBackend()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = block_verdict(block, block_backend)
+    torch.cuda.synchronize()
+    block_launches = {k: fn.launches for k, fn in kernels.items()}
+    log(f"block path: TorchVerifier over one block of {n_sets} sets -> {ok} "
+        f"({time.perf_counter() - t0:.2f} s, hash-to-G2 cache cold) {at}")
+    log(f"launches on the block path: {json.dumps(block_launches)}")
+    if ok is not True:
+        fail("the valid block did not verify")
+    block_kernels = ("g2_subgroup_check", "multi_rlc_scale",
+                     "miller_loop_pairs", "rlc_finish")
+    if any(block_launches[k] < 1 for k in block_kernels):
+        fail(f"a kernel of the block path was not launched: {block_launches}")
+    bad_block = {
+        "forged_set": with_set(block, 5, sig=block[6][2]),
+        "swapped_message": with_set(with_set(block, 7, root=block[8][0]), 8,
+                                    root=block[7][0]),
+        "infinity_key": with_set(block, 9, mem=[0, N_VALIDATORS - 1]),
+    }
+    for name, sets in bad_block.items():
+        v = block_verdict(sets, block_backend)
+        log(f"bad block {name} (TorchVerifier): -> {v}")
+        if v is not False:
+            fail(f"bad block {name} verified")
+    outside = with_set(block, 10, sig=nonsub)
+    v = TorchVerifier(block_backend)
+    feed(v, outside)
+    try:
+        v.finish_async()
+        fail("a signature outside G2 passed host decompression")
+    except SignatureInvalid as e:
+        log(f"bad block outside_g2 (TorchVerifier): SignatureInvalid at host "
+            f"decompression ({e})")
+    agg_keys = [keys[mem[0]] if len(mem) == 1
+                else A.PublicKey.aggregate([keys[i] for i in mem])
+                for _, mem, _ in block]
+    block_msgs = [root for root, _, _ in block]
+    block_sigs = [sig for _, _, sig in block]
+    v = block_backend.multi_verify_compressed(block_msgs, block_sigs, agg_keys)
+    log(f"block through multi_verify_compressed: -> {v}")
+    if v is not True:
+        fail("the block did not verify through multi_verify_compressed")
+    v = block_backend.multi_verify_compressed(
+        block_msgs, [s for _, _, s in outside], agg_keys)
+    log(f"bad block outside_g2 (multi_verify_compressed): -> {v}")
+    if v is not False:
+        fail("a signature outside G2 verified through multi_verify_compressed")
+    # multi_verify_indexed: the registry with the block's aggregate keys
+    # appended as rows; the proposer and RANDAO sets sign with one
+    # validator's row
+    agg_rows = [i for i, (_, mem, _) in enumerate(block) if len(mem) > 1]
+    block_registry = DevicePubkeyRegistry()
+    block_registry.ensure(pubkeys + tuple(
+        A.g1_to_bytes(agg_keys[i].point) for i in agg_rows))
+    rows_of = {i: N_VALIDATORS + j for j, i in enumerate(agg_rows)}
+    indices = [rows_of.get(i, mem[0]) for i, (_, mem, _) in enumerate(block)]
+    v = block_backend.multi_verify_indexed(
+        block_msgs, [A.Signature.from_bytes(s) for s in block_sigs], indices,
+        block_registry)
+    log(f"block through multi_verify_indexed ({block_registry.count} rows, "
+        f"{len(agg_rows)} of them the block's aggregate keys): -> {v}")
+    if v is not True:
+        fail("the block did not verify through multi_verify_indexed")
+
+    # the new kernels against their plain versions on edge rows -------------
+    edge_pts = [A.g2_from_bytes(s, subgroup_check=False)
+                for s in sigs[:6] + [nonsub]] + [g2_infinity()]
+    ex, ey, einf = (torch.from_numpy(a.copy()).to(dev)
+                    for a in B.g2_affine_words_many(edge_pts))
+    edge2 = "edge rows: 6 signatures, a point of E2 outside G2, ∞"
+    got = C.g2_subgroup_check(ex, ey, einf)
+    same("g2_subgroup_check", got, C.g2_subgroup_check_plain(ex, ey, einf),
+         edge2)
+    if got.tolist() != [True] * 6 + [False, True]:
+        fail(f"g2_subgroup_check verdicts {got.tolist()}")
+    # N = 1: the last registry row with the point outside G2; N = 8:
+    # rows 0 and 49,999 first, the 6 signatures, the point outside G2, ∞
+    for rows_e, pick in (([N_VALIDATORS - 1], [6]),
+                         ([0, N_VALIDATORS - 1] + list(range(1, 7)),
+                          list(range(8)))):
+        n_e = len(rows_e)
+        pairs = [B.TorchBlsBackend._rlc_pair(bits) for _ in range(n_e)]
+        args = (rx, ry, torch.tensor(rows_e, dtype=torch.int32, device=dev),
+                ex[pick].contiguous(), ey[pick].contiguous(),
+                einf[pick].contiguous(),
+                torch.from_numpy(B.rlc_pairs_words(pairs)).to(dev))
+        same("multi_rlc_scale", B.multi_rlc_scale(*args),
+             B.multi_rlc_scale_plain(*args),
+             f"N = {n_e}: registry rows {rows_e[:2]}, signature rows {pick} "
+             f"of the edge rows")
+
+    # 5. the replay window and the uncompressed gossip seams ---------------------
+    window = [s for b in blocks for s in b]
+
+    def window_items(sets):
+        return [VerifyItem(root, sig, public_keys=[keys[i] for i in mem])
+                for root, mem, sig in sets]
+
+    def timed_window(items, be):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        settle = dispatch_window(items, be)
+        t1 = time.perf_counter()
+        v = settle()
+        return v, t1 - t0, time.perf_counter() - t1
+
+    window_backend = B.TorchBlsBackend()
+    v, host_s, wait_s = timed_window(window_items(window), window_backend)
+    log(f"window: {WINDOW_BLOCKS} blocks, {len(window)} sets through "
+        f"dispatch_window, hash-to-G2 cache cold: -> {v} (host prep + enqueue "
+        f"{host_s * 1e3:.1f} ms, device wait {wait_s * 1e3:.1f} ms; "
+        f"{len(window) / (host_s + wait_s):.1f} sets/s) {at}")
+    if v is not True:
+        fail("the valid window did not verify")
+    window_cold = (host_s, wait_s)
+    k5 = 5 * n_sets + 3
+    bad_window = {
+        "forged_set_in_block_5": with_set(window, k5, sig=window[k5 + 1][2]),
+        "outside_g2_in_block_3": with_set(window, 3 * n_sets + 2, sig=nonsub),
+    }
+    for name, sets in bad_window.items():
+        v = timed_window(window_items(sets), window_backend)[0]
+        log(f"bad window {name}: -> {v}")
+        if v is not False:
+            fail(f"bad window {name} verified")
+    v = dispatch_bls_host_decompress(items_of(msgs, sigs, members), backend,
+                                     registry)()
+    log(f"gossip batch of {m_aggs} aggregates through "
+        f"dispatch_bls_host_decompress (uncompressed seams): -> {v}")
+    if v is not True:
+        fail("the gossip batch did not verify through the uncompressed seams")
+    ml, sl, mm = bad["outside_g2"]
+    v = dispatch_bls_host_decompress(items_of(ml, sl, mm), backend,
+                                     registry)()
+    log(f"bad batch outside_g2 (dispatch_bls_host_decompress): -> {v}")
+    if v is not False:
+        fail("a signature outside G2 verified through the uncompressed seams")
+
+
+    # 6. timings -----------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -465,7 +722,41 @@ def main() -> None:
     fin = (f, agg[2], agg[1], dec[3], dec[7])
     if B.rlc_finish(*fin).item() != 1:
         fail("the timed operands do not verify")
+
+    def flat_operands(sets, be):
+        """The operands TorchBlsBackend.multi_verify_async gives the flat
+        kernels for `sets` (keys aggregated on the host, hash-to-G2 points
+        from `be`'s warm cache)."""
+        pts = [A.g2_from_bytes(sig, subgroup_check=False)
+               for _, _, sig in sets]
+        sx, sy, sinf = (torch.from_numpy(a.copy()).to(dev)
+                        for a in B.g2_affine_words_many(pts))
+        fx, fy = B.g1_affine_words([
+            keys[mem[0]].point if len(mem) == 1
+            else A.PublicKey.aggregate([keys[i] for i in mem]).point
+            for _, mem, _ in sets])
+        n = len(sets)
+        fl_pairs = [B.TorchBlsBackend._rlc_pair(bits) for _ in range(n)]
+        scale = (torch.from_numpy(fx.copy()).to(dev),
+                 torch.from_numpy(fy.copy()).to(dev),
+                 torch.arange(n, dtype=torch.int32, device=dev), sx, sy, sinf,
+                 torch.from_numpy(B.rlc_pairs_words(fl_pairs)).to(dev))
+        sub = C.g2_subgroup_check(sx, sy, sinf)
+        rpk, rsig = B.multi_rlc_scale(*scale)
+        msg = torch.from_numpy(np.stack([
+            be._hash_to_g2_words(root, DST_SIGNATURE)[0]
+            for root, _, _ in sets])).to(dev)
+        none = torch.zeros((n,), dtype=torch.bool, device=dev)
+        ml = (rpk, msg, none)
+        fin = (TP.miller_loop_pairs(*ml), rsig, none, ~none, sub)
+        if B.rlc_finish(*fin).item() != 1:
+            fail(f"the timed flat operands (N = {n}) do not verify")
+        return (sx, sy, sinf), scale, fl_pairs, ml, fin
+
+    blk = flat_operands(block, block_backend)
+    win = flat_operands(window, window_backend)
     ops = OpModel(P, -X)
+    gossip = f"gossip batch, M = {m_aggs}"
     timed = [
         ("g1_decompress", lambda: C.g1_decompress(raw_t),
          lambda: C.g1_decompress_plain(raw_t), 3,
@@ -489,22 +780,57 @@ def main() -> None:
          ops.finish(m_aggs), m_aggs * (576 + 288 + 3) + 1,
          "grandine_tpu/tpu/bls.py:162"),
     ]
+    timed = [(name, gossip, *rest) for name, *rest in timed]
+    for where, (sub_in, scale, fl_pairs, ml, fin_f) in (
+            (f"block, N = {n_sets}", blk),
+            (f"window, N = {len(window)}", win)):
+        n = sub_in[2].shape[0]
+        live = (~sub_in[2]).tolist()
+        timed += [
+            ("g2_subgroup_check", where,
+             lambda a=sub_in: C.g2_subgroup_check(*a),
+             lambda a=sub_in: C.g2_subgroup_check_plain(*a), 5,
+             ops.subgroup(sum(live)), n * (96 + 96 + 1 + 1),
+             "grandine_tpu/tpu/bls.py:919"),
+            ("multi_rlc_scale", where, lambda a=scale: B.multi_rlc_scale(*a),
+             lambda a=scale: B.multi_rlc_scale_plain(*a), 5,
+             ops.multi(fl_pairs, live), n * (4 + 96 + 96 + 1 + 8 + 144 + 288),
+             "grandine_tpu/tpu/bls.py:592"),
+        ]
+        if n > n_sets:  # the shared pairing kernels at the window's width
+            timed += [
+                ("miller_loop_pairs", where,
+                 lambda a=ml: TP.miller_loop_pairs(*a),
+                 lambda a=ml: TP.miller_loop_pairs_plain(*a), 5,
+                 ops.miller * n, n * (144 + 96 + 1 + 576),
+                 "grandine_tpu/tpu/pairing.py:208"),
+                ("rlc_finish", where, lambda a=fin_f: B.rlc_finish(*a),
+                 lambda a=fin_f: B.rlc_finish_plain(*a), 5,
+                 ops.finish(n), n * (576 + 288 + 3) + 1,
+                 "grandine_tpu/tpu/bls.py:162"),
+            ]
     report = []
     sources = {name: src for src, names in _build.LIBRARIES.items()
                for name in names}
-    for name, kern, plain, reps, fp_muls, nbytes, replaces in timed:
+    for name, where, kern, plain, reps, fp_muls, nbytes, replaces in timed:
         source = sources[name]
         ms, got = cuda_ms(kern, reps)
         p_ms, ref = plain_ms(plain)
-        errs[name] = same(name, got, ref, "main-path shapes")
+        err = same(name, got, ref, f"main-path operands, {where}")
         b_ms, b_by = bound_ms(fp_muls, nbytes, sms, clock_hz)
-        log(f"time {name}: kernel {ms:.3f} ms, plain {p_ms:.1f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {fp_muls} Fp products, {nbytes} B), "
-            f"main-path launches {launches[name]} {at}")
+        # launches: on the gossip path for its kernels, on the block path
+        # for the kernels this path brought
+        n_l = (launches if where == gossip else block_launches)[name]
+        log(f"time {name} ({where}): kernel {ms:.3f} ms, plain {p_ms:.1f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}; {fp_muls} Fp products, "
+            f"{nbytes} B), launches on its path {n_l} {at}")
+        if name in errs:  # the kernels line: each kernel at its first shape
+            continue
+        errs[name] = err
         report.append({
             "name": name, "route": "cuda",
             "source": "grandine_tpu_torch/csrc/" + source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_l,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
@@ -544,6 +870,53 @@ def main() -> None:
             f"{(p50 - host50) * 1e3:.1f} ms{h2c_note}); {m_aggs / p50:.1f} "
             f"aggregates/s, {n_members / p50:.0f} member signatures "
             f"covered/s {at}")
+    # the block: "warm" is the same block again (its 131 roots' hash-to-G2
+    # points cached); "cold" a backend with an empty cache each time, as
+    # at one block per slot. Key aggregation (the verifier's calls), host
+    # decompression + hash-to-G2 + enqueue (finish_async) and the device
+    # wait are timed apart; decompression and hash-to-G2 also alone.
+    t0 = time.perf_counter()
+    for sig in block_sigs:
+        A.Signature.from_bytes(sig)
+    dec_alone = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for root in block_msgs:
+        B.g2_affine_words(hash_to_g2(root, DST_SIGNATURE))
+    h2c_alone = time.perf_counter() - t0
+    log(f"block host prep timed alone: decompression of the {n_sets} "
+        f"signatures with the subgroup check {dec_alone * 1e3:.1f} ms, "
+        f"hash-to-G2 of the {n_sets} roots {h2c_alone * 1e3:.1f} ms (host)")
+    for cache, reps in (("warm", BLOCK_REPS_WARM), ("cold", BLOCK_REPS_COLD)):
+        rows = []
+        for _ in range(reps):
+            be = block_backend if cache == "warm" else B.TorchBlsBackend()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = TorchVerifier(be)
+            feed(v, block)
+            t1 = time.perf_counter()
+            settle = v.finish_async()
+            t2 = time.perf_counter()
+            settle()
+            rows.append((time.perf_counter() - t0, t1 - t0, t2 - t1))
+        total, agg_s, prep_s = (statistics.median(c) for c in zip(*rows))
+        log(f"block verify, hash-to-G2 cache {cache}: p50 {total * 1e3:.1f} "
+            f"ms over {reps} blocks of {n_sets} sets (medians: key "
+            f"aggregation {agg_s * 1e3:.1f} ms, decompression + hash-to-G2 + "
+            f"enqueue {prep_s * 1e3:.1f} ms, device wait "
+            f"{(total - agg_s - prep_s) * 1e3:.1f} ms); "
+            f"{n_sets / total:.1f} sets/s {at}")
+    rows = [timed_window(window_items(window), window_backend)
+            for _ in range(WINDOW_REPS_WARM)]
+    total = statistics.median(h + w for _, h, w in rows)
+    host = statistics.median(h for _, h, _ in rows)
+    log(f"window of {len(window)} sets, hash-to-G2 cache warm: p50 "
+        f"{total * 1e3:.1f} ms over {WINDOW_REPS_WARM} (host prep + enqueue "
+        f"{host * 1e3:.1f} ms, device wait {(total - host) * 1e3:.1f} ms); "
+        f"{len(window) / total:.1f} sets/s; cold (above): "
+        f"{sum(window_cold) * 1e3:.1f} ms {at}")
+    if not all(v is True for v, _, _ in rows):
+        fail("a valid window did not verify")
     log(json.dumps({"kernels": report}))
     log(card)
     print(json.dumps({"ok": True, "device": {

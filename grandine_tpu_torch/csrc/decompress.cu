@@ -1,5 +1,6 @@
-// Point decompression kernels of the BLS verify path: g1_decompress
-// (registry ingest) and g2_decompress_subgroup (signature rows).
+// Point decompression and subgroup kernels of the BLS verify path:
+// g1_decompress (registry ingest), g2_decompress_subgroup (signature rows)
+// and g2_subgroup_check (uploaded affine signature points).
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -56,6 +57,21 @@ __global__ void g2_decompress_subgroup_kernel(const uint8_t* rows,
   flags[5 * (size_t)n + i] = in_sub;
 }
 
+// --- g2_subgroup_check: one thread per affine row ----------------------------
+
+__global__ void g2_subgroup_check_kernel(const uint32_t* sx,
+                                         const uint32_t* sy, const bool* s_inf,
+                                         bool* in_sub, int n,
+                                         const uint32_t* K) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool ok = true;
+  if (!s_inf[i])
+    ok = psi_check(mont_in2(sx + 24 * (size_t)i, K),
+                   mont_in2(sy + 24 * (size_t)i, K), K);
+  in_sub[i] = ok;
+}
+
 // --- C interface --------------------------------------------------------
 
 extern "C" {
@@ -75,6 +91,15 @@ int bls_g2_decompress_subgroup(const uint8_t* rows, uint32_t* xs,
   if (n > 0)
     g2_decompress_subgroup_kernel<<<(n + 63) / 64, 64, 0, stream>>>(
         rows, xs, ys, flags, n, K);
+  return (int)cudaGetLastError();
+}
+
+int bls_g2_subgroup_check(const uint32_t* sx, const uint32_t* sy,
+                          const bool* s_inf, bool* in_sub, int n,
+                          const uint32_t* K, cudaStream_t stream) {
+  if (n > 0)
+    g2_subgroup_check_kernel<<<(n + 63) / 64, 64, 0, stream>>>(sx, sy, s_inf,
+                                                              in_sub, n, K);
   return (int)cudaGetLastError();
 }
 

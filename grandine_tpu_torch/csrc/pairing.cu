@@ -41,9 +41,12 @@ __global__ void miller_loop_pairs_kernel(const uint32_t* rpk,
 // --- rlc_finish: one block ---------------------------------------------------
 //
 // Sum of r_i*sig_i (a strided loop, then block_tree_sum), the Miller loop
-// of (-g1, that sum), the product of every f_i, the final exponentiation,
-// and the verdict: product == 1, no real aggregate summed to infinity,
-// every signature row decoded, every signature row in G2.
+// of (-g1, that sum), the product of every f_i (a strided loop, then a tree
+// over the block's partial products), the final exponentiation, and the
+// verdict: product == 1, no real aggregate summed to infinity, every
+// signature row decoded, every signature row in G2.
+
+#define BLS_FINISH_DYN_SMEM (BLS_TREE * sizeof(fp12))  // 72 KiB
 
 __global__ void __launch_bounds__(BLS_TREE)
 rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
@@ -51,24 +54,36 @@ rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
                   const bool* sig_sub, int n, uint8_t* verdict,
                   const uint32_t* K) {
   __shared__ jac<fp2> part[BLS_TREE];
+  // the partial Fp12 products: 72 KiB, past the 48 KiB of static shared
+  // memory, so dynamic (bls_rlc_finish raises the kernel's limit)
+  extern __shared__ uint4 dyn_smem[];
+  fp12* fpart = reinterpret_cast<fp12*>(dyn_smem);
   int t = threadIdx.x;
   jac<fp2> acc = jac_inf<fp2>(K);
   bool forged = false, bad = false;
+  fp12 prod = fp12_one(K), fi;
   for (int i = t; i < n; i += BLS_TREE) {
     jac<fp2> q;
     q.x = mont_in2(rsig + 72 * (size_t)i, K);
     q.y = mont_in2(rsig + 72 * (size_t)i + 24, K);
     q.z = mont_in2(rsig + 72 * (size_t)i + 48, K);
     acc = point_add_complete(acc, q, K);
+    fi = fp12_in(f + 144 * (size_t)i, K);
+    fp12_mul_to(prod, prod, fi);
     forged = forged || agg_inf[i];
     bad = bad || !sig_ok[i] || !sig_sub[i];
   }
+  fpart[t] = prod;
   forged = __syncthreads_or(forged);
   bad = __syncthreads_or(bad);
+  for (int s = BLS_TREE / 2; s > 0; s >>= 1) {
+    if (t < s) fp12_mul_to(fpart[t], fpart[t], fpart[t + s]);
+    __syncthreads();
+  }
   block_tree_sum(part, acc, K);
   if (t != 0) return;
   jac<fp2> sig = part[0];
-  fp12 prod = fp12_one(K);
+  fi = fp12_one(K);
   if (!fp2_is_zero(sig.z)) {
     jac<fp2> h;  // Jacobian -> homogeneous (XZ, Y, Z^3)
     h.x = fp2_mul(sig.x, sig.z);
@@ -78,12 +93,9 @@ rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
     ng.x = fp_load(K + 12 * K_NEG_G1_X);
     ng.y = fp_load(K + 12 * K_NEG_G1_Y);
     ng.z = fp_load(K + 12 * K_ONE);
-    miller_loop(prod, ng, h, K);
+    miller_loop(fi, ng, h, K);
   }
-  for (int i = 0; i < n; i++) {
-    fp12 fi = fp12_in(f + 144 * (size_t)i, K);
-    fp12_mul_to(prod, prod, fi);
-  }
+  fp12_mul_to(prod, fpart[0], fi);
   final_exponentiation(prod, K);
   verdict[0] = (fp12_is_one(prod, K) && !forged && !bad) ? 1 : 0;
 }
@@ -105,8 +117,12 @@ int bls_rlc_finish(const uint32_t* f, const uint32_t* rsig,
                    const bool* agg_inf, const bool* sig_ok,
                    const bool* sig_sub, int n, uint8_t* verdict,
                    const uint32_t* K, cudaStream_t stream) {
-  rlc_finish_kernel<<<1, BLS_TREE, 0, stream>>>(f, rsig, agg_inf, sig_ok,
-                                            sig_sub, n, verdict, K);
+  cudaError_t err = cudaFuncSetAttribute(
+      rlc_finish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BLS_FINISH_DYN_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  rlc_finish_kernel<<<1, BLS_TREE, BLS_FINISH_DYN_SMEM, stream>>>(
+      f, rsig, agg_inf, sig_ok, sig_sub, n, verdict, K);
   return (int)cudaGetLastError();
 }
 

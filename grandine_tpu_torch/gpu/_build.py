@@ -36,8 +36,10 @@ BUILD_DIR = os.path.join(CSRC, "build")
 HEADER = "bls12_381.cuh"
 #: source → the C entries it exports (each `bls_<name>`)
 LIBRARIES = {
-    "decompress.cu": ("g1_decompress", "g2_decompress_subgroup"),
+    "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
+                      "g2_subgroup_check"),
     "aggregate.cu": ("aggregate_rlc_scale",),
+    "multi.cu": ("multi_rlc_scale",),
     "pairing.cu": ("miller_loop_pairs", "rlc_finish"),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
@@ -59,8 +61,10 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "g1_decompress": [_vp, _vp, _vp, _vp, _i],
     "g2_decompress_subgroup": [_vp, _vp, _vp, _vp, _i],
+    "g2_subgroup_check": [_vp, _vp, _vp, _vp, _i],
     "aggregate_rlc_scale": [_vp, _vp, _vp, _vp, _i, _i, _vp, _vp, _vp,
                             _vp, _vp, _vp, _vp],
+    "multi_rlc_scale": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
     "miller_loop_pairs": [_vp, _vp, _vp, _vp, _i],
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _i, _vp],
 }

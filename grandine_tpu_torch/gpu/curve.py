@@ -402,6 +402,45 @@ def g2_decompress_subgroup(rows: torch.Tensor):
 g2_decompress_subgroup.launches = 0
 
 
+def g2_subgroup_check_plain(sx, sy, s_inf):
+    """Plain version of `g2_subgroup_check`: `psi_check` on canonical
+    words."""
+    return psi_check(L.from_words(sx), L.from_words(sy), s_inf)
+
+
+def g2_subgroup_check(sx: torch.Tensor, sy: torch.Tensor,
+                      s_inf: torch.Tensor) -> torch.Tensor:
+    """ψ(P) + [|x|]P == ∞ for (N, 2, 12) affine canonical x, y of points on
+    E2, with the (N,) mask s_inf; returns (N,) bool, ∞ rows passing (the
+    caller rejects an infinity signature by policy). CUDA kernel
+    `g2_subgroup_check` (csrc/decompress.cu) on CUDA tensors,
+    `g2_subgroup_check_plain` on CPU tensors.
+
+    Replaces the JAX program grandine_tpu/tpu/bls.py
+    g2_subgroup_check_kernel (:919, `_psi_ladder_check` :208) and, on the
+    uncompressed seams, the fused `_fused_subgroup_mask` (:237). One
+    thread per row over the ψ ladder that `g2_decompress_subgroup` runs.
+    Bound: operations — a 64-step G2 ladder and two Fp2 products (~1,600
+    Fp products a row) against 200 bytes a row; at block and window widths
+    (131 … 1,048 rows, 3 … 17 blocks of 64) the kernel is latency-bound
+    on one thread's ladder, as the decompression kernel is."""
+    n = s_inf.shape[0]
+    if sx.shape != (n, 2, 12) or sy.shape != (n, 2, 12):
+        raise ValueError("g2_subgroup_check: sx, sy must be (N, 2, 12)")
+    if s_inf.device.type == "cpu":
+        return g2_subgroup_check_plain(sx, sy, s_inf)
+    from grandine_tpu_torch.gpu import _build
+
+    out = torch.empty((n,), dtype=torch.bool, device=s_inf.device)
+    _build.launch("g2_subgroup_check", sx.contiguous(), sy.contiguous(),
+                  s_inf.contiguous(), out, ctypes.c_int(n))
+    g2_subgroup_check.launches += 1
+    return out
+
+
+g2_subgroup_check.launches = 0
+
+
 # --- host helpers -----------------------------------------------------------
 
 
@@ -437,6 +476,7 @@ __all__ = [
     "point_add_complete", "scalar_mul", "scalar_mul_glv",
     "scalar_mul_jac_glv", "sum_points_grouped", "psi_check",
     "g1_decompress", "g1_decompress_plain", "g2_decompress_subgroup",
-    "g2_decompress_subgroup_plain", "compressed_rows",
+    "g2_decompress_subgroup_plain", "g2_subgroup_check",
+    "g2_subgroup_check_plain", "compressed_rows",
     "compressed_infinity_flags",
 ]

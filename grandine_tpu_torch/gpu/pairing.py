@@ -144,6 +144,27 @@ def fp12_product(f):
     return f[0]
 
 
+def strided_tree_product(f, tree: int = 128):
+    """Product of a (N, …) batch of Fp12 elements along axis 0 in the
+    order of `rlc_finish`: thread t of a `tree`-wide block multiplies
+    terms t, t + tree, … and the block then folds position t + s into t
+    for s = tree/2 … 1. Each value is canonical and the product
+    commutative, so any order gives the same words; this one is the
+    kernel's."""
+    n = f.shape[0]
+    chunks = max(1, -(-n // tree))
+    pad = chunks * tree - n
+    if pad:
+        f = torch.cat([f, F.fp12_one((pad,), f.device)], 0)
+    acc = F.fp12_one((tree,), f.device)
+    for c in range(chunks):
+        acc = F.fp12_mul(acc, f[c * tree:(c + 1) * tree])
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = F.fp12_mul(acc[:h], acc[h:])
+    return acc[0]
+
+
 def jacobian_to_homogeneous(P):
     """(X, Y, Z) Jacobian → (XZ, Y, Z³) homogeneous, Fp2."""
     Xj, Yj, Zj = P

@@ -1,8 +1,11 @@
-"""The BLS dispatch seam: one coalesced batch of `VerifyItem`s to the
-backend's compressed-ingest seams (counterpart of
-grandine_tpu/tpu/schemes.py `_dispatch_bls_compressed`, without the
-scheduler's stage timers and metrics). This is the entry point of the
-port's verify path: the call a verify scheduler makes once per batch."""
+"""The BLS dispatch seams: one coalesced batch of `VerifyItem`s to the
+backend's compressed-ingest seams (`dispatch_bls_compressed`, counterpart
+of grandine_tpu/tpu/schemes.py `_dispatch_bls_compressed`) or, with the
+signatures decompressed on the host, to its uncompressed seams
+(`dispatch_bls_host_decompress`, counterpart of
+`_dispatch_bls_host_decompress`), without the scheduler's stage timers
+and metrics. These are the entry points of the port's gossip verify
+path: the call a verify scheduler makes once per batch."""
 
 from __future__ import annotations
 
@@ -29,6 +32,32 @@ def sync_registry(registry, items):
     return None
 
 
+def _dispatch_split(items, sigs, registry, indexed_seam, keyed_seam):
+    """Items with member indices and a synced registry go to
+    `indexed_seam`, the rest (keys resolved on the host) to `keyed_seam`;
+    returns the settle callable of the batch verdict."""
+    registry = sync_registry(registry, items)
+    indexed, keyed = [], []
+    for i, it in enumerate(items):
+        if registry is not None and it.member_indices is not None:
+            indexed.append(i)
+        else:
+            keyed.append(i)
+    try:
+        keyed_keys = [items[i].resolve_keys() for i in keyed]
+    except SignatureInvalid:
+        return lambda: False
+    settles = []
+    if indexed:
+        settles.append(indexed_seam(
+            [items[i].message for i in indexed], [sigs[i] for i in indexed],
+            [list(items[i].member_indices) for i in indexed], registry))
+    if keyed:
+        settles.append(keyed_seam([items[i].message for i in keyed],
+                                  [sigs[i] for i in keyed], keyed_keys))
+    return lambda: all(bool(s()) for s in settles)
+
+
 def dispatch_bls_compressed(items, backend, registry):
     """Forward one coalesced BLS batch's raw signature bytes to the
     backend's compressed seams; returns a settle callable giving the
@@ -48,37 +77,36 @@ def dispatch_bls_compressed(items, backend, registry):
         return lambda: False
     if any(sb[0] & 0x40 for sb in sig_bytes):
         return lambda: False
-    registry = sync_registry(registry, items)
-    indexed, keyed = [], []
-    for i, it in enumerate(items):
-        if registry is not None and it.member_indices is not None:
-            indexed.append(i)
-        else:
-            keyed.append(i)
+    return _dispatch_split(
+        items, sig_bytes, registry,
+        backend.fast_aggregate_verify_batch_indexed_compressed_async,
+        backend.fast_aggregate_verify_batch_compressed_async)
+
+
+def dispatch_bls_host_decompress(items, backend, registry):
+    """Decompress one coalesced BLS batch's signatures on the host WITHOUT
+    the per-item subgroup scalar-mul, then send the points to the
+    backend's uncompressed seams, whose verify launches run the ψ check on
+    the card. Returns a settle callable giving the batch verdict, or None
+    when the backend lacks the seams. An undecodable or infinity
+    signature, or an item without usable keys, fails the batch."""
+    if backend is None or not (
+        hasattr(backend, "fast_aggregate_verify_batch_async")
+        and hasattr(backend, "fast_aggregate_verify_batch_indexed_async")
+    ):
+        return None
     try:
-        keyed_keys = [items[i].resolve_keys() for i in keyed]
-    except SignatureInvalid:
+        points = [A.g2_from_bytes(it.signature, subgroup_check=False)
+                  for it in items]
+    except A.BlsError:
         return lambda: False
-    settles = []
-    if indexed:
-        settles.append(
-            backend.fast_aggregate_verify_batch_indexed_compressed_async(
-                [items[i].message for i in indexed],
-                [sig_bytes[i] for i in indexed],
-                [list(items[i].member_indices) for i in indexed],
-                registry,
-            ))
-    if keyed:
-        settles.append(backend.fast_aggregate_verify_batch_compressed_async(
-            [items[i].message for i in keyed],
-            [sig_bytes[i] for i in keyed],
-            keyed_keys,
-        ))
-
-    def settle() -> bool:
-        return all(bool(s()) for s in settles)
-
-    return settle
+    if any(p.is_infinity() for p in points):
+        return lambda: False
+    return _dispatch_split(
+        items, [A.Signature(p) for p in points], registry,
+        backend.fast_aggregate_verify_batch_indexed_async,
+        backend.fast_aggregate_verify_batch_async)
 
 
-__all__ = ["dispatch_bls_compressed", "sync_registry"]
+__all__ = ["dispatch_bls_compressed", "dispatch_bls_host_decompress",
+           "sync_registry"]

@@ -14,7 +14,7 @@ import torch
 
 from grandine_tpu_torch.crypto import bls as A
 from grandine_tpu_torch.crypto.constants import DST_SIGNATURE, R
-from grandine_tpu_torch.crypto.curves import G1
+from grandine_tpu_torch.crypto.curves import G1, g2_infinity
 from grandine_tpu_torch.crypto.hash_to_curve import (
     hash_to_field_fq2, hash_to_g2, map_to_curve_g2)
 from grandine_tpu_torch.gpu import bls as B
@@ -161,3 +161,97 @@ def test_slice_end_to_end_on_the_card(world, cuda_device):
     assert dispatch_bls_compressed(items(sigs), backend, reg)() is True
     forged = [sigs[1]] + sigs[1:]
     assert dispatch_bls_compressed(items(forged), backend, reg)() is False
+
+
+def _points_rows(world, dev):
+    """Affine words of the world's signatures, an ∞ row and a point of E2
+    outside G2, as (sx, sy, inf) on `dev`."""
+    pts = [A.Signature.from_bytes(s).point for s in world[3]]
+    pts += [g2_infinity(), map_to_curve_g2(
+        hash_to_field_fq2(b"ng-1", b"SGT", 1)[0])]
+    sx, sy, inf = B.g2_affine_words_many(pts)
+    return tuple(torch.from_numpy(a.copy()).to(dev) for a in (sx, sy, inf))
+
+
+def test_g2_subgroup_check_matches_plain(world, cuda_device):
+    sx, sy, inf = _points_rows(world, cuda_device)
+    before = C.g2_subgroup_check.launches
+    got = C.g2_subgroup_check(sx, sy, inf)
+    _equal((got,), (C.g2_subgroup_check_plain(sx, sy, inf),))
+    assert C.g2_subgroup_check.launches == before + 1
+    assert got.tolist() == [True] * len(COMMITTEES) + [True, False]
+
+
+@pytest.mark.parametrize("n", [1, 40])
+def test_multi_rlc_scale_matches_plain(world, cuda_device, n):
+    """Registry rows 0 and 15 (the last), ∞ and non-G2 signature rows; at
+    n = 40 two G1 warps and two G2 warps, the second of each ragged."""
+    rng, *_, reg = world
+    rx, ry, _ = reg.arrays()
+    sx, sy, inf = _points_rows(world, cuda_device)
+    rows = torch.arange(n, device=cuda_device) % sx.shape[0]
+    idx = (torch.arange(n, device=cuda_device) * 7 % 16).to(torch.int32)
+    idx[-1] = 15
+    pairs = [B.TorchBlsBackend._rlc_pair(rng) for _ in range(n)]
+    r01 = torch.from_numpy(B.rlc_pairs_words(pairs)).to(cuda_device)
+    args = (rx, ry, idx.contiguous(), sx[rows].contiguous(),
+            sy[rows].contiguous(), inf[rows].contiguous(), r01)
+    before = B.multi_rlc_scale.launches
+    _equal(B.multi_rlc_scale(*args), B.multi_rlc_scale_plain(*args))
+    assert B.multi_rlc_scale.launches == before + 1
+
+
+def test_rlc_finish_wide_product_matches_plain(world, cuda_device):
+    """1,100 terms: past 128 × 8, so the strided product takes nine passes
+    and the tree folds 128 partial products."""
+    args, dec = _scale_args(world, cuda_device)
+    rpk, agg_inf, rsig = B.aggregate_rlc_scale(*args)
+    msg = torch.from_numpy(np.stack([B.g2_affine_words(hash_to_g2(
+        m, DST_SIGNATURE))[0] for m in world[2]])).to(cuda_device)
+    f = TP.miller_loop_pairs(rpk, msg, agg_inf)
+    tile = torch.arange(1100, device=cuda_device) % 5
+    fin = tuple(t[tile].contiguous()
+                for t in (f, rsig, agg_inf, dec[3], dec[7]))
+    v = B.rlc_finish(*fin)
+    _equal((v,), (B.rlc_finish_plain(*fin),))
+    assert v.item() == 1
+    bad = (fin[0], fin[1], fin[2], fin[3], fin[4].clone())
+    bad[4][1099] = False  # one row outside G2
+    assert B.rlc_finish(*bad).item() == 0
+
+
+def test_flat_seams_end_to_end_on_the_card(world, cuda_device):
+    from grandine_tpu_torch.consensus.verifier import (
+        SignatureInvalid, TorchVerifier)
+    from grandine_tpu_torch.gpu.schemes import dispatch_bls_host_decompress
+
+    _, pkb, msgs, sigs, reg = world
+    backend = B.TorchBlsBackend(device=cuda_device)
+    m = len(COMMITTEES) - 1
+    keys = [A.PublicKey.aggregate([A.PublicKey.from_bytes(pkb[j])
+                                   for j in c]) for c in COMMITTEES[:m]]
+    sig_objs = [A.Signature.from_bytes(s) for s in sigs[:m]]
+    v = TorchVerifier(backend)
+    for a, b, c in zip(msgs, sigs, COMMITTEES[:m]):
+        v.verify_aggregate(a, b, [A.PublicKey.from_bytes(pkb[j]) for j in c])
+    v.finish()
+    v = TorchVerifier(backend)
+    v.verify_singular(msgs[0], sigs[1], keys[0])
+    with pytest.raises(SignatureInvalid):
+        v.finish()
+    assert backend.multi_verify_compressed(msgs[:m], sigs[:m], keys) is True
+    outside = A.g2_to_bytes(map_to_curve_g2(
+        hash_to_field_fq2(b"ng-0", b"SGT", 1)[0]))
+    assert backend.multi_verify_compressed(
+        msgs[:m], [outside] + sigs[1:m], keys) is False
+    assert backend.multi_verify(msgs[:m], sig_objs, keys) is True
+    # committees 1 and 5 have one signer each: registry rows 3 and 14
+    assert backend.multi_verify_indexed(
+        [msgs[1], msgs[5]], [sig_objs[1], A.Signature.from_bytes(sigs[5])],
+        [3, 14], reg) is True
+    items = [VerifyItem(a, b, member_indices=c, pubkey_columns=pkb)
+             for a, b, c in zip(msgs[:m], sigs[:m], COMMITTEES[:m])]
+    assert dispatch_bls_host_decompress(items, backend, reg)() is True
+    items[2] = VerifyItem(msgs[2], outside, member_indices=COMMITTEES[2],
+                          pubkey_columns=pkb)
+    assert dispatch_bls_host_decompress(items, backend, reg)() is False

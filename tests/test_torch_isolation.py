@@ -29,7 +29,7 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "grandine_tpu_torch.gpu.bls" in mods and len(mods) >= 15
+    assert "grandine_tpu_torch.gpu.bls" in mods and len(mods) >= 16
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -76,6 +76,16 @@ def test_entry_points_default_to_cuda(cls):
     with pytest.raises(RuntimeError, match="CUDA"):
         cls()
     assert cls(device="cpu").device.type == "cpu"
+
+
+def test_torch_verifier_defaults_to_cuda():
+    from grandine_tpu_torch.consensus.verifier import TorchVerifier
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchVerifier()
+    assert TorchVerifier(device="cpu").backend.device.type == "cpu"
 
 
 def test_package_has_no_prebuilt_binary():
