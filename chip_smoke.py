@@ -30,12 +30,25 @@ Phases (any failure raises and exits non-zero):
      multi_verify_async): valid → True, a forged set in block 5 or a
      signature outside G2 → False; and the slot's 192 aggregates through
      gpu.schemes.dispatch_bls_host_decompress (outside G2 → False);
-  6. each kernel again against its plain version, exactly, on the
+  6. fault localization and the grouped route: the slot's batch with 1
+     forged aggregate, 3 forged in one group of 8, 3 in different groups,
+     1 signature outside G2 — each fails through dispatch_bls_compressed,
+     then runtime.isolation.FaultLocalizer.localize must name exactly the
+     bad items within max_device_passes and with no host sweep, each pass
+     timed; the same for the 1,562-signer unaggregated slot (12 roots,
+     bucket 2,048, ladder 8, 64, 512, 2,048) with 2 forged; the grouped
+     route of multi_verify on a 512-signer sync-committee slot and on the
+     unaggregated slot (valid → True, forged or swapped → False, one
+     launch of g1_group_sum each), and both routes timed on the same
+     triples; the group-indexed rlc_finish and g1_group_sum against their
+     plain versions on edge rows (phase 4) and on every recorded pass;
+  7. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
-     members; the block's 131 sets; the window's 1,048 sets), and its time
-     there (CUDA events, after warm-up) beside the plain version's and its
-     bound; end-to-end p50 of the gossip batch, the block and the window
-     with the hash-to-G2 cache warm and cold, host prep kept apart from
+     members; the block's 131 sets; the window's 1,048 sets; the
+     partition passes; both grouped shapes), and its time there (CUDA
+     events, after warm-up) beside the plain version's and its bound;
+     end-to-end p50 of the gossip batch, the block and the window with
+     the hash-to-G2 cache warm and cold, host prep kept apart from
      device time.
 Prints the card's name and power limit, one `kernels` JSON line, and as
 its last line {"ok": true, "device": {...}}.
@@ -63,6 +76,8 @@ SYNC_COMMITTEE_SIZE = 512
 #: ~4,200 distinct messages on the host would take ~5 minutes)
 WINDOW_BLOCKS = 8
 BLOCK_REPS_WARM, BLOCK_REPS_COLD, WINDOW_REPS_WARM = 5, 3, 3
+#: rounds of (flat, grouped, grouped, flat) when both routes are timed
+ROUTE_ROUNDS = 2
 #: H100 HBM3 rate (NVIDIA data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer multiply / multiply-add results per clock per SM for
@@ -214,13 +229,39 @@ class OpModel:
             total += 6 + (4 + 4 + 3 * ladder if live else 0)
         return total
 
-    def finish(self, m):
-        """rlc_finish: the G2 sum, the Miller loop of (−g1, Σ), each term's
-        conversion and product, the 127-step product tree and the last
-        product, the final exponentiation."""
-        tree = self.add1 * 3 * (max(0, m - 128) + 127)
-        return (tree + 9 + self.miller + m * (self.fp12 + 12)
-                + 128 * self.fp12 + self.final_exp)
+    def finish(self, groups):
+        """rlc_finish over its live groups only, (f terms, signature terms)
+        each, at the least work the function needs, whatever the launch:
+        each term's conversion, nf − 1 Fp12 products and ns − 1 complete
+        additions, the Miller loop of (−g1, Σ) with its conversion and its
+        product with the f terms, the final exponentiation. A dead group
+        costs nothing."""
+        total = 0
+        for nf, ns in groups:
+            if not (nf or ns):
+                continue
+            total += (nf * 12 + ns * 6 + max(0, nf - 1) * self.fp12
+                      + self.add1 * 3 * max(0, ns - 1)
+                      + ((9 + self.miller + (self.fp12 if nf else 0))
+                         if ns else 0)
+                      + self.final_exp)
+        return total
+
+    def group_sum(self, counts):
+        """g1_group_sum: each row's conversion, the complete additions past
+        the first of each thread, the tree adds where both partials are
+        live, the output conversion."""
+        total = 0
+        for c in counts:
+            total += 3 * c + self.add1 * max(0, c - 128)
+            live = min(c, 128)
+            s = 64
+            while s:
+                total += self.add1 * max(0, min(s, live - s))
+                live = min(live, s)
+                s //= 2
+            total += 3
+        return total
 
 
 def bound_ms(fp_muls, nbytes, sms, clock_hz):
@@ -230,10 +271,109 @@ def bound_ms(fp_muls, nbytes, sms, clock_hz):
                                        else "bytes")
 
 
+def finish_shape(record):
+    """(Fp12 terms, signature terms) of each group of a recorded rlc_finish
+    call, and its bytes (each input read once, each verdict written
+    once)."""
+    import numpy as np
+
+    (_f, _rsig, _ai, _ok, _sub, fo, so), _verdict = record
+    groups = list(zip(np.diff(fo).tolist(), np.diff(so).tolist()))
+    nf, ns = int(fo[-1] - fo[0]), int(so[-1] - so[0])
+    return groups, (nf * (576 + 1) + ns * (288 + 2) + 8 * len(groups)
+                    + len(groups))
+
+
+def progression_points(h, a, d, indices, R):
+    """(a + i·d)·h for each validator index i (keys in arithmetic
+    progression): a·h, then successive G2 additions of 2^k·(d·h) over the
+    gaps between sorted indices, so that no signature costs a scalar
+    multiplication. {index: Jacobian point}."""
+    step = [h.mul(d % R)]
+    for _ in range(max(indices).bit_length()):
+        step.append(step[-1].double())
+    acc, prev, out = h.mul(a % R), 0, {}
+    for i in sorted(indices):
+        gap = i - prev
+        k = 0
+        while gap:
+            if gap & 1:
+                acc = acc + step[k]
+            gap >>= 1
+            k += 1
+        out[i], prev = acc, i
+    return out
+
+
+class Recorder:
+    """Stands in for a kernel wrapper of gpu/bls.py while a `with` block
+    runs (the backend looks its wrappers up as module globals at call
+    time) and keeps each call as (its operands normalised by `operands`,
+    its result). The launch count stays the wrapped function's."""
+
+    def __init__(self, module, name, operands):
+        self.module, self.name, self.operands = module, name, operands
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.calls.append((self.operands(*args, **kwargs), out))
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+class PassTimer:
+    """The backend's two localization seams, each pass timed on the host
+    clock from its dispatch to its settled, synchronized result, with the
+    geometry of the finish launch that `finish` (a Recorder) saw last."""
+
+    def __init__(self, backend, torch, finish, geometry):
+        self.backend, self.torch = backend, torch
+        self.finish, self.geometry = finish, geometry
+        self.rows = []
+
+    def _timed(self, kind, size, settle, t0):
+        def run():
+            out = settle()
+            self.torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            geometry = None
+            if kind == "partition":
+                ops = self.finish.calls[-1][0]
+                geometry = self.geometry(ops[0], ops[1], ops[5], ops[6])
+            self.rows.append((kind, size, elapsed, geometry))
+            return out
+        return run
+
+    def g2_subgroup_check_batch_async(self, points):
+        t0 = time.perf_counter()
+        return self._timed("subgroup", len(points),
+                           self.backend.g2_subgroup_check_batch_async(points),
+                           t0)
+
+    def rlc_partition_verify_async(self, messages, signatures, member_keys,
+                                   groups):
+        t0 = time.perf_counter()
+        return self._timed("partition", groups,
+                           self.backend.rlc_partition_verify_async(
+                               messages, signatures, member_keys, groups), t0)
+
+
 # --- main ------------------------------------------------------------------
 
 
 def main() -> None:
+    started = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "grandine_tpu_torch", "csrc")):
         fail("run from a checkout of the repository (grandine_tpu_torch/ "
              "not found beside this script)")
@@ -262,8 +402,11 @@ def main() -> None:
     from grandine_tpu_torch.crypto.fields import Fq
     from grandine_tpu_torch.gpu.schemes import (
         dispatch_bls_compressed, dispatch_bls_host_decompress)
+    from grandine_tpu_torch.runtime.isolation import (
+        FaultLocalizer, max_device_passes)
     from grandine_tpu_torch.runtime.replay import dispatch_window
-    from grandine_tpu_torch.runtime.verify_scheduler import VerifyItem
+    from grandine_tpu_torch.runtime.verify_scheduler import (
+        VerifyItem, host_check_item)
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -282,6 +425,7 @@ def main() -> None:
         "g2_subgroup_check": C.g2_subgroup_check,
         "aggregate_rlc_scale": B.aggregate_rlc_scale,
         "multi_rlc_scale": B.multi_rlc_scale,
+        "g1_group_sum": B.g1_group_sum,
         "miller_loop_pairs": TP.miller_loop_pairs,
         "rlc_finish": B.rlc_finish,
     }
@@ -628,6 +772,45 @@ def main() -> None:
              f"N = {n_e}: registry rows {rows_e[:2]}, signature rows {pick} "
              f"of the edge rows")
 
+    # the group-indexed finish and g1_group_sum on edge rows: partition
+    # passes over 6 gossip aggregates (bucket 8) with item 1 forged and
+    # item 3 keyless — at G = 8 span 1 with G = B, the keyless item's group
+    # and the two padding groups dead; at G = 4 span 2 (one thread a group
+    # still, its loop taking the slots in turn), the last group all
+    # padding, group 1's only other slot the keyless one — and the offsets
+    # of a group sum with empty groups
+    rpk8 = B.multi_rlc_scale(*args)[0]
+    off_e = [0, 0, 3, 3, 8]
+    same("g1_group_sum", B.g1_group_sum(rpk8, off_e),
+         B.g1_group_sum_plain(rpk8, off_e),
+         f"offsets {off_e}: empty groups, 8 rows of multi_rlc_scale")
+    e_keys = [[keys[j] for j in members[i]] for i in range(6)]
+    e_keys[3] = []
+    e_sigs = [A.Signature.from_bytes(sigs[i]) for i in range(6)]
+    e_sigs[1] = e_sigs[2]
+    def finish_operands(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
+                        s_off=None):
+        fo, so, _, _ = B.finish_groups(f, rsig, f_off, s_off)
+        return f, rsig, agg_inf, sig_ok, sig_sub, fo, so
+
+    def recording_finish():
+        return Recorder(B, "rlc_finish", finish_operands)
+
+    for groups, want in ((8, [1, 0, 1, 0, 1, 1, 1, 1]), (4, [0, 0, 1, 1])):
+        with recording_finish() as rec:
+            got = block_backend.rlc_partition_verify(msgs[:6], e_sigs,
+                                                     e_keys, groups, rng=bits)
+        (ops_e, verdict_e), = rec.calls
+        geo = B.rlc_finish_geometry(ops_e[0], ops_e[1], ops_e[5], ops_e[6])
+        same("rlc_finish", verdict_e, B.rlc_finish_plain(*ops_e),
+             f"partition of 6 items at G = {groups}: "
+             f"{geo[0]} blocks of {geo[1]} threads, dead groups "
+             f"{[j for j, (a, b) in enumerate(zip(ops_e[5], ops_e[5][1:])) if a == b]}")
+        log(f"rlc_partition_verify, 6 items, G = {groups}: {got.tolist()}")
+        if got.astype(int).tolist() != want:
+            fail(f"partition verdicts {got.tolist()} at G = {groups}, "
+                 f"expected {want}")
+
     # 5. the replay window and the uncompressed gossip seams ---------------------
     window = [s for b in blocks for s in b]
 
@@ -676,7 +859,203 @@ def main() -> None:
         fail("a signature outside G2 verified through the uncompressed seams")
 
 
-    # 6. timings -----------------------------------------------------------------
+    # 6. fault localization of failed batches, and the grouped route -------------
+    def count_reset():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def count_read():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    finish_records = []  # (where, recorded rlc_finish call)
+
+    def localize_failed(where, items, bad):
+        """The batch fails through dispatch_bls_compressed; then localize
+        names exactly the bad items, every pass timed, no host sweep,
+        within the pass bound. Returns the run's launches and passes."""
+        v = dispatch_bls_compressed(items, backend, registry)()
+        if v is not False:
+            fail(f"{where}: the failed batch verified")
+        leaf_s = []
+
+        def leaf(item):
+            t = time.perf_counter()
+            out = host_check_item(item)
+            leaf_s.append(time.perf_counter() - t)
+            return out
+
+        loc = FaultLocalizer(host_check=leaf)
+        count_reset()
+        with recording_finish() as rec:
+            timer = PassTimer(backend, torch, rec, B.rlc_finish_geometry)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            verdicts = loc.localize(timer, items)
+            total = time.perf_counter() - t0
+        run_launches = count_read()
+        finish_records.extend((where, r) for r in rec.calls)
+        want = [i not in bad for i in range(len(items))]
+        device_passes = loc.passes["g2_subgroup"] + loc.passes["rlc_partition"]
+        bound = max_device_passes(len(items))
+        passes_s = sum(r[2] for r in timer.rows)
+        log(f"localize {where}: {len(items)} items, named bad "
+            f"{[i for i, x in enumerate(verdicts) if not x]} (forged "
+            f"{sorted(bad)}); {device_passes} device passes (bound {bound}), "
+            f"{loc.passes['host']} host-sweep passes; {total * 1e3:.1f} ms = "
+            f"host pre-pass {(total - passes_s - sum(leaf_s)) * 1e3:.1f} ms + "
+            f"passes {passes_s * 1e3:.1f} ms + {len(leaf_s)} host leaf checks "
+            f"{sum(leaf_s) * 1e3:.1f} ms {at}")
+        for kind, size, secs, geo in timer.rows:
+            if kind == "subgroup":
+                log(f"  pass g2_subgroup over {size} items: "
+                    f"{secs * 1e3:.1f} ms {at}")
+                continue
+            waves = -(-geo[0] // (geo[3] * sms)) if geo[3] else 0
+            log(f"  pass rlc_partition G = {size}: {secs * 1e3:.1f} ms; "
+                f"rlc_finish {geo[0]} blocks of {geo[1]} threads, "
+                f"{geo[2]} B dynamic shared memory, {geo[3]} blocks an SM, "
+                f"{waves} wave(s) on {sms} SMs {at}")
+        if verdicts != want:
+            fail(f"{where}: localize named {verdicts}, expected {want}")
+        if loc.passes["host"] or device_passes > bound:
+            fail(f"{where}: {dict(loc.passes)} (bound {bound})")
+        if run_launches["rlc_finish"] != loc.passes["rlc_partition"] or \
+                run_launches["g2_subgroup_check"] < loc.passes["g2_subgroup"]:
+            fail(f"{where}: launches {run_launches} for passes "
+                 f"{dict(loc.passes)}")
+        return run_launches, dict(loc.passes), timer.rows
+
+    gossip_bad = {
+        "1 forged": {0},
+        "3 forged in one group of 8": {40, 45, 50},
+        "3 forged in different groups": {5, 100, 180},
+        "1 outside G2": {9},
+    }
+    loc_launches = {}
+    for where, bad_items in gossip_bad.items():
+        sl = list(sigs)
+        for i in bad_items:
+            sl[i] = nonsub if where == "1 outside G2" else sigs[i + 1]
+        loc_launches[where] = localize_failed(
+            f"gossip slot, {where}", items_of(msgs, sl, members), bad_items)[0]
+
+    # the unaggregated attestation slot: each of the slot's validators
+    # signs its committee's root; keys in arithmetic progression, so each
+    # committee's signatures come by successive G2 additions
+    t0 = time.perf_counter()
+    a0, d0 = sks[0], (sks[1] - sks[0]) % R
+    unagg_pts = {}
+    for c, com in enumerate(committees):
+        for i, pt in progression_points(hpts[c], a0, d0, com, R).items():
+            unagg_pts[i] = (c, pt)
+    order = sorted(unagg_pts, key=lambda i: (unagg_pts[i][0], i))
+    u_msgs = [roots[unagg_pts[i][0]] for i in order]
+    u_sigs = [A.Signature(unagg_pts[i][1]) for i in order]
+    u_keys = [keys[i] for i in order]
+    sync_root = rng.randbytes(32)
+    sync_members = sorted(rng.sample(range(N_VALIDATORS - 1),
+                                     SYNC_COMMITTEE_SIZE))
+    h_sync = hash_to_g2(sync_root, DST_SIGNATURE)
+    s_pts = progression_points(h_sync, a0, d0, sync_members, R)
+    s_msgs = [sync_root] * SYNC_COMMITTEE_SIZE
+    s_sigs = [A.Signature(s_pts[i]) for i in sync_members]
+    s_keys = [keys[i] for i in sync_members]
+    u_bytes = [A.g2_to_bytes(s.point) for s in u_sigs]
+    if not A.Signature.from_bytes(u_bytes[0]).verify(u_msgs[0], u_keys[0]):
+        fail("the host anchor rejects an unaggregated signature")
+    log(f"host prep: {len(order)} unaggregated signatures over "
+        f"{len(roots)} roots and a {SYNC_COMMITTEE_SIZE}-signer sync "
+        f"committee slot by G2 additions: {time.perf_counter() - t0:.1f} s "
+        f"(host, not device)")
+    u_bad = {100, 1000}
+    u_sl = list(u_bytes)
+    for i in u_bad:
+        u_sl[i] = u_bytes[i + 1]
+    wide_where = f"unaggregated slot, 2 forged (bucket {B._bucket(len(order))})"
+    loc_launches["wide"], _, _ = localize_failed(
+        wide_where, [VerifyItem(m, sb, member_indices=[i],
+                                pubkey_columns=pubkeys)
+                     for m, sb, i in zip(u_msgs, u_sl, order)], u_bad)
+
+    # the grouped route: both shapes valid, forged, swapped
+    grouped_records = {}
+    shapes = {
+        f"sync committee, {SYNC_COMMITTEE_SIZE} signers over 1 root":
+            (s_msgs, s_sigs, s_keys),
+        f"unaggregated slot, {len(order)} signers over {len(roots)} roots":
+            (u_msgs, u_sigs, u_keys),
+    }
+    for where, (ml, sl, kl) in shapes.items():
+        groups = B.message_groups(ml)
+        if not B.grouped_route(len(groups), max(map(len, groups.values())),
+                               len(ml)):
+            fail(f"{where}: the JAX package's rule does not group it")
+        count_reset()
+        with recording_finish() as fin_rec, Recorder(
+                B, "g1_group_sum",
+                lambda rows, offsets: (rows, np.asarray(offsets))) as sum_rec:
+            v = backend.multi_verify(ml, sl, kl)
+            torch.cuda.synchronize()
+        grouped_records[where] = (fin_rec.calls[0], sum_rec.calls[0],
+                                  count_read())
+        log(f"grouped route, {where}: valid -> {v}; launches "
+            f"{json.dumps(grouped_records[where][2])}")
+        if v is not True or any(grouped_records[where][2][k] != 1 for k in (
+                "g1_group_sum", "multi_rlc_scale", "miller_loop_pairs",
+                "rlc_finish", "g2_subgroup_check")):
+            fail(f"{where}: the valid batch or its launches")
+        forged = list(sl)
+        forged[7] = sl[8]
+        # set 3 and the first set of another root (of set 4 on one root)
+        other = next((i for i, m in enumerate(ml) if m != ml[3]), 4)
+        swapped = list(sl)
+        swapped[3], swapped[other] = sl[other], sl[3]
+        for name, bad_l in (("1 forged", forged),
+                            ("2 swapped " + ("across roots" if other != 4
+                                             else "between signers"),
+                             swapped)):
+            v = backend.multi_verify(ml, bad_l, kl)
+            log(f"grouped route, {where}, {name}: -> {v}")
+            if v is not False:
+                fail(f"{where}: {name} verified")
+
+    # both routes on the same triples, in turns (flat, grouped, grouped,
+    # flat), host prep apart from the device wait
+    route_rows = {}
+    for where, (ml, sl, kl) in shapes.items():
+        groups = B.message_groups(ml)
+        sx_k, sy_k = backend._keys_src([pk.point for pk in kl])
+        idx_k = np.arange(len(ml), dtype=np.int32)
+        runs = {
+            "flat": lambda: backend._flat_multi_verify_async(
+                ml, sl, sx_k, sy_k, idx_k, DST_SIGNATURE, bits, False),
+            "grouped": lambda: backend._grouped_multi_verify_async(
+                groups, sl, sx_k, sy_k, DST_SIGNATURE, bits),
+        }
+        rows_r = {"flat": [], "grouped": []}
+        for name in ["flat", "grouped"] + ["flat", "grouped", "grouped",
+                                           "flat"] * ROUTE_ROUNDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            settle = runs[name]()
+            t1 = time.perf_counter()
+            if settle() is not True:
+                fail(f"{where}: the {name} route rejected a valid batch")
+            rows_r[name].append((time.perf_counter() - t0, t1 - t0))
+        for name, rr in rows_r.items():
+            rr = rr[1:]  # the first of each route warms it up
+            total = statistics.median(r[0] for r in rr)
+            host = statistics.median(r[1] for r in rr)
+            route_rows[(where, name)] = total
+            log(f"route {name}, {where}: p50 {total * 1e3:.1f} ms over "
+                f"{len(rr)} (host prep + enqueue {host * 1e3:.1f} ms, device "
+                f"wait {(total - host) * 1e3:.1f} ms) {at}")
+        g, f_ = route_rows[(where, "grouped")], route_rows[(where, "flat")]
+        log(f"route comparison, {where}: grouped / flat = {g / f_:.3f} "
+            f"({'grouped' if g < f_ else 'flat'} faster by "
+            f"{abs(f_ - g) * 1e3:.1f} ms) {at}")
+
+    # 7. timings -----------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -777,7 +1156,7 @@ def main() -> None:
          "grandine_tpu/tpu/pairing.py:208"),
         ("rlc_finish", lambda: B.rlc_finish(*fin),
          lambda: B.rlc_finish_plain(*fin), 5,
-         ops.finish(m_aggs), m_aggs * (576 + 288 + 3) + 1,
+         ops.finish([(m_aggs, m_aggs)]), m_aggs * (576 + 288 + 3) + 1,
          "grandine_tpu/tpu/bls.py:162"),
     ]
     timed = [(name, gossip, *rest) for name, *rest in timed]
@@ -806,32 +1185,81 @@ def main() -> None:
                  "grandine_tpu/tpu/pairing.py:208"),
                 ("rlc_finish", where, lambda a=fin_f: B.rlc_finish(*a),
                  lambda a=fin_f: B.rlc_finish_plain(*a), 5,
-                 ops.finish(n), n * (576 + 288 + 3) + 1,
+                 ops.finish([(n, n)]), n * (576 + 288 + 3) + 1,
                  "grandine_tpu/tpu/bls.py:162"),
             ]
+    # the reworked and new kernels on the operands their paths gave them:
+    # rlc_finish at each partition width of two localizations and on the
+    # grouped route, g1_group_sum on both grouped shapes; every other
+    # recorded partition pass is held against the plain version below
+    timed_finish = ("gossip slot, 3 forged in different groups", wide_where)
+    for where, record in finish_records:
+        if where not in timed_finish:
+            continue
+        groups, nbytes = finish_shape(record)
+        g_n = len(groups)
+        wide = where == wide_where and g_n == B._bucket(len(order))
+        timed.append((
+            "rlc_finish", f"{where}, partition G = {g_n}",
+            lambda a=record[0]: B.rlc_finish(*a),
+            lambda a=record[0]: B.rlc_finish_plain(*a), 3,
+            ops.finish(groups), nbytes,
+            "grandine_tpu/tpu/bls.py:177",
+            loc_launches["wide" if where == wide_where else
+                         where.split(", ", 1)[1]]["rlc_finish"],
+            "rlc_finish/partition" if wide else "rlc_finish"))
+    for where in reversed(list(shapes)):
+        fin_rec, sum_rec, path_launches = grouped_records[where]
+        (rows_g, off_g), _ = sum_rec
+        counts = np.diff(off_g).tolist()
+        timed.append((
+            "g1_group_sum", f"grouped route, {where}",
+            lambda a=(rows_g, off_g): B.g1_group_sum(*a),
+            lambda a=(rows_g, off_g): B.g1_group_sum_plain(*a), 5,
+            ops.group_sum(counts), rows_g.shape[0] * 144
+            + len(counts) * (144 + 4) + 4, "grandine_tpu/tpu/bls.py:483",
+            path_launches["g1_group_sum"], "g1_group_sum"))
+        groups, nbytes = finish_shape(fin_rec)
+        timed.append((
+            "rlc_finish", f"grouped route, {where}",
+            lambda a=fin_rec[0]: B.rlc_finish(*a),
+            lambda a=fin_rec[0]: B.rlc_finish_plain(*a), 3,
+            ops.finish(groups), nbytes,
+            "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
+            "rlc_finish"))
+    for where, (ops_r, verdict_r) in finish_records:
+        if where in timed_finish:
+            continue
+        same("rlc_finish", verdict_r, B.rlc_finish_plain(*ops_r),
+             f"main-path operands, {where}, partition G = "
+             f"{len(ops_r[5]) - 1}")
+
     report = []
     sources = {name: src for src, names in _build.LIBRARIES.items()
                for name in names}
-    for name, where, kern, plain, reps, fp_muls, nbytes, replaces in timed:
+    for row in timed:
+        name, where, kern, plain, reps, fp_muls, nbytes, replaces = row[:8]
         source = sources[name]
         ms, got = cuda_ms(kern, reps)
         p_ms, ref = plain_ms(plain)
         err = same(name, got, ref, f"main-path operands, {where}")
         b_ms, b_by = bound_ms(fp_muls, nbytes, sms, clock_hz)
         # launches: on the gossip path for its kernels, on the block path
-        # for the kernels this path brought
-        n_l = (launches if where == gossip else block_launches)[name]
+        # for the kernels it brought, on its own path for the rest
+        n_l = row[8] if len(row) > 8 else (
+            launches if where == gossip else block_launches)[name]
+        entry = row[9] if len(row) > 9 else name
         log(f"time {name} ({where}): kernel {ms:.3f} ms, plain {p_ms:.1f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}; {fp_muls} Fp products, "
             f"{nbytes} B), launches on its path {n_l} {at}")
-        if name in errs:  # the kernels line: each kernel at its first shape
+        if entry in errs:  # the kernels line: each entry at its first shape
             continue
-        errs[name] = err
+        errs[entry] = err
         report.append({
-            "name": name, "route": "cuda",
+            "name": entry, "route": "cuda",
             "source": "grandine_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": n_l,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": p_ms,
+            "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
 
@@ -917,6 +1345,8 @@ def main() -> None:
         f"{sum(window_cold) * 1e3:.1f} ms {at}")
     if not all(v is True for v, _, _ in rows):
         fail("a valid window did not verify")
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the "
+        f"build included")
     log(json.dumps({"kernels": report}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ from typing import Sequence
 
 from grandine_tpu_torch.crypto import bls as A
 from grandine_tpu_torch.gpu.bls import TorchBlsBackend
-from grandine_tpu_torch.gpu.registry import decompress_registry_pubkey
+from grandine_tpu_torch.consensus.keys import decompress_pubkey
 
 
 class SignatureInvalid(Exception):
@@ -71,7 +71,7 @@ class Verifier:
         if not member_indices:
             raise SignatureInvalid("aggregate with no public keys")
         try:
-            pks = [decompress_registry_pubkey(bytes(pubkey_columns[int(i)]))
+            pks = [decompress_pubkey(pubkey_columns[int(i)], trusted=True)
                    for i in member_indices]
         except Exception as e:
             raise SignatureInvalid(f"invalid registry pubkey: {e}") from e

@@ -843,19 +843,29 @@ BLS_HD fp12 fp12_in(const uint32_t* w, const uint32_t* K) {
 #define BLS_TREE 128  // threads of the per-aggregate and final-sum trees
 
 #ifdef __CUDACC__
-// Folds the block's BLS_TREE partial sums `acc` pairwise in shared memory
-// (part[t] += part[t + s] for s = BLS_TREE/2 .. 1, the order of
-// gpu/msm.py strided_tree_sum); the total lands in part[0].
+// Folds n partial sums `acc` (thread t < n holds one) pairwise in shared
+// memory: part[t] += part[t + s] for s = pow2ceil(n)/2 .. 1 where t + s < n
+// (the order of gpu/msm.py strided_tree_sum); the total lands in part[0].
+// Every thread of the block takes part; part holds n points.
+template <class F>
+__device__ void block_tree_sum_n(jac<F>* part, const jac<F>& acc, int n,
+                                 const uint32_t* K) {
+  int t = threadIdx.x;
+  if (t < n) part[t] = acc;
+  __syncthreads();
+  int s = 1;
+  while (2 * s < n) s *= 2;
+  for (; s > 0; s >>= 1) {
+    if (t < s && t + s < n) part[t] = point_add_complete(part[t], part[t + s], K);
+    __syncthreads();
+  }
+}
+
+// block_tree_sum_n over a BLS_TREE-thread block
 template <class F>
 __device__ void block_tree_sum(jac<F>* part, const jac<F>& acc,
                                const uint32_t* K) {
-  int t = threadIdx.x;
-  part[t] = acc;
-  __syncthreads();
-  for (int s = BLS_TREE / 2; s > 0; s >>= 1) {
-    if (t < s) part[t] = point_add_complete(part[t], part[t + s], K);
-    __syncthreads();
-  }
+  block_tree_sum_n(part, acc, BLS_TREE, K);
 }
 #endif
 

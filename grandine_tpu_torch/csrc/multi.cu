@@ -1,4 +1,5 @@
-// The per-set kernel of the flat BLS verify path: multi_rlc_scale.
+// The per-set kernels of the flat and message-grouped BLS verify paths:
+// multi_rlc_scale and g1_group_sum.
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -59,6 +60,32 @@ __global__ void multi_rlc_scale_kernel(const uint32_t* src_x,
   }
 }
 
+// --- g1_group_sum: one block of BLS_TREE threads per group --------------------
+//
+// Group m sums the Jacobian G1 rows [offsets[m], offsets[m+1]): thread t
+// adds rows t, t + BLS_TREE, ... (complete adds), block_tree_sum folds the
+// partial sums, thread 0 writes the total (infinity for an empty group).
+
+__global__ void __launch_bounds__(BLS_TREE)
+g1_group_sum_kernel(const uint32_t* rows, const int32_t* offsets,
+                    uint32_t* out, const uint32_t* K) {
+  __shared__ jac<fp> part[BLS_TREE];
+  int m = blockIdx.x, t = threadIdx.x;
+  jac<fp> acc = jac_inf<fp>(K);
+  for (int i = offsets[m] + t; i < offsets[m + 1]; i += BLS_TREE) {
+    jac<fp> q;
+    q.x = mont_in(rows + 36 * (size_t)i, K);
+    q.y = mont_in(rows + 36 * (size_t)i + 12, K);
+    q.z = mont_in(rows + 36 * (size_t)i + 24, K);
+    acc = point_add_complete(acc, q, K);
+  }
+  block_tree_sum(part, acc, K);
+  if (t != 0) return;
+  mont_out(out + 36 * (size_t)m, part[0].x);
+  mont_out(out + 36 * (size_t)m + 12, part[0].y);
+  mont_out(out + 36 * (size_t)m + 24, part[0].z);
+}
+
 // --- C interface --------------------------------------------------------
 
 extern "C" {
@@ -75,6 +102,13 @@ int bls_multi_rlc_scale(const uint32_t* src_x, const uint32_t* src_y,
         src_x, src_y, idx, n, g1_warps, sig_x, sig_y, sig_mask, r01, rpk,
         rsig, K);
   }
+  return (int)cudaGetLastError();
+}
+
+int bls_g1_group_sum(const uint32_t* rows, const int32_t* offsets, int m,
+                     uint32_t* out, const uint32_t* K, cudaStream_t stream) {
+  if (m > 0)
+    g1_group_sum_kernel<<<m, BLS_TREE, 0, stream>>>(rows, offsets, out, K);
   return (int)cudaGetLastError();
 }
 

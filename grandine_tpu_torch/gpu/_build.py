@@ -39,8 +39,8 @@ LIBRARIES = {
     "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
                       "g2_subgroup_check"),
     "aggregate.cu": ("aggregate_rlc_scale",),
-    "multi.cu": ("multi_rlc_scale",),
-    "pairing.cu": ("miller_loop_pairs", "rlc_finish"),
+    "multi.cu": ("multi_rlc_scale", "g1_group_sum"),
+    "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry"),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
 #: the deepest kernel's need (ptxas "cumulative stack size") rounded up to
@@ -66,7 +66,9 @@ SIGNATURES = {
                             _vp, _vp, _vp, _vp],
     "multi_rlc_scale": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
     "miller_loop_pairs": [_vp, _vp, _vp, _vp, _i],
-    "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _i, _vp],
+    "g1_group_sum": [_vp, _vp, _i, _vp],
+    "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
+    "rlc_finish_geometry": [_i, _i, _vp],
 }
 
 _lock = threading.Lock()
@@ -228,7 +230,8 @@ def constant_table(device) -> torch.Tensor:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry `bls_<name>` with tensors as device pointers."""
+    """Call C entry `bls_<name>` with tensors as device pointers (on the
+    current device when none is given)."""
     lib = library()
     device = None
     cargs = []
@@ -244,6 +247,8 @@ def launch(name: str, *args) -> None:
             cargs.append(ctypes.c_void_p(a.data_ptr()))
         else:
             cargs.append(a)
+    if device is None:  # a query with no tensor: the current device
+        device = torch.device("cuda", torch.cuda.current_device())
     table = constant_table(device)
     with torch.cuda.device(device):
         if device.index not in _limited:

@@ -2,8 +2,8 @@
 decompression, and the host-facing backend.
 
 `TorchBlsBackend` is the counterpart of grandine_tpu/tpu/bls.py
-TpuBlsBackend with its verify seams and their edge semantics. Two
-families of batches run on the same kernels:
+TpuBlsBackend with its verify seams and their edge semantics. Four
+kinds of batches run on the same kernels:
 
   fast-aggregate (M aggregates, each one message over many signers —
   gossip): g2_decompress_subgroup or g2_subgroup_check (gpu/curve.py),
@@ -15,7 +15,19 @@ families of batches run on the same kernels:
   flat (N signature sets, one signer key each — a block's sets, a replay
   window): the same signature plane, multi_rlc_scale (this module: rᵢ·pkᵢ
   and rᵢ·sigᵢ), miller_loop_pairs, rlc_finish — replacing
-  multi_verify_msm{,_idx,_comp}.
+  multi_verify_msm{,_idx,_comp};
+
+  message-grouped (N sets over M ≤ N/2 messages — a sync-committee slot,
+  unaggregated attestations): multi_rlc_scale, g1_group_sum (this module:
+  Σᵢ∈ⱼ rᵢ·pkᵢ per message), M Miller loops, rlc_finish over M message
+  terms and N signature terms — replacing grouped_multi_verify_msm;
+
+  RLC partition (the fault localizer's passes): the flat kernels with
+  rlc_finish giving one verdict per contiguous group of sets —
+  replacing rlc_partition_verify.
+
+rlc_finish is one group-indexed kernel for all four: offsets name each
+group's terms, and groups with no term cost nothing.
 
 Keyed seams upload their keys' affine coordinates as the gather source
 and pass an index plane over them, so the registry-indexed and keyed
@@ -203,70 +215,241 @@ def multi_rlc_scale(src_x, src_y, idx, sig_x, sig_y, sig_mask, r01):
 multi_rlc_scale.launches = 0
 
 
+# --- g1_group_sum ---------------------------------------------------------------
+
+
+def _offsets(offsets, n: int, what: str) -> np.ndarray:
+    """Group offsets as an int64 array: M + 1 non-decreasing ints in
+    [0, n]; raises ValueError otherwise."""
+    off = np.asarray(offsets, np.int64).reshape(-1)
+    if (off.size < 2 or off[0] < 0 or off[-1] > n
+            or (np.diff(off) < 0).any()):
+        raise ValueError(f"{what}: offsets must be M + 1 non-decreasing "
+                         f"ints in [0, {n}], got {off.tolist()}")
+    return off
+
+
+def _offsets_to(off: np.ndarray, device) -> torch.Tensor:
+    """int32 offsets on the card without waiting: a copy from pageable
+    host memory first waits for every kernel queued on the stream, which
+    would hold the host until the batch's earlier kernels finish, so the
+    table goes through pinned memory, non-blocking."""
+    return torch.from_numpy(off.astype(np.int32)).pin_memory().to(
+        device, non_blocking=True)
+
+
+def g1_group_sum_plain(rows, offsets):
+    """Plain version of `g1_group_sum`: the groups' sums in the kernel's
+    order (msm.sum_points_contiguous over a BLS_TREE-thread block)."""
+    off = _offsets(offsets, rows.shape[0], "g1_group_sum")
+    total = msm.sum_points_contiguous(C.jac_from_words(rows, 1), off,
+                                      C.FP_OPS)
+    return C.jac_to_words(total, 1)
+
+
+def g1_group_sum(rows, offsets):
+    """Σ of the Jacobian G1 rows (N, 3, 12) of each group [offsets[m],
+    offsets[m+1]) — offsets, M + 1 host ints, are the only way groups are
+    given — as (M, 3, 12) Jacobian words, ∞ (1, 1, 0) for an empty group.
+    CUDA kernel `g1_group_sum` (csrc/multi.cu) on CUDA tensors, the plain
+    version on CPU tensors.
+
+    Replaces, in grandine_tpu/tpu/bls.py grouped_multi_verify_msm_kernel
+    (:483), the per-message key MSM Σᵢ∈ⱼ rᵢ·pkᵢ of `_grouped_msm_verify_tail`
+    (:461-466), given the rᵢ·pkᵢ that `multi_rlc_scale` computes per set
+    (the bucket MSM is queued as a perf item). One block of 128 threads per
+    group: a strided loop of complete additions, then the shared-memory
+    tree. Bound: operations — one complete G1 addition (16 Fp products) a
+    row against 144 bytes a row; at M = 12 groups on 132 SMs the kernel is
+    latency-bound on the ⌈rows/128⌉ + 7 dependent additions of a group."""
+    if rows.device.type == "cpu":
+        return g1_group_sum_plain(rows, offsets)
+    return _g1_group_sum_cuda(rows, offsets)
+
+
+def _g1_group_sum_cuda(rows, offsets):
+    from grandine_tpu_torch.gpu import _build
+
+    n = rows.shape[0]
+    if rows.shape != (n, 3, 12) or rows.dtype != torch.int32:
+        raise ValueError("g1_group_sum: rows (N, 3, 12) int32")
+    off = _offsets(offsets, n, "g1_group_sum")
+    m = off.size - 1
+    out = torch.empty((m, 3, 12), dtype=torch.int32, device=rows.device)
+    _build.launch("g1_group_sum", rows.contiguous(),
+                  _offsets_to(off, rows.device), ctypes.c_int(m), out)
+    g1_group_sum.launches += 1
+    return out
+
+
+g1_group_sum.launches = 0
+
+
 # --- rlc_finish -----------------------------------------------------------------
 
 
-def rlc_sig_miller_plain(rsig):
-    """f(−g1, Σ rᵢ·sigᵢ): the signature terms (M, 3, 2, 12) summed in the
-    kernel's order, then the Miller loop against −g1; a (1, …) Fp12."""
+#: the widest span that `rlc_finish` runs one thread a group: a slot (an
+#: Fp12 term and a signature term) costs that thread ~120 Fp products in
+#: its strided loop, so 8 slots are ~3 % of the ~30,000 of its Miller loop
+#: and final exponentiation, about what a 32-thread block's tree (5
+#: levels) would cost instead — and 32 groups share a warp where a block
+#: would leave 31 lanes idle through the tail
+PER_THREAD_SPAN = 8
+
+
+def finish_threads(spans) -> int:
+    """Threads `rlc_finish` gives each live group of one launch, from the
+    groups' spans (terms of the more numerous kind): 1 when no group
+    spans more than PER_THREAD_SPAN (one thread a group, its strided loop
+    sequential, no tree), else ⌈widest/32⌉ warps, at most one 128-thread
+    block."""
+    widest = max(spans, default=0)
+    if widest <= PER_THREAD_SPAN:
+        return 1
+    return min(msm.TREE, 32 * -(-widest // 32))
+
+
+def finish_groups(f, rsig, f_off=None, s_off=None):
+    """(f_off, s_off, live group ids, threads) of an `rlc_finish` call; no
+    offsets means one group over every term."""
+    n_f, n_s = f.shape[0], rsig.shape[0]
+    fo = _offsets([0, n_f] if f_off is None else f_off, n_f, "rlc_finish")
+    so = _offsets([0, n_s] if s_off is None else s_off, n_s, "rlc_finish")
+    if fo.size != so.size:
+        raise ValueError("rlc_finish: f_off and s_off name different "
+                         "numbers of groups")
+    span = np.maximum(np.diff(fo), np.diff(so))
+    live = np.nonzero(span > 0)[0]
+    return fo, so, live, finish_threads(span[live].tolist())
+
+
+def rlc_sig_miller_plain(rsig, offsets=None, tree: int = msm.TREE):
+    """f(−g1, Σ rᵢ·sigᵢ) per group [offsets[m], offsets[m+1]) of the
+    signature terms (M, 3, 2, 12) (no offsets: one group), each sum in
+    the kernel's order; an (M, …) Fp12 batch."""
     dev = rsig.device
-    m = rsig.shape[0]
-    sig = msm.strided_tree_sum(
-        tuple(c.unsqueeze(0) for c in C.jac_from_words(rsig, 2)),
-        torch.ones((1, m), dtype=torch.bool, device=dev), C.FP2_OPS)
+    off = [0, rsig.shape[0]] if offsets is None else offsets
+    sig = msm.sum_points_contiguous(C.jac_from_words(rsig, 2), off,
+                                    C.FP2_OPS, tree)
+    m = sig[0].shape[0]
     neg = (-G1).to_affine()
-    ng = (L.const_fp(neg[0].n, (1,), dev), L.const_fp(neg[1].n, (1,), dev),
-          L.one_fp((1,), dev))
+    ng = (L.const_fp(neg[0].n, (m,), dev), L.const_fp(neg[1].n, (m,), dev),
+          L.one_fp((m,), dev))
     return TP.miller_loop(ng, TP.jacobian_to_homogeneous(sig),
                           F.fp2_is_zero(sig[2]))
 
 
-def rlc_finish_plain(f, rsig, agg_inf, sig_ok, sig_sub):
-    """Plain version of `rlc_finish`: (1,) uint8 verdict; the product in
-    the kernel's order (strided loop, then tree)."""
-    prod = F.fp12_mul(TP.strided_tree_product(L.from_words(f), msm.TREE),
-                      rlc_sig_miller_plain(rsig)[0])
-    one = F.fp12_is_one(TP.final_exponentiation(prod))
-    ok = one & ~agg_inf.any() & sig_ok.all() & sig_sub.all()
-    return ok.reshape(1).to(torch.uint8)
+def _segment_any(flags, lo, hi):
+    """any(flags[lo[m]:hi[m]]) per segment."""
+    cs = torch.cat([flags.new_zeros(1, dtype=torch.int64),
+                    flags.to(torch.int64).cumsum(0)])
+    lo_t = torch.from_numpy(lo).to(flags.device)
+    hi_t = torch.from_numpy(hi).to(flags.device)
+    return (cs[hi_t] - cs[lo_t]) > 0
 
 
-def rlc_finish(f, rsig, agg_inf, sig_ok, sig_sub):
-    """The verdict of one RLC batch: Σ rᵢ·sigᵢ, its Miller loop against
-    −g1, the product with every fᵢ (M, 2, 3, 2, 12), the final
-    exponentiation, and the folds: product is one, no aggregate summed to
-    ∞ (agg_inf), every signature row decoded (sig_ok) and in G2
-    (sig_sub). Returns a (1,) uint8 tensor. CUDA kernel `rlc_finish`
-    (csrc/pairing.cu) on CUDA tensors, the plain version on CPU tensors.
+def rlc_finish_plain(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
+                     s_off=None):
+    """Plain version of `rlc_finish`: (G,) uint8 verdicts; each live
+    group's product and sum in the kernel's order at the launch's thread
+    count, the groups batched; dead groups 1."""
+    fo, so, live, threads = finish_groups(f, rsig, f_off, s_off)
+    out = torch.ones((fo.size - 1,), dtype=torch.uint8, device=f.device)
+    if live.size == 0:
+        return out
+    # dead groups hold no terms, so the live ones tile the same ranges
+    lf = np.append(fo[live], fo[-1])
+    ls = np.append(so[live], so[-1])
+    prod = TP.fp12_product_tree_grouped(L.from_words(f), lf, threads)
+    one = F.fp12_is_one(TP.final_exponentiation(
+        F.fp12_mul(prod, rlc_sig_miller_plain(rsig, ls, threads))))
+    bad = (_segment_any(agg_inf, lf[:-1], lf[1:])
+           | _segment_any(~(sig_ok & sig_sub), ls[:-1], ls[1:]))
+    out[torch.from_numpy(live).to(f.device)] = (one & ~bad).to(torch.uint8)
+    return out
 
-    Replaces grandine_tpu/tpu/bls.py `_rlc_finish` (:162) with
-    grandine_tpu/tpu/pairing.py fp12_product_tree (:334) and
-    final_exp_is_one (:300), the tree sum of the signature MSM, and the
-    verdict folds of bls.py:703-724 and :857-865 (fast-aggregate) and of
-    `_flat_msm_verify_tail` (flat sets, agg_inf all False). One block of
-    128 threads: a strided loop gives each thread a share of the signature
-    terms and of the N Fp12 terms; a shared-memory tree folds the partial
-    G2 sums and another the 128 partial Fp12 products (72 KiB, dynamic
-    shared memory); then one thread runs the Miller loop of (−g1, Σ),
-    the last product and the final exponentiation. Bound: operations —
-    ~66 Fp products a term plus ~30,000 for the Miller loop and the final
-    exponentiation, which stay sequential on one thread, so the kernel is
-    latency-bound on them; the N-term product is ⌈N/128⌉ + 7 sequential
-    Fp12 products deep instead of N, and the reduction across blocks that
-    the TPU carried in a scan needs this second launch on the card."""
+
+def rlc_finish(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
+    """The verdicts of G RLC groups: group g owns the Fp12 terms
+    f[f_off[g]:f_off[g+1]] (M, 2, 3, 2, 12) with their flags agg_inf and
+    the signature terms rsig[s_off[g]:s_off[g+1]] (N, 3, 2, 12) with
+    sig_ok and sig_sub; its verdict is: Σ of its signature terms, the
+    Miller loop of that against −g1, the product with its f terms and the
+    final exponentiation give one, none of its aggregates summed to ∞,
+    each of its signature rows decoded and lies in G2. Offsets are M + 1
+    host ints; none means one group over every term (the flat and
+    fast-aggregate batches: G = 1, f_off = [0, M], s_off = [0, N]; the
+    grouped route: G = 1 with M message terms and N signature terms; an
+    RLC partition: G groups of B/G slots). Returns (G,) uint8. CUDA kernel
+    `rlc_finish` (csrc/pairing.cu) on CUDA tensors, the plain version on
+    CPU tensors.
+
+    Replaces grandine_tpu/tpu/bls.py `_rlc_finish` (:162) and
+    `_rlc_finish_grouped` (:177) with grandine_tpu/tpu/pairing.py
+    fp12_product_tree (:334), fp12_product_tree_grouped (:354) and
+    final_exp_is_one (:300), the tree sums of the signature MSM and
+    curve.py sum_points_contiguous, and the verdict folds of
+    bls.py:703-724 and :857-865 (fast-aggregate), `_flat_msm_verify_tail`
+    (flat sets) and rlc_partition_verify_kernel's fused subgroup check.
+    Only live groups launch (a group with no term is 1: an empty product
+    and an ∞ sum, written here without work). Threads follow the span
+    (`finish_threads`): a group of span s gets ⌈s/32⌉ warps, one block a
+    group, with a strided loop and trees over threads × 576 B of dynamic
+    shared memory (the partial sums share the product tree's buffer);
+    groups of span ≤ PER_THREAD_SPAN run one a thread, 32 to a block, no
+    shared memory.
+    Bound: operations — ~66 Fp products a term plus ~30,000 a live group
+    for its Miller loop and final exponentiation, which stay sequential
+    on one thread, so the kernel is latency-bound on them: its time is
+    one group's tail times the waves its groups take
+    (`rlc_finish_geometry`)."""
     if f.device.type == "cpu":
-        return rlc_finish_plain(f, rsig, agg_inf, sig_ok, sig_sub)
+        return rlc_finish_plain(f, rsig, agg_inf, sig_ok, sig_sub, f_off,
+                                s_off)
+    return _rlc_finish_cuda(f, rsig, agg_inf, sig_ok, sig_sub, f_off, s_off)
+
+
+def _rlc_finish_cuda(f, rsig, agg_inf, sig_ok, sig_sub, f_off, s_off):
     from grandine_tpu_torch.gpu import _build
 
-    m = f.shape[0]
-    verdict = torch.empty((1,), dtype=torch.uint8, device=f.device)
-    _build.launch("rlc_finish", f, rsig, agg_inf, sig_ok, sig_sub,
-                  ctypes.c_int(m), verdict)
-    rlc_finish.launches += 1
+    m, n = f.shape[0], rsig.shape[0]
+    if (f.shape[1:] != (2, 3, 2, 12) or rsig.shape[1:] != (3, 2, 12)
+            or agg_inf.shape != (m,) or sig_ok.shape != (n,)
+            or sig_sub.shape != (n,)):
+        raise ValueError("rlc_finish: f (M, 2, 3, 2, 12), rsig (N, 3, 2, "
+                         "12), agg_inf (M,), sig_ok and sig_sub (N,)")
+    fo, so, live, threads = finish_groups(f, rsig, f_off, s_off)
+    dev = f.device
+    verdict = torch.ones((fo.size - 1,), dtype=torch.uint8, device=dev)
+    if live.size:
+        table = _offsets_to(np.concatenate([fo, so, live]), dev)
+        g1 = fo.size
+        _build.launch("rlc_finish", f.contiguous(), rsig.contiguous(),
+                      agg_inf.contiguous(), sig_ok.contiguous(),
+                      sig_sub.contiguous(), table[:g1], table[g1:2 * g1],
+                      table[2 * g1:], ctypes.c_int(live.size),
+                      ctypes.c_int(threads), verdict)
+        rlc_finish.launches += 1
     return verdict
 
 
 rlc_finish.launches = 0
+
+
+def rlc_finish_geometry(f, rsig, f_off=None, s_off=None):
+    """(blocks, threads a block, dynamic shared memory bytes, blocks one
+    SM holds at once) of the launch `rlc_finish` makes for these operands
+    on the current CUDA device; (0, 0, 0, 0) when no group is live. A
+    query: it launches nothing."""
+    from grandine_tpu_torch.gpu import _build
+
+    _, _, live, threads = finish_groups(f, rsig, f_off, s_off)
+    geometry = np.zeros((4,), np.int32)
+    if live.size:
+        _build.launch("rlc_finish_geometry", ctypes.c_int(live.size),
+                      ctypes.c_int(threads),
+                      ctypes.c_void_p(geometry.ctypes.data))
+    return tuple(int(v) for v in geometry)
 
 
 def signature_plane(sig_x, sig_y, sig_inf):
@@ -295,17 +478,68 @@ def verify_aggregates(src_x, src_y, idx, cnt, plane, msg, msg_inf, r01):
     return rlc_finish(f, rsig, agg_inf, ok, sub)
 
 
-def verify_sets(src_x, src_y, idx, plane, msg, msg_inf, r01):
-    """One flat RLC verification of N (message, signature, key) sets on
-    the device of its inputs; returns the (1,) uint8 verdict tensor
+def verify_sets(src_x, src_y, idx, plane, msg, pair_inf, r01, offsets=None):
+    """Flat RLC verification of N (message, signature, key) sets on the
+    device of its inputs (pair_inf masks a set's pairing); `offsets` (host
+    ints) splits the sets into contiguous groups, each with its own
+    verdict (none: one group). Returns the (G,) uint8 verdict tensor
     without waiting for it."""
     sx, sy, mask, ok, sub = plane
     rpk, rsig = multi_rlc_scale(src_x, src_y, idx, sx, sy, mask, r01)
-    f = TP.miller_loop_pairs(rpk, msg, msg_inf)
+    f = TP.miller_loop_pairs(rpk, msg, pair_inf)
+    return rlc_finish(f, rsig, torch.zeros_like(pair_inf), ok, sub, offsets,
+                      offsets)
+
+
+def verify_grouped(src_x, src_y, idx, plane, offsets, msg, msg_inf, r01):
+    """One message-grouped RLC verification: N sets ordered by message,
+    message j owning sets offsets[j] … offsets[j+1] − 1 (host ints), M
+    messages. Σᵢ∈ⱼ rᵢ·pkᵢ per message (`g1_group_sum` over the rᵢ·pkᵢ of
+    `multi_rlc_scale`), M Miller loops, one finish over M message terms
+    and N signature terms. Returns the (1,) uint8 verdict tensor without
+    waiting for it."""
+    sx, sy, mask, ok, sub = plane
+    rpk, rsig = multi_rlc_scale(src_x, src_y, idx, sx, sy, mask, r01)
+    gpk = g1_group_sum(rpk, offsets)
+    gpk_inf = (gpk[:, 2] == 0).all(-1)
+    f = TP.miller_loop_pairs(gpk, msg, gpk_inf | msg_inf)
     return rlc_finish(f, rsig, torch.zeros_like(msg_inf), ok, sub)
 
 
 # --- host helpers ------------------------------------------------------------
+
+
+def _bucket(n: int, lo: int = 4, hi: int = MAX_BUCKET) -> int:
+    """The power-of-two bucket (at least `lo`) a batch of n pads into in
+    the JAX package (grandine_tpu/tpu/bls.py `_bucket`); ValueError past
+    `hi`. The port pads nothing on the card: the bucket sets the grouped
+    route's rule and a partition's group geometry."""
+    b = lo
+    while b < n:
+        b <<= 1
+    if b > hi:
+        raise ValueError(f"batch of {n} exceeds max bucket {hi}")
+    return b
+
+
+def message_groups(messages) -> "dict[bytes, list[int]]":
+    """Set indices by message, in order of first appearance."""
+    groups: "dict[bytes, list[int]]" = {}
+    for i, message in enumerate(messages):
+        groups.setdefault(bytes(message), []).append(i)
+    return groups
+
+
+def grouped_route(n_groups: int, widest: int, n: int) -> bool:
+    """The JAX package's rule for `multi_verify_async`'s grouped route
+    (grandine_tpu/tpu/bls.py:1972-1975): at least two sets a message on
+    average, and the (messages × widest group) padding of its TPU program
+    within 4× the flat bucket. A padding rule of the TPU, kept so that
+    both packages take the same route; on the card it is to be replaced
+    by a measured cost (ROADMAP.md)."""
+    return (2 * n_groups <= n
+            and _bucket(n_groups) * _bucket(widest) <= 4 * _bucket(n))
+
 
 
 class _LruCache:
@@ -408,9 +642,10 @@ class TorchBlsBackend:
     committee, or more flat sets) goes to the keyed seam through the
     registry's host mirror. The RLC pairs are drawn from `rng` in the JAX
     package's order, one per set after the batch's messages are hashed.
-    Flat batches always take the flat kernels (the JAX package's grouped
-    route for batches with repeated messages gives the same verdict and is
-    not ported)."""
+    `multi_verify_async` routes a keyed batch with repeated messages to
+    the grouped kernels where the JAX package does; `rlc_partition_verify`
+    gives per-group verdicts for the fault localizer
+    (runtime/isolation.py)."""
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
@@ -560,9 +795,15 @@ class TorchBlsBackend:
             src_x, src_y, self._up(idx), self._up(cnt), plane, msg, msg_inf,
             self._up(rlc_pairs_words(pairs))))
 
-    def _flat_async(self, messages, signatures, keys, registry, dst, rng,
+    def _sets_async(self, messages, signatures, keys, registry, dst, rng,
                     compressed: bool):
-        """Flat seams: `keys` are PublicKeys (registry None) or registry
+        """The screening every flat seam shares, in the JAX package's
+        order — length mismatch False, empty True, an out-of-range index
+        False, past MAX_BUCKET an indexed batch goes keyed through the
+        registry's host mirror and a keyed one runs in chunks, an ∞ key
+        False — then the launch: an indexed or compressed batch flat, a
+        keyed uncompressed one grouped by message where `grouped_route`
+        says so. `keys` are PublicKeys (registry None) or registry
         indices, one signer per set."""
         n = len(messages)
         if not (n == len(signatures) == len(keys)):
@@ -574,28 +815,56 @@ class TorchBlsBackend:
             if reg_x is None or any(not 0 <= int(i) < reg_n for i in keys):
                 return lambda: False
             if n > MAX_BUCKET:
-                return self._flat_async(messages, signatures,
+                return self._sets_async(messages, signatures,
                                         registry.public_keys(keys), None,
                                         dst, rng, compressed)
-            src_x, src_y = reg_x, reg_y
             idx = np.fromiter((int(v) for v in keys), np.int32, count=n)
-        else:
-            if n > MAX_BUCKET:
-                return self._chunked(
-                    lambda a, b, c: self._flat_async(
-                        a, b, c, None, dst, rng, compressed),
-                    n, messages, signatures, keys)
-            if any(pk.point.is_infinity() for pk in keys):
-                return lambda: False
-            src_x, src_y = self._keys_src([pk.point for pk in keys])
-            idx = np.arange(n, dtype=np.int32)
+            return self._flat_multi_verify_async(
+                messages, signatures, reg_x, reg_y, idx, dst, rng,
+                compressed)
+        if n > MAX_BUCKET:
+            return self._chunked(
+                lambda a, b, c: self._sets_async(a, b, c, None, dst, rng,
+                                                 compressed),
+                n, messages, signatures, keys)
+        if any(pk.point.is_infinity() for pk in keys):
+            return lambda: False
+        src_x, src_y = self._keys_src([pk.point for pk in keys])
+        if not compressed:
+            groups = message_groups(messages)
+            if grouped_route(len(groups), max(map(len, groups.values())), n):
+                return self._grouped_multi_verify_async(
+                    groups, signatures, src_x, src_y, dst, rng)
+        return self._flat_multi_verify_async(
+            messages, signatures, src_x, src_y, np.arange(n, dtype=np.int32),
+            dst, rng, compressed)
+
+    def _flat_multi_verify_async(self, messages, signatures, src_x, src_y,
+                                 idx, dst, rng, compressed: bool):
+        """The flat launch: set i's key is row idx[i] of (src_x, src_y)."""
         plane = self._sig_plane(signatures, compressed)
         if plane is None:
             return lambda: False
         msg, msg_inf = self._messages(messages, dst)
-        pairs = [self._rlc_pair(rng) for _ in range(n)]
+        pairs = [self._rlc_pair(rng) for _ in range(len(messages))]
         return self._settle(verify_sets(
             src_x, src_y, self._up(idx), plane, msg, msg_inf,
+            self._up(rlc_pairs_words(pairs))))
+
+    def _grouped_multi_verify_async(self, groups, signatures, src_x, src_y,
+                                    dst, rng):
+        """The message-grouped launch (the JAX package's
+        `_grouped_multi_verify_async`, tpu/bls.py:2069): the sets in
+        message order, one RLC pair each drawn in that order, set i's key
+        row i of (src_x, src_y)."""
+        order = np.fromiter((i for ix in groups.values() for i in ix),
+                            np.int32, count=len(signatures))
+        offsets = np.cumsum([0] + [len(ix) for ix in groups.values()])
+        plane = self._sig_plane([signatures[i] for i in order], False)
+        msg, msg_inf = self._messages(list(groups), dst)
+        pairs = [self._rlc_pair(rng) for _ in range(len(order))]
+        return self._settle(verify_grouped(
+            src_x, src_y, self._up(order), plane, offsets, msg, msg_inf,
             self._up(rlc_pairs_words(pairs))))
 
     # -- flat seams ------------------------------------------------------------
@@ -614,10 +883,13 @@ class TorchBlsBackend:
         dst: bytes = constants.DST_SIGNATURE,
         rng=secrets,
     ):
-        """Flat RLC verify of N (message, signature, key) sets: launches
-        now and returns a zero-arg callable giving the verdict, so the
-        caller's host work overlaps the device run."""
-        return self._flat_async(messages, signatures, public_keys, None, dst,
+        """RLC verify of N (message, signature, key) sets: launches now
+        and returns a zero-arg callable giving the verdict, so the
+        caller's host work overlaps the device run. Batches with repeated
+        messages take the grouped route where `grouped_route` says so (M
+        Miller loops over Σᵢ∈ⱼ rᵢ·pkᵢ instead of N), the rest the flat
+        one; the verdict is the same."""
+        return self._sets_async(messages, signatures, public_keys, None, dst,
                                 rng, compressed=False)
 
     def multi_verify_compressed(self, messages, signatures, public_keys,
@@ -636,7 +908,7 @@ class TorchBlsBackend:
     ):
         """multi_verify_async with signatures as 96-byte wire rows,
         decompressed and ψ-checked on the card."""
-        return self._flat_async(messages, signatures, public_keys, None, dst,
+        return self._sets_async(messages, signatures, public_keys, None, dst,
                                 rng, compressed=True)
 
     def multi_verify_indexed(
@@ -651,7 +923,7 @@ class TorchBlsBackend:
         """Flat RLC verify with each set's signer key gathered on the card
         from the registry by validator index; an index the registry does
         not cover fails."""
-        return self._flat_async(messages, signatures, indices, registry, dst,
+        return self._sets_async(messages, signatures, indices, registry, dst,
                                 rng, compressed=False)()
 
     def g2_subgroup_check_batch(self, points) -> np.ndarray:
@@ -665,6 +937,81 @@ class TorchBlsBackend:
         sx, sy, inf = g2_affine_words_many(points)
         out = C.g2_subgroup_check(self._up(sx), self._up(sy), self._up(inf))
         return lambda: out.cpu().numpy()
+
+    # -- fault localization ----------------------------------------------
+
+    def rlc_partition_verify(self, messages, signatures, member_keys,
+                             groups: int, dst: bytes = constants.DST_SIGNATURE,
+                             rng=secrets) -> np.ndarray:
+        return self.rlc_partition_verify_async(
+            messages, signatures, member_keys, groups, dst, rng)()
+
+    def rlc_partition_verify_async(
+        self,
+        messages: Sequence[bytes],
+        signatures: Sequence["A.Signature"],
+        member_keys: Sequence[Sequence["A.PublicKey"]],
+        groups: int,
+        dst: bytes = constants.DST_SIGNATURE,
+        rng=secrets,
+    ):
+        """Per-group verdicts of one RLC pass, the seam the fault localizer
+        descends through (grandine_tpu/tpu/bls.py rlc_partition_verify_async
+        and rlc_partition_verify_kernel, :2898 and :279), with its
+        semantics: `groups` rounds up to a power of two of at least 4,
+        clamped to the batch's bucket B; slot i is item i, group j the
+        slots j·B/G … (j+1)·B/G − 1. Each item's member keys are summed
+        on the host to one key. An item with no keys or an identity key
+        is named bad on the host, stays out of the device pass (padding)
+        and makes its group False; a group with no live item is True; each
+        group's verdict is ANDed with its members' G2 subgroup flags (the
+        fused ψ check, `signature_plane`). One flat pass on the card:
+        `multi_rlc_scale` and `miller_loop_pairs` over the live items,
+        `rlc_finish` with one group per partition group. RLC pairs are
+        drawn for every item, in order, after the hashing. Returns a settle
+        callable giving a (G,) bool array (an empty or mismatched batch:
+        size 0)."""
+        n = len(messages)
+        g = _bucket(groups, lo=4)
+        if not (n and n == len(signatures) == len(member_keys)):
+            return lambda: np.zeros((0,), bool)
+        b = _bucket(n)
+        g = min(g, b)
+        span = b // g
+        bad_host = np.zeros((n,), bool)
+        slots, agg = [], []
+        for i, ks in enumerate(member_keys):
+            if not ks or any(pk.point.is_infinity() for pk in ks):
+                bad_host[i] = True
+                continue
+            slots.append(i)
+            agg.append(ks[0] if len(ks) == 1 else A.PublicKey.aggregate(ks))
+        pk_inf = np.array([k.point.is_infinity() for k in agg], bool)
+        msg, msg_inf = self._messages([messages[i] for i in slots], dst)
+        pairs = [self._rlc_pair(rng) for _ in range(n)]
+        verdict = None
+        if slots:
+            # an ∞ aggregate's pair is masked: its row only feeds the ladder
+            src_x, src_y = self._keys_src([
+                G1 if inf else k.point for k, inf in zip(agg, pk_inf)])
+            sx, sy, sinf = g2_affine_words_many(
+                [signatures[i].point for i in slots])
+            plane = signature_plane(self._up(sx), self._up(sy),
+                                    self._up(sinf))
+            counts = np.bincount(np.array(slots) // span, minlength=g)
+            verdict = verify_sets(
+                src_x, src_y, self._up(np.arange(len(slots), dtype=np.int32)),
+                plane, msg, msg_inf | self._up(pk_inf),
+                self._up(rlc_pairs_words([pairs[i] for i in slots])),
+                np.concatenate([[0], np.cumsum(counts)]))
+
+        def settle() -> np.ndarray:
+            out = (np.ones((g,), bool) if verdict is None
+                   else verdict.cpu().numpy().astype(bool))
+            out[np.nonzero(bad_host)[0] // span] = False
+            return out
+
+        return settle
 
     # -- fast-aggregate seams --------------------------------------------------
 
@@ -753,9 +1100,11 @@ class TorchBlsBackend:
 __all__ = [
     "TorchBlsBackend", "MAX_BUCKET", "resolve_device", "aggregate_rlc_scale",
     "aggregate_rlc_scale_plain", "multi_rlc_scale", "multi_rlc_scale_plain",
-    "rlc_finish", "rlc_finish_plain", "rlc_sig_miller_plain",
-    "signature_plane",
-    "signature_plane_compressed", "verify_aggregates", "verify_sets",
+    "g1_group_sum", "g1_group_sum_plain", "rlc_finish", "rlc_finish_plain",
+    "rlc_sig_miller_plain", "finish_threads", "finish_groups",
+    "rlc_finish_geometry", "PER_THREAD_SPAN",
+    "signature_plane", "signature_plane_compressed", "verify_aggregates",
+    "verify_sets", "verify_grouped", "grouped_route", "message_groups",
     "g1_decompress_rows", "rlc_pairs_words", "rlc_bits_host",
     "g2_affine_words", "g2_affine_words_many", "g1_affine_words",
 ]

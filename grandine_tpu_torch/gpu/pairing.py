@@ -22,6 +22,7 @@ from grandine_tpu_torch.crypto.constants import X
 from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import field as F
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.gpu.msm import group_rows
 
 ABS_X = abs(X)
 #: bits of |x| after its most significant one, MSB first
@@ -146,23 +147,39 @@ def fp12_product(f):
 
 def strided_tree_product(f, tree: int = 128):
     """Product of a (N, …) batch of Fp12 elements along axis 0 in the
-    order of `rlc_finish`: thread t of a `tree`-wide block multiplies
+    order of `rlc_finish`: thread t of a `tree`-thread block multiplies
     terms t, t + tree, … and the block then folds position t + s into t
-    for s = tree/2 … 1. Each value is canonical and the product
-    commutative, so any order gives the same words; this one is the
-    kernel's."""
+    (t + s < tree) for s = pow2ceil(tree)/2 … 1, which equals folding a
+    tree padded with ones to a power of two. Each value is canonical and
+    the product commutative, so any order gives the same words; this one
+    is the kernel's. Axes after 0 and before the Fp12 axes are batch."""
     n = f.shape[0]
+    batch = f.shape[1:-4]
     chunks = max(1, -(-n // tree))
     pad = chunks * tree - n
     if pad:
-        f = torch.cat([f, F.fp12_one((pad,), f.device)], 0)
-    acc = F.fp12_one((tree,), f.device)
+        f = torch.cat([f, F.fp12_one((pad,) + batch, f.device)], 0)
+    acc = F.fp12_one((tree,) + batch, f.device)
     for c in range(chunks):
         acc = F.fp12_mul(acc, f[c * tree:(c + 1) * tree])
+    width = 1 << (tree - 1).bit_length()
+    if width > tree:
+        acc = torch.cat([acc, F.fp12_one((width - tree,) + batch, f.device)])
     while acc.shape[0] > 1:
         h = acc.shape[0] // 2
         acc = F.fp12_mul(acc[:h], acc[h:])
     return acc[0]
+
+
+def fp12_product_tree_grouped(f, offsets, tree: int = 128):
+    """Per-group products of a flat (N, …) Fp12 batch over the contiguous
+    groups [offsets[m], offsets[m+1]) — one for an empty group — each in
+    `rlc_finish`'s order (strided_tree_product); an (M, …) batch. The
+    counterpart of grandine_tpu/tpu/pairing.py fp12_product_tree_grouped
+    (groups of one power-of-two width there; any offsets here)."""
+    idx, live = group_rows(offsets, f.device)
+    terms = L.select(live, f[idx], F.fp12_one(live.shape, f.device))
+    return strided_tree_product(terms.transpose(0, 1), tree)
 
 
 def jacobian_to_homogeneous(P):

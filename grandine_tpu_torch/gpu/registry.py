@@ -26,6 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from grandine_tpu_torch.consensus.keys import decompress_pubkey
 from grandine_tpu_torch.crypto import bls as A
 from grandine_tpu_torch.crypto.constants import P
 from grandine_tpu_torch.gpu import curve as C
@@ -33,16 +34,6 @@ from grandine_tpu_torch.gpu import limbs as L
 from grandine_tpu_torch.gpu.bls import g1_decompress_rows, resolve_device
 
 MIN_CAPACITY = 16
-
-
-def decompress_registry_pubkey(pubkey_bytes: bytes) -> "A.PublicKey":
-    """A key sourced from the validator registry: decompressed without
-    the subgroup check (it passed KeyValidate at deposit time), the
-    identity rejected. Raises BlsError."""
-    point = A.g1_from_bytes(bytes(pubkey_bytes), subgroup_check=False)
-    if point.is_infinity():
-        raise A.BlsError("identity public key is invalid")
-    return A.PublicKey(point)
 
 
 def _next_pow2(n: int, lo: int = MIN_CAPACITY) -> int:
@@ -90,7 +81,8 @@ class DevicePubkeyRegistry:
         passed KeyValidate at deposit: no subgroup check here)."""
         with self._lock:
             pks = self._pubkeys or ()
-        return [decompress_registry_pubkey(pks[int(i)]) for i in indices]
+        return [decompress_pubkey(pks[int(i)], trusted=True)
+                for i in indices]
 
     # ------------------------------------------------------------ lifecycle
 
@@ -230,5 +222,4 @@ def registry_from_jax_arrays(reg_x, reg_y, count: int, raw_rows,
     return reg
 
 
-__all__ = ["DevicePubkeyRegistry", "MIN_CAPACITY", "registry_from_jax_arrays",
-           "decompress_registry_pubkey"]
+__all__ = ["DevicePubkeyRegistry", "MIN_CAPACITY", "registry_from_jax_arrays"]

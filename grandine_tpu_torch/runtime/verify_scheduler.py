@@ -1,15 +1,17 @@
-"""`VerifyItem`: one signature check in fast-aggregate geometry, as the
-verify scheduler coalesces them (counterpart of
-grandine_tpu/runtime/verify_scheduler.py VerifyItem; the scheduler itself
-is not ported yet)."""
+"""`VerifyItem`, one signature check in fast-aggregate geometry as the
+verify scheduler coalesces them, and `host_check_item`, its eager host
+verdict (counterparts of grandine_tpu/runtime/verify_scheduler.py
+VerifyItem and host_check_item; the scheduler itself is not ported
+yet)."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from grandine_tpu_torch.consensus.verifier import SignatureInvalid
+from grandine_tpu_torch.consensus.keys import decompress_pubkey
+from grandine_tpu_torch.consensus.verifier import (
+    SignatureInvalid, SingleVerifier)
 from grandine_tpu_torch.crypto import bls as A
-from grandine_tpu_torch.gpu.registry import decompress_registry_pubkey
 
 
 class VerifyItem:
@@ -35,8 +37,9 @@ class VerifyItem:
         self.pubkey_columns = pubkey_columns
 
     def resolve_keys(self) -> list:
-        """Materialize the signer keys; raises SignatureInvalid when the
-        item carries no usable keys."""
+        """Materialize the signer keys (registry keys through the
+        process-wide decompression cache, consensus/keys.py); raises
+        SignatureInvalid when the item carries no usable keys."""
         if self.public_keys is not None:
             if not self.public_keys:
                 raise SignatureInvalid("aggregate with no public keys")
@@ -46,10 +49,25 @@ class VerifyItem:
         if not self.member_indices:
             raise SignatureInvalid("aggregate with no public keys")
         try:
-            return [decompress_registry_pubkey(self.pubkey_columns[i])
+            return [decompress_pubkey(self.pubkey_columns[i], trusted=True)
                     for i in self.member_indices]
         except (IndexError, A.BlsError) as e:
             raise SignatureInvalid(f"bad member index/pubkey: {e}") from e
 
 
-__all__ = ["VerifyItem"]
+def host_check_item(item: VerifyItem) -> bool:
+    """The eager host path, SingleVerifier semantics (full decompression
+    and subgroup checks): the fault localizer's leaf check."""
+    sv = SingleVerifier()
+    try:
+        resolved = item.resolve_keys()
+        if len(resolved) == 1:
+            sv.verify_singular(item.message, item.signature, resolved[0])
+        else:
+            sv.verify_aggregate(item.message, item.signature, resolved)
+    except SignatureInvalid:
+        return False
+    return True
+
+
+__all__ = ["VerifyItem", "host_check_item"]

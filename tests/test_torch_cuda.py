@@ -255,3 +255,98 @@ def test_flat_seams_end_to_end_on_the_card(world, cuda_device):
     items[2] = VerifyItem(msgs[2], outside, member_indices=COMMITTEES[2],
                           pubkey_columns=pkb)
     assert dispatch_bls_host_decompress(items, backend, reg)() is False
+
+
+def _valid_terms(world, dev):
+    """f, rsig and flags of the world's 5 valid aggregates and the 6th,
+    whose members sum to ∞, as the gossip path gives them to rlc_finish."""
+    args, dec = _scale_args(world, dev)
+    rpk, agg_inf, rsig = B.aggregate_rlc_scale(*args)
+    msg = torch.from_numpy(np.stack([B.g2_affine_words(hash_to_g2(
+        m, DST_SIGNATURE))[0] for m in world[2]])).to(dev)
+    f = TP.miller_loop_pairs(rpk, msg, agg_inf)
+    return rpk, (f, rsig, agg_inf, dec[3], dec[7])
+
+
+def test_rlc_finish_groups_match_plain(world, cuda_device):
+    """The group-indexed finish: one thread a group (span 1, dead groups
+    between, the ∞ aggregate's group False; then spans up to
+    PER_THREAD_SPAN, the strided loop in turn), 3-warp blocks (a tree
+    that is not a power of two), strided 128-thread blocks, and a call
+    whose groups are all dead (no launch)."""
+    _, fin = _valid_terms(world, cuda_device)
+    before = B.rlc_finish.launches
+    for off, want in (([0, 1, 1, 2, 3, 3, 4, 5, 6],
+                       [1, 1, 1, 1, 1, 1, 1, 0]),
+                      ([0, 4, 4, 6], [1, 1, 0])):
+        v = B.rlc_finish(*fin, off, off)
+        _equal((v,), (B.rlc_finish_plain(*fin, off, off),))
+        assert v.tolist() == want
+        assert B.rlc_finish_geometry(*fin[:2], off, off)[:3] == (1, 32, 0)
+    for width, threads in ((96, 96), (260, 128)):
+        tile = torch.arange(2 * width, device=cuda_device) % 5
+        wide = tuple(t[tile].contiguous() for t in fin)
+        off = [0, width, width, 2 * width]
+        v = B.rlc_finish(*wide, off, off)
+        _equal((v,), (B.rlc_finish_plain(*wide, off, off),))
+        assert v.tolist() == [1, 1, 1]
+        assert B.rlc_finish_geometry(*wide[:2], off, off)[:3] == (
+            2, threads, threads * 576)
+    assert B.rlc_finish.launches == before + 4
+    dead = B.rlc_finish(*fin, [0, 0, 0], [0, 0, 0])
+    assert dead.tolist() == [1, 1] and B.rlc_finish.launches == before + 4
+    assert B.rlc_finish_geometry(*fin[:2], [0, 0, 0], [0, 0, 0]) == (0,) * 4
+
+
+def test_g1_group_sum_matches_plain(world, cuda_device):
+    """Offsets with empty groups, a group past 128 rows and a group of
+    one row."""
+    rpk, _ = _valid_terms(world, cuda_device)
+    rows = rpk[torch.arange(300, device=cuda_device) % 6].contiguous()
+    off = [0, 0, 150, 151, 151, 300]
+    before = B.g1_group_sum.launches
+    got = B.g1_group_sum(rows, off)
+    _equal((got,), (B.g1_group_sum_plain(rows, off),))
+    assert B.g1_group_sum.launches == before + 1
+    assert got[0].tolist() == got[3].tolist()  # ∞ (1, 1, 0) words
+
+
+@pytest.fixture(scope="module")
+def signer_sets():
+    """8 single-signer sets over 2 messages."""
+    host = random.Random(0xC0DC)
+    sks = [host.randrange(1, R) for _ in range(8)]
+    msgs = [bytes([0x70 + i % 2]) * 32 for i in range(8)]
+    sigs = [A.Signature(hash_to_g2(m, DST_SIGNATURE).mul(k))
+            for m, k in zip(msgs, sks)]
+    return msgs, sigs, [A.PublicKey(G1.mul(k)) for k in sks]
+
+
+def test_grouped_and_partition_on_the_card(signer_sets, cuda_device):
+    """The grouped route verifies and rejects on the card; a partition
+    pass gives the plain route's group verdicts under the same draws; a
+    failed batch localizes to the forged set."""
+    from grandine_tpu_torch.runtime.isolation import FaultLocalizer
+
+    msgs, sigs, pks = signer_sets
+    be = B.TorchBlsBackend(device=cuda_device)
+    before = B.g1_group_sum.launches
+    assert be.multi_verify(msgs, sigs, pks) is True
+    swapped = [sigs[1], sigs[0]] + sigs[2:]
+    assert be.multi_verify(msgs, swapped, pks) is False
+    assert B.g1_group_sum.launches == before + 2
+    keys = [[k] for k in pks]
+    keys[6] = []
+    for groups in (4, 8):
+        got = be.rlc_partition_verify(
+            msgs, swapped, keys, groups,
+            rng=SimpleNamespace(randbits=random.Random(3).getrandbits))
+        want = B.TorchBlsBackend(device="cpu").rlc_partition_verify(
+            msgs, swapped, keys, groups,
+            rng=SimpleNamespace(randbits=random.Random(3).getrandbits))
+        assert got.tolist() == want.tolist()
+    items = [VerifyItem(m, s.to_bytes(), public_keys=[k])
+             for m, s, k in zip(msgs, swapped, pks)]
+    loc = FaultLocalizer()
+    assert loc.localize(be, items) == [False, False] + [True] * 6
+    assert loc.passes["host"] == 0
