@@ -42,11 +42,29 @@ Phases (any failure raises and exits non-zero):
      launch of g1_group_sum each), and both routes timed on the same
      triples; the group-indexed rlc_finish and g1_group_sum against their
      plain versions on edge rows (phase 4) and on every recorded pass;
-  7. each kernel again against its plain version, exactly, on the
+  7. the signing path on the operator's 50,000 keys: batch_sign and both
+     group_sum instances against their plain versions on edge rows (∞
+     messages, both sign masks, sk = 1, r − 1, r − 2; empty, all-∞ and
+     single-member groups); the operator slot — its 1,562 duty validators
+     attesting their committee's root and 512 sync-committee members
+     signing the head root — through runtime.sign_plane.SigningPlane with
+     DEFAULT_SIGN_LANES and the release gate on, one warm round and
+     SIGN_ROUNDS timed rounds, every released signature byte for byte its
+     anchor (G2 additions along the key progression), every batch on the
+     device (0 degraded, faults, breaker skips, expired, gate failures), a
+     sample of 16 against SecretKey.sign; aggregate construction through
+     validator.duties.device_aggregator (12 committee aggregates, 4 sync
+     subcommittee contributions) and gpu.bls.g1_aggregate_groups (12
+     committee keys), each equal to the host aggregate; a chaos round
+     (ChaosBackend, wrong_signature) releasing no bad signature, one gate
+     failure, one batch degraded; one full bucket of 16,384 keys through
+     TorchBlsBackend.batch_sign, every point its anchor;
+  8. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
      members; the block's 131 sets; the window's 1,048 sets; the
-     partition passes; both grouped shapes), and its time there (CUDA
-     events, after warm-up) beside the plain version's and its bound;
+     partition passes; both grouped shapes; the full bucket and a lane
+     batch of batch_sign; the three aggregate calls), and its time there
+     (CUDA events, after warm-up) beside the plain version's and its bound;
      end-to-end p50 of the gossip batch, the block and the window with
      the hash-to-G2 cache warm and cold, host prep kept apart from
      device time.
@@ -60,6 +78,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -78,6 +97,9 @@ WINDOW_BLOCKS = 8
 BLOCK_REPS_WARM, BLOCK_REPS_COLD, WINDOW_REPS_WARM = 5, 3, 3
 #: rounds of (flat, grouped, grouped, flat) when both routes are timed
 ROUTE_ROUNDS = 2
+#: timed rounds of the operator slot through the signing plane (after one
+#: warm round), and the signers of its chaos round
+SIGN_ROUNDS, CHAOS_SIGNERS = 3, 32
 #: H100 HBM3 rate (NVIDIA data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer multiply / multiply-add results per clock per SM for
@@ -247,20 +269,28 @@ class OpModel:
                       + self.final_exp)
         return total
 
-    def group_sum(self, counts):
-        """g1_group_sum: each row's conversion, the complete additions past
-        the first of each thread, the tree adds where both partials are
-        live, the output conversion."""
+    def group_sum(self, counts, k=1):
+        """g1_group_sum (k = 1) or g2_group_sum (k = 2) at the function's
+        least work: each member row's conversion, members − 1 complete
+        additions a group (in G2 three Fp products to each Fp2 one), the
+        output conversion."""
+        f = 1 if k == 1 else 3
+        return sum(3 * k * c + f * self.add1 * max(0, c - 1) + 3 * k
+                   for c in counts)
+
+    def sign(self, k, live):
+        """batch_sign over its live rows at the function's least work: per
+        row the conversions and the endomorphism, 128 doublings and
+        popcount(k0) + popcount(k1) − 1 mixed additions in Fp2 (three Fp
+        products to each Fp2 one); the branchless ladder's discarded
+        candidates are not charged. k: (N, 2, 4) uint32 words."""
         total = 0
-        for c in counts:
-            total += 3 * c + self.add1 * max(0, c - 128)
-            live = min(c, 128)
-            s = 64
-            while s:
-                total += self.add1 * max(0, min(s, live - s))
-                live = min(live, s)
-                s //= 2
-            total += 3
+        for row, lv in zip(k, live):
+            if lv:
+                adds = sum(bin(int(w) & 0xFFFFFFFF).count("1")
+                           for w in row.reshape(-1))
+                total += (4 + 4 + 3 * (128 * self.dbl1
+                                       + self.madd1 * max(0, adds - 1)) + 6)
         return total
 
 
@@ -369,6 +399,492 @@ class PassTimer:
                                messages, signatures, member_keys, groups), t0)
 
 
+class SignSplit(Recorder):
+    """Recorder of gpu/bls.py `batch_sign` that also splits each
+    `backend.batch_sign` call by the thread that makes it: host clocks
+    around the backend's `_messages` (hash-to-G2) and the module's
+    `sign_scalars_host` (GLV decomposition), CUDA events around the launch,
+    and the host clock from the launch's return to `g2_points_from_words`
+    (device wait and copy) and from there to the call's end (readback into
+    `Signature`s). `done[thread]` holds the thread's last finished split."""
+
+    def __init__(self, module, backend):
+        super().__init__(module, "batch_sign", lambda *a: a)
+        self.backend, self.live, self.done = backend, {}, {}
+        self.scalars = module.sign_scalars_host
+        self.points = module.g2_points_from_words
+
+    def _split(self):
+        return self.live.get(threading.get_ident())
+
+    def _messages(self, *args):
+        t = time.perf_counter()
+        out = self.messages(*args)
+        if self._split() is not None:
+            self._split()["hash_s"] = time.perf_counter() - t
+        return out
+
+    def _scalars(self, *args):
+        t = time.perf_counter()
+        out = self.scalars(*args)
+        if self._split() is not None:
+            self._split()["glv_s"] = time.perf_counter() - t
+        return out
+
+    def _points(self, *args):
+        if self._split() is not None:
+            self._split()["t_points"] = time.perf_counter()
+        return self.points(*args)
+
+    def _sign(self, messages, *args):
+        me = threading.get_ident()
+        self.live[me] = split = {"n": len(messages),
+                                 "t0": time.perf_counter()}
+        out = self.sign(messages, *args)
+        end = time.perf_counter()
+        del self.live[me]
+        events = split.pop("events")
+        self.done[me] = {
+            "n": split["n"], "hash_s": split["hash_s"],
+            "glv_s": split["glv_s"],
+            "host_prep_s": split["t_in"] - split["t0"],
+            "wait_s": split["t_points"] - split["t_out"],
+            "readback_s": end - split["t_points"],
+            "kernel_ms": (events[0].elapsed_time(events[1])
+                          if events else None)}
+        return out
+
+    def __call__(self, msg, *args):
+        split = self._split()
+        torch = self.module.torch
+        events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  if msg.is_cuda else [])
+        split["t_in"] = time.perf_counter()
+        for e in events[:1]:
+            e.record()
+        out = super().__call__(msg, *args)
+        for e in events[1:]:
+            e.record()
+        split["t_out"], split["events"] = time.perf_counter(), events
+        return out
+
+    def __enter__(self):
+        super().__enter__()
+        self.messages, self.sign = self.backend._messages, \
+            self.backend.batch_sign
+        self.backend._messages, self.backend.batch_sign = self._messages, \
+            self._sign
+        self.module.sign_scalars_host = self._scalars
+        self.module.g2_points_from_words = self._points
+        return self
+
+    def __exit__(self, *exc):
+        del self.backend._messages, self.backend.batch_sign
+        self.module.sign_scalars_host = self.scalars
+        self.module.g2_points_from_words = self.points
+        super().__exit__(*exc)
+
+
+class SignTimer:
+    """The backend as the signing scheme's functions see it: times its
+    batch_sign and multi_verify calls."""
+
+    def __init__(self, backend):
+        self.backend, self.sign_s, self.verify_s = backend, 0.0, 0.0
+
+    def batch_sign(self, *args):
+        t = time.perf_counter()
+        out = self.backend.batch_sign(*args)
+        self.sign_s = time.perf_counter() - t
+        return out
+
+    def multi_verify(self, *args):
+        t = time.perf_counter()
+        out = self.backend.multi_verify(*args)
+        self.verify_s = time.perf_counter() - t
+        return out
+
+
+def timed_signing_scheme(schemes, records, split):
+    """A twin of the `bls` scheme row whose batch_sign and release gate are
+    the row's own functions, timed: one record a batch in `records` (the
+    split of the backend's call that `split`, a SignSplit, took, its
+    encoding, the gate's host decode and device verify)."""
+
+    base = schemes.get("bls")
+    pending = {}
+
+    def batch_sign(backend, messages, secret_keys):
+        timer = SignTimer(backend)
+        t = time.perf_counter()
+        out = base.signing.batch_sign(timer, messages, secret_keys)
+        total = time.perf_counter() - t
+        me = threading.get_ident()  # the plane's watchdog thread
+        entry = split.done.pop(me)
+        # the gate gets the same list of messages from the same batch
+        pending[id(messages)] = dict(entry, encode_s=total - timer.sign_s)
+        return out
+
+    def release_verify(backend, messages, sig_bytes, public_keys):
+        timer = SignTimer(backend)
+        t = time.perf_counter()
+        ok = base.signing.release_verify(timer, messages, sig_bytes,
+                                         public_keys)
+        total = time.perf_counter() - t
+        records.append(dict(pending.pop(id(messages)),
+                            decode_s=total - timer.verify_s,
+                            verify_s=timer.verify_s))
+        return ok
+
+    twin = schemes.Scheme("bls", field_bits=base.field_bits, curve=base.curve,
+                          make_backend=base.make_backend,
+                          signing=schemes.SigningDescriptor(
+                              batch_sign=batch_sign,
+                              host_sign=base.signing.host_sign,
+                              release_verify=release_verify))
+    return base, twin
+
+
+def plane_totals(plane):
+    """The plane's counters summed over its lanes."""
+    out = {}
+    for st in plane.stats().values():
+        for k, v in st.items():
+            out[k] = max(out.get(k, 0), v) if k == "max_batch_items" \
+                else out.get(k, 0) + v
+    return out
+
+
+def signing_phase(c):
+    """The signing path on the operator's keys (c: what main() built).
+    Returns (timing rows, {entry: launches on its path})."""
+    torch, np, A, B = c.torch, c.np, c.A, c.B
+    from grandine_tpu_torch.crypto.curves import g2_infinity
+    from grandine_tpu_torch.gpu import schemes
+    from grandine_tpu_torch.runtime.sign_plane import (
+        DEFAULT_SIGN_LANES, SigningPlane)
+    from grandine_tpu_torch.testing.chaos import ChaosBackend, FaultPlan
+    from grandine_tpu_torch.validator.duties import device_aggregator
+
+    dev, at, R, dst = c.dev, c.at, c.R, c.dst
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def one_launch_ms(fn, args):
+        """One more launch of `fn` on `args`, timed by CUDA events."""
+        if dev.type != "cuda":
+            return None
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        e0.record()
+        fn(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    def kernel_ms(rec):
+        ms = rec["kernel_ms"]
+        return "not measured (no card)" if ms is None else f"{ms:.3f} ms"
+
+    def geometry(name, n):
+        if dev.type != "cuda":
+            return "geometry not measured (no card)"
+        blocks, threads, smem, per_sm = B.launch_geometry(name, n)
+        waves = -(-blocks // (per_sm * c.sms)) if per_sm else 0
+        return (f"{blocks} blocks of {threads} threads, {smem} B shared "
+                f"memory, {per_sm} blocks an SM, {waves} wave(s) on "
+                f"{c.sms} SMs")
+
+    # the kernels against their plain versions on edge rows
+    edge_scalars = [1, R - 1, R - 2] + c.sks[:29]
+    k_e, neg_e = B.sign_scalars_host(edge_scalars)
+    if not (neg_e.any(0).all() and (~neg_e).any(0).all()):
+        fail("the edge scalars do not hold both signs on each half")
+    probe = B.TorchBlsBackend(device=dev)
+    msg_e, inf_e = probe._messages(
+        [c.roots[i % len(c.roots)] for i in range(len(edge_scalars))], dst)
+    inf_e = inf_e.clone()
+    inf_e[[1, 17]] = True
+    args = (msg_e, inf_e, torch.from_numpy(k_e).to(dev),
+            torch.from_numpy(neg_e).to(dev))
+    c.same("batch_sign", B.batch_sign(*args), B.batch_sign_plain(*args),
+           f"edge rows: {len(edge_scalars)} signatures, ∞ messages (rows 1, "
+           f"17), both signs on each half, sk = 1, r - 1, r - 2")
+    first12 = sorted(c.unagg_pts)[:12]
+    g2_pts = [c.unagg_pts[i][1] for i in first12] + [g2_infinity()] * 2
+    g1_pts = [c.keys[i].point for i in first12] + [
+        A.PublicKey.aggregate([]).point] * 2
+    off_e = [0, 0, 12, 14, 15, 150, 151, 300]
+    for name, pts, k in (("g2_group_sum", g2_pts, 2), ("g1_group_sum", g1_pts,
+                                                       1)):
+        rows = torch.from_numpy(B.jacobian_rows(
+            [pts[i % 14] for i in range(300)], k)).to(dev)
+        c.same(name, getattr(B, name)(rows, off_e),
+               getattr(B, name + "_plain")(rows, off_e),
+               f"edge groups {off_e}: empty, all-∞ (12:14), single members, "
+               f"past 128 rows, ∞ rows inside")
+
+    # the operator slot through the plane: the duty validators attest
+    # their committee's root, the sync committee signs the head root
+    order = sorted(c.unagg_pts, key=lambda i: (c.unagg_pts[i][0], i))
+    requests = ([("attestation", c.roots[c.unagg_pts[i][0]], i)
+                 for i in order]
+                + [("sync_message", c.sync_root, i) for i in c.sync_members])
+    t0 = time.perf_counter()
+    anchors = [A.g2_to_bytes(c.unagg_pts[i][1] if lane == "attestation"
+                             else c.s_pts[i]) for lane, _, i in requests]
+    secret = {i: A.SecretKey(c.sks[i]) for _, _, i in requests}
+    log(f"host prep: {len(requests)} anchors of the operator slot by G2 "
+        f"additions (above), encoded: {time.perf_counter() - t0:.1f} s "
+        f"(host, not device)")
+    records = []
+    sign_backend = B.TorchBlsBackend(device=dev)
+    lane_rec = SignSplit(B, sign_backend)
+    base, twin = timed_signing_scheme(schemes, records, lane_rec)
+    rounds = []
+
+    def sign_round(plane):
+        sync()
+        t0 = time.perf_counter()
+        tickets = [plane.submit(root, secret[i], duty_kind=lane,
+                                public_key=c.keys[i])
+                   for lane, root, i in requests]
+        out = [t.result(300.0) for t in tickets]
+        elapsed = time.perf_counter() - t0
+        bad = [j for j, (o, a) in enumerate(zip(out, anchors)) if o != a]
+        if bad:
+            fail(f"operator slot: {len(bad)} released signatures differ from "
+                 f"their anchors (first {bad[:5]})")
+        return elapsed
+
+    schemes.register(twin)
+    c.count_reset()
+    plane = SigningPlane(backend=sign_backend, lanes=DEFAULT_SIGN_LANES,
+                         device=dev, settle_timeout_s=c.settle_timeout_s)
+    try:
+        with lane_rec:
+            warm_s = sign_round(plane)
+            del records[:]
+            rounds = [sign_round(plane) for _ in range(c.sign_rounds)]
+        totals = plane_totals(plane)
+        health = plane.health.state
+        duty = plane.flight.duty_cycle()
+    finally:
+        plane.stop()
+        schemes.register(base)
+    plane_launches = c.count_read()
+    p50 = statistics.median(rounds)
+    log(f"operator slot through SigningPlane (DEFAULT_SIGN_LANES, release "
+        f"gate on): {len(order)} attestations over {len(c.roots)} roots + "
+        f"{len(c.sync_members)} sync messages a round; warm round "
+        f"{warm_s * 1e3:.1f} ms, then {c.sign_rounds} rounds p50 "
+        f"{p50 * 1e3:.1f} ms ({', '.join(f'{r * 1e3:.1f}' for r in rounds)}); "
+        f"{len(requests) / p50:.1f} released signatures/s; every released "
+        f"signature equals its anchor byte for byte; plane duty cycle "
+        f"{duty:.3f} {at}")
+    log(f"plane counters: {json.dumps(totals)}; breaker {health}")
+    log(f"launches on the signing path ({1 + c.sign_rounds} rounds): "
+        f"{json.dumps(plane_launches)}")
+    for key in ("degraded", "device_faults", "breaker_skips", "expired",
+                "gate_failures", "dropped", "refused"):
+        if totals[key]:
+            fail(f"operator slot: {key} = {totals[key]} (0 required)")
+    if totals["device_batches"] != totals["batches"] or health != "closed":
+        fail(f"operator slot: not every batch ran on the device ({totals}, "
+             f"breaker {health})")
+    for name in ("batch_sign", "multi_rlc_scale", "miller_loop_pairs",
+                 "rlc_finish", "g2_subgroup_check"):
+        if plane_launches[name] < 1:
+            fail(f"a kernel of the signing path was not launched: {name}")
+    for r in records:
+        share = r["decode_s"] + r["verify_s"]
+        log(f"  sign batch of {r['n']}: host prep {r['host_prep_s'] * 1e3:.1f}"
+            f" ms (hash-to-G2 {r['hash_s'] * 1e3:.1f} ms, GLV decomposition "
+            f"{r['glv_s'] * 1e3:.1f} ms, upload), kernel "
+            f"{kernel_ms(r)} (CUDA events), device wait "
+            f"{r['wait_s'] * 1e3:.1f} ms, readback {r['readback_s'] * 1e3:.1f}"
+            f" ms + encoding {r['encode_s'] * 1e3:.1f} ms; gate: host decode "
+            f"{r['decode_s'] * 1e3:.1f} ms + device verify "
+            f"{r['verify_s'] * 1e3:.1f} ms ({share * 1e3:.1f} ms) {at}")
+    gate = sum(r["decode_s"] + r["verify_s"] for r in records)
+    sign = sum(r["host_prep_s"] + r["wait_s"] + r["readback_s"]
+               + r["encode_s"] for r in records)
+    busy = sum((r["kernel_ms"] or 0.0) / 1e3 + r["verify_s"]
+               for r in records) / c.sign_rounds
+    log(f"signing batches of the {c.sign_rounds} timed rounds: sign "
+        f"{sign * 1e3:.1f} ms, gate {gate * 1e3:.1f} ms in all (gate share "
+        f"{gate / (gate + sign):.3f}; two workers overlap batches); device "
+        f"busy at most {busy * 1e3:.1f} ms a round (batch_sign by CUDA events "
+        f"+ the gate's whole multi_verify call), idle share at least "
+        f"{1 - busy / p50:.3f} {at}")
+    lane_ops = next(a for a, _ in lane_rec.calls
+                    if a[1].shape[0] == max(x[1].shape[0]
+                                            for x, _ in lane_rec.calls))
+    log(f"  batch_sign launch at {lane_ops[1].shape[0]} rows: "
+        f"{geometry('batch_sign', lane_ops[1].shape[0])}")
+
+    # a sample through the card against SecretKey.sign, sk = 1, r − 1, r − 2
+    sample = [1, R - 1, R - 2] + [c.sks[i] for i in order[::128][:13]]
+    sample_msgs = [c.roots[j % len(c.roots)] for j in range(len(sample))]
+    got = sign_backend.batch_sign(sample_msgs,
+                                  [A.SecretKey(v) for v in sample])
+    t0 = time.perf_counter()
+    want = [A.SecretKey(v).sign(m).to_bytes()
+            for v, m in zip(sample, sample_msgs)]
+    host_sign_s = (time.perf_counter() - t0) / len(sample)
+    if [s.to_bytes() for s in got] != want:
+        fail("a sampled signature differs from SecretKey.sign")
+    log(f"sample of {len(sample)} (sk = 1, r - 1, r - 2 and slot keys) "
+        f"through TorchBlsBackend.batch_sign: equal to SecretKey.sign; host "
+        f"sk.sign {host_sign_s * 1e3:.1f} ms a signature (host)")
+
+    # aggregate construction: committee aggregates, sync subcommittee
+    # contributions, committee aggregate keys
+    com_sorted = [sorted(com) for com in c.committees]
+    sub = len(c.sync_members) // 4  # 4 sync subcommittees
+    groups = {
+        "committee aggregates": [[A.Signature(c.unagg_pts[i][1]) for i in com]
+                                 for com in com_sorted],
+        "sync contributions": [[A.Signature(c.s_pts[i]) for i in
+                                c.sync_members[j * sub:(j + 1) * sub]]
+                               for j in range(4)],
+    }
+    key_groups = [[c.keys[i] for i in com] for com in com_sorted]
+    aggregator = device_aggregator(device=dev)
+    c.count_reset()
+    agg_rows = {}
+    with Recorder(B, "g2_group_sum", lambda rows, off: (rows, list(off))) \
+            as rec2, Recorder(B, "g1_group_sum",
+                              lambda rows, off: (rows, list(off))) as rec1:
+        for where, grp in groups.items():
+            sync()
+            t0 = time.perf_counter()
+            out = aggregator(grp)
+            agg_rows[where] = (time.perf_counter() - t0, grp, out)
+        sync()
+        t0 = time.perf_counter()
+        out_k = B.g1_aggregate_groups(key_groups, device=dev)
+        agg_rows["committee aggregate keys"] = (time.perf_counter() - t0,
+                                                key_groups, out_k)
+    agg_launches = c.count_read()
+    for (where, (secs, grp, out)), (ops_r, _) in zip(
+            agg_rows.items(), rec2.calls + rec1.calls):
+        host = [type(grp[0][0]).aggregate(g).to_bytes() for g in grp]
+        if [a.to_bytes() for a in out] != host:
+            fail(f"aggregate construction, {where}: differs from the host "
+                 f"aggregate")
+        name = "g2_group_sum" if where != "committee aggregate keys" \
+            else "g1_group_sum"
+        k_ms = one_launch_ms(getattr(B, name), ops_r)
+        split = ("kernel not measured (no card)" if k_ms is None else
+                 f"host conversion {secs * 1e3 - k_ms:.1f} ms + kernel "
+                 f"{k_ms:.3f} ms (CUDA events, the recorded launch again)")
+        log(f"aggregate construction, {where}: {len(grp)} groups of "
+            f"{min(map(len, grp))}-{max(map(len, grp))} equal the host "
+            f"aggregates; {secs * 1e3:.1f} ms through the seam = {split}; "
+            f"{name} launch: {geometry(name, len(ops_r[1]) - 1)} {at}")
+    log(f"launches of aggregate construction: {json.dumps(agg_launches)}")
+    if agg_launches["g2_group_sum"] != 2 or agg_launches["g1_group_sum"] != 1:
+        fail(f"aggregate construction launches {agg_launches}")
+
+    # a chaos round: a wrong signature from the card is never released
+    signers = sorted(c.committees[0])[:c.chaos_signers]
+    chaos = ChaosBackend(B.TorchBlsBackend(device=dev),
+                         FaultPlan(script=["wrong_signature"]))
+    plane = SigningPlane(backend=chaos, device=dev,
+                         settle_timeout_s=c.settle_timeout_s)
+    try:
+        tickets = [plane.submit(c.roots[0], A.SecretKey(c.sks[i]),
+                                duty_kind="attestation", public_key=c.keys[i])
+                   for i in signers]
+        out = [t.result(300.0) for t in tickets]
+        totals = plane_totals(plane)
+    finally:
+        plane.stop()
+    bad = sum(o != A.g2_to_bytes(c.unagg_pts[i][1])
+              for o, i in zip(out, signers))
+    log(f"chaos round (wrong_signature on the first batch_sign): "
+        f"{len(signers)} signatures, {bad} differ from their anchors; "
+        f"gate_failures {totals['gate_failures']}, degraded "
+        f"{totals['degraded']}, device batches {totals['device_batches']} of "
+        f"{totals['batches']}")
+    if bad or totals["gate_failures"] != 1 or totals["degraded"] != 1 or \
+            chaos.plan.injected["wrong_signature"] != 1:
+        fail("the chaos round released a bad signature or miscounted")
+
+    # one full bucket: MAX_BUCKET registry keys over the slot's roots
+    n_full = c.full_bucket
+    full = B.TorchBlsBackend(device=dev)
+    msgs_f = [c.roots[i % len(c.roots)] for i in range(n_full)]
+    full.batch_sign(c.roots, [A.SecretKey(v) for v in c.sks[:len(c.roots)]])
+    sks_f = [A.SecretKey(c.sks[i]) for i in range(n_full)]
+    with SignSplit(B, full) as full_rec:
+        sync()
+        c.count_reset()
+        t0 = time.perf_counter()
+        out = full.batch_sign(msgs_f, sks_f)
+        full_s = time.perf_counter() - t0
+        full_launches = c.count_read()["batch_sign"]
+    t0 = time.perf_counter()
+    want_pts = [None] * n_full
+    for j, h in enumerate(c.hpts):
+        idx = list(range(j, n_full, len(c.roots)))
+        for i, pt in progression_points(h, c.a0, c.d0, idx, R).items():
+            want_pts[i] = pt
+    same_words = np.array_equal(B.jacobian_rows([s.point for s in out], 2),
+                                B.jacobian_rows(want_pts, 2))
+    anchor_s = time.perf_counter() - t0
+    r = full_rec.done[threading.get_ident()]
+    log(f"full bucket: TorchBlsBackend.batch_sign of {n_full} registry keys "
+        f"over {len(c.roots)} roots ({full_launches} launch): "
+        f"{full_s * 1e3:.1f} ms = host prep {r['host_prep_s'] * 1e3:.1f} ms "
+        f"(hash-to-G2 {r['hash_s'] * 1e3:.1f} ms, GLV decomposition "
+        f"{r['glv_s'] * 1e3:.1f} ms, upload) + device wait "
+        f"{r['wait_s'] * 1e3:.1f} ms (kernel {kernel_ms(r)}, CUDA "
+        f"events) + readback {r['readback_s'] * 1e3:.1f} ms; "
+        f"{n_full / full_s:.1f} signatures/s; every point equals its anchor "
+        f"({same_words}; anchors by G2 additions {anchor_s:.1f} s, host) {at}")
+    log(f"  batch_sign launch at {n_full} rows: {geometry('batch_sign', n_full)}")
+    if not same_words:
+        fail("full bucket: a signature differs from its anchor")
+    if full_launches != 1:
+        fail(f"full bucket: {full_launches} batch_sign launches (1 expected)")
+
+    # timing rows: (name, where, kernel, plain, reps, Fp products, bytes,
+    # replaces, launches on its path, kernels-line entry). The lane batch,
+    # the plane's shape, comes first: it is the kernels-line entry, with the
+    # plane's launches; the full bucket's row has its own run's launch.
+    rows = []
+    for where, ops_s, n_l in (
+            (f"lane batch, N = {lane_ops[1].shape[0]}", lane_ops,
+             plane_launches["batch_sign"]),
+            (f"full bucket, N = {n_full}", full_rec.calls[0][0],
+             full_launches)):
+        n = ops_s[1].shape[0]
+        rows.append((
+            "batch_sign", where, lambda a=ops_s: B.batch_sign(*a),
+            lambda a=ops_s: B.batch_sign_plain(*a), 3,
+            c.ops.sign(ops_s[2].cpu().numpy(), (~ops_s[1]).cpu().tolist()),
+            n * 515, "grandine_tpu/tpu/bls.py:896", n_l, "batch_sign"))
+    for (where, (_, grp, _)), (ops_r, _) in zip(agg_rows.items(),
+                                                rec2.calls + rec1.calls):
+        k = 2 if where != "committee aggregate keys" else 1
+        name = "g2_group_sum" if k == 2 else "g1_group_sum"
+        counts = [len(g) for g in grp]
+        rows.append((
+            name, f"aggregate construction, {where}",
+            lambda a=ops_r, f=getattr(B, name): f(*a),
+            lambda a=ops_r, f=getattr(B, name + "_plain"): f(*a), 5,
+            c.ops.group_sum(counts, k), sum(counts) * 144 * k
+            + len(counts) * (144 * k + 4) + 4,
+            "grandine_tpu/tpu/bls.py:" + ("980" if k == 2 else "1010"),
+            agg_launches[name],
+            name if k == 2 else "g1_group_sum/aggregate"))
+    return rows
+
+
 # --- main ------------------------------------------------------------------
 
 
@@ -426,8 +942,10 @@ def main() -> None:
         "aggregate_rlc_scale": B.aggregate_rlc_scale,
         "multi_rlc_scale": B.multi_rlc_scale,
         "g1_group_sum": B.g1_group_sum,
+        "g2_group_sum": B.g2_group_sum,
         "miller_loop_pairs": TP.miller_loop_pairs,
         "rlc_finish": B.rlc_finish,
+        "batch_sign": B.batch_sign,
     }
 
     # 1. build ---------------------------------------------------------------
@@ -1055,7 +1573,19 @@ def main() -> None:
             f"({'grouped' if g < f_ else 'flat'} faster by "
             f"{abs(f_ - g) * 1e3:.1f} ms) {at}")
 
-    # 7. timings -----------------------------------------------------------------
+    # 7. the signing path: the operator slot through the signing plane,
+    # aggregate construction, a chaos round, one full bucket ------------------
+    ops = OpModel(P, -X)
+    sign_rows = signing_phase(SimpleNamespace(
+        torch=torch, np=np, A=A, B=B, dev=dev, at=at, sms=sms, R=R,
+        dst=DST_SIGNATURE, same=same, ops=ops, sks=sks, keys=keys,
+        committees=committees, roots=roots, hpts=hpts, unagg_pts=unagg_pts,
+        sync_root=sync_root, sync_members=sync_members, s_pts=s_pts, a0=a0,
+        d0=d0, count_reset=count_reset, count_read=count_read,
+        sign_rounds=SIGN_ROUNDS, chaos_signers=CHAOS_SIGNERS,
+        full_bucket=B.MAX_BUCKET, settle_timeout_s=5.0))
+
+    # 8. timings -----------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -1134,7 +1664,6 @@ def main() -> None:
 
     blk = flat_operands(block, block_backend)
     win = flat_operands(window, window_backend)
-    ops = OpModel(P, -X)
     gossip = f"gossip batch, M = {m_aggs}"
     timed = [
         ("g1_decompress", lambda: C.g1_decompress(raw_t),
@@ -1227,6 +1756,7 @@ def main() -> None:
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
             "rlc_finish"))
+    timed += sign_rows
     for where, (ops_r, verdict_r) in finish_records:
         if where in timed_finish:
             continue

@@ -819,6 +819,16 @@ BLS_HD void mont_out2(uint32_t* w, const fp2& a) {
   mont_out(w + 12, a.c1);
 }
 
+// one coordinate of G1 (fp) or G2 (fp2), for code templated on the field
+BLS_HD void f_in(fp& r, const uint32_t* w, const uint32_t* K) {
+  r = mont_in(w, K);
+}
+BLS_HD void f_in(fp2& r, const uint32_t* w, const uint32_t* K) {
+  r = mont_in2(w, K);
+}
+BLS_HD void f_out(uint32_t* w, const fp& a) { mont_out(w, a); }
+BLS_HD void f_out(uint32_t* w, const fp2& a) { mont_out2(w, a); }
+
 BLS_HD void fp6_out(uint32_t* w, const fp6& a) {
   mont_out2(w, a.c0);
   mont_out2(w + 24, a.c1);

@@ -1,5 +1,6 @@
-// The per-set kernels of the flat and message-grouped BLS verify paths:
-// multi_rlc_scale and g1_group_sum.
+// The per-set kernels of the flat and message-grouped BLS verify paths and
+// of aggregate construction: multi_rlc_scale, and group_sum<F> as
+// g1_group_sum (fp) and g2_group_sum (fp2).
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -60,30 +61,36 @@ __global__ void multi_rlc_scale_kernel(const uint32_t* src_x,
   }
 }
 
-// --- g1_group_sum: one block of BLS_TREE threads per group --------------------
+// --- group_sum<F>: one block of BLS_TREE threads per group ------------------
 //
-// Group m sums the Jacobian G1 rows [offsets[m], offsets[m+1]): thread t
-// adds rows t, t + BLS_TREE, ... (complete adds), block_tree_sum folds the
-// partial sums, thread 0 writes the total (infinity for an empty group).
+// Group m sums the Jacobian rows [offsets[m], offsets[m+1]) of G1 (F = fp)
+// or G2 (F = fp2): thread t adds rows t, t + BLS_TREE, ... (complete adds; a
+// row with Z = 0 is infinity), block_tree_sum folds the partial sums, thread
+// 0 writes the total (infinity for an empty group). Shared memory: BLS_TREE
+// points, 18,432 B for G1 and 36,864 B for G2.
 
+template <class F>
 __global__ void __launch_bounds__(BLS_TREE)
-g1_group_sum_kernel(const uint32_t* rows, const int32_t* offsets,
-                    uint32_t* out, const uint32_t* K) {
-  __shared__ jac<fp> part[BLS_TREE];
+group_sum_kernel(const uint32_t* rows, const int32_t* offsets, uint32_t* out,
+                 const uint32_t* K) {
+  constexpr int W = sizeof(F) / sizeof(uint32_t);  // words a coordinate
+  __shared__ jac<F> part[BLS_TREE];
   int m = blockIdx.x, t = threadIdx.x;
-  jac<fp> acc = jac_inf<fp>(K);
+  jac<F> acc = jac_inf<F>(K);
   for (int i = offsets[m] + t; i < offsets[m + 1]; i += BLS_TREE) {
-    jac<fp> q;
-    q.x = mont_in(rows + 36 * (size_t)i, K);
-    q.y = mont_in(rows + 36 * (size_t)i + 12, K);
-    q.z = mont_in(rows + 36 * (size_t)i + 24, K);
+    const uint32_t* r = rows + 3 * W * (size_t)i;
+    jac<F> q;
+    f_in(q.x, r, K);
+    f_in(q.y, r + W, K);
+    f_in(q.z, r + 2 * W, K);
     acc = point_add_complete(acc, q, K);
   }
   block_tree_sum(part, acc, K);
   if (t != 0) return;
-  mont_out(out + 36 * (size_t)m, part[0].x);
-  mont_out(out + 36 * (size_t)m + 12, part[0].y);
-  mont_out(out + 36 * (size_t)m + 24, part[0].z);
+  uint32_t* o = out + 3 * W * (size_t)m;
+  f_out(o, part[0].x);
+  f_out(o + W, part[0].y);
+  f_out(o + 2 * W, part[0].z);
 }
 
 // --- C interface --------------------------------------------------------
@@ -108,8 +115,34 @@ int bls_multi_rlc_scale(const uint32_t* src_x, const uint32_t* src_y,
 int bls_g1_group_sum(const uint32_t* rows, const int32_t* offsets, int m,
                      uint32_t* out, const uint32_t* K, cudaStream_t stream) {
   if (m > 0)
-    g1_group_sum_kernel<<<m, BLS_TREE, 0, stream>>>(rows, offsets, out, K);
+    group_sum_kernel<fp><<<m, BLS_TREE, 0, stream>>>(rows, offsets, out, K);
   return (int)cudaGetLastError();
+}
+
+int bls_g2_group_sum(const uint32_t* rows, const int32_t* offsets, int m,
+                     uint32_t* out, const uint32_t* K, cudaStream_t stream) {
+  if (m > 0)
+    group_sum_kernel<fp2><<<m, BLS_TREE, 0, stream>>>(rows, offsets, out, K);
+  return (int)cudaGetLastError();
+}
+
+// geometry (host memory) of the launch bls_g1_group_sum (g2 = 0) or
+// bls_g2_group_sum (g2 = 1) makes over m groups: blocks, threads a block,
+// static shared memory bytes, and the most blocks of this shape one SM
+// holds at once. Launches nothing.
+int bls_group_sum_geometry(int g2, int m, int32_t* geometry,
+                           const uint32_t* K, cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t err =
+      g2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, group_sum_kernel<fp2>, BLS_TREE, 0)
+         : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, group_sum_kernel<fp>, BLS_TREE, 0);
+  geometry[0] = m;
+  geometry[1] = BLS_TREE;
+  geometry[2] = (int)(BLS_TREE * (g2 ? sizeof(jac<fp2>) : sizeof(jac<fp>)));
+  geometry[3] = per_sm;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -39,8 +39,10 @@ LIBRARIES = {
     "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
                       "g2_subgroup_check"),
     "aggregate.cu": ("aggregate_rlc_scale",),
-    "multi.cu": ("multi_rlc_scale", "g1_group_sum"),
+    "multi.cu": ("multi_rlc_scale", "g1_group_sum", "g2_group_sum",
+                 "group_sum_geometry"),
     "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry"),
+    "sign.cu": ("batch_sign", "batch_sign_geometry"),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
 #: the deepest kernel's need (ptxas "cumulative stack size") rounded up to
@@ -67,6 +69,10 @@ SIGNATURES = {
     "multi_rlc_scale": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
     "miller_loop_pairs": [_vp, _vp, _vp, _vp, _i],
     "g1_group_sum": [_vp, _vp, _i, _vp],
+    "g2_group_sum": [_vp, _vp, _i, _vp],
+    "batch_sign": [_vp, _vp, _vp, _vp, _i, _vp],
+    "batch_sign_geometry": [_i, _vp],
+    "group_sum_geometry": [_i, _i, _vp],
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
     "rlc_finish_geometry": [_i, _i, _vp],
 }

@@ -1,5 +1,6 @@
-"""BLS batch verification on the card: the verify kernels that follow
-decompression, and the host-facing backend.
+"""BLS batch verification and batch signing on the card: the verify
+kernels that follow decompression, the signing kernel, the group sums of
+aggregate construction, and the host-facing backend.
 
 `TorchBlsBackend` is the counterpart of grandine_tpu/tpu/bls.py
 TpuBlsBackend with its verify seams and their edge semantics. Four
@@ -36,6 +37,13 @@ seams of each family share one kernel. The uncompressed seams run
 verdict, as the JAX package fuses the ψ ladder into its verify programs
 by default; the compressed seams get it from the decompression kernel.
 
+Signing (`TorchBlsBackend.batch_sign`, the signing plane's device seam):
+`batch_sign` (this module: [skᵢ]·H(mᵢ) by a branchless dual 128-bit GLV
+ladder) — replacing batch_sign_kernel. Aggregate construction
+(`g2_aggregate_groups`, `g1_aggregate_groups`): `g2_group_sum` /
+`g1_group_sum` over groups padded with ∞ — replacing g2_aggregate_kernel
+and g1_aggregate_kernel.
+
 Host prep per batch: the row pack of the wire bytes or the affine
 conversion of the signature points, hash-to-G2 of each distinct message
 (LRU-cached), the RLC pairs and the index plane — no field arithmetic on
@@ -55,8 +63,9 @@ import torch
 
 from grandine_tpu_torch.crypto import bls as A
 from grandine_tpu_torch.crypto import constants
-from grandine_tpu_torch.crypto.curves import G1
-from grandine_tpu_torch.crypto.fields import batch_inverse
+from grandine_tpu_torch.crypto.curves import (
+    B1, B2, G1, Point, decompose_glv, g1_infinity, g2_infinity)
+from grandine_tpu_torch.crypto.fields import Fq, Fq2, batch_inverse
 from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
 from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import field as F
@@ -67,6 +76,12 @@ from grandine_tpu_torch.gpu import pairing as TP
 #: largest batch one verification covers; bigger batches are split into
 #: chunks of this size, each one RLC check (all must pass)
 MAX_BUCKET = 1 << 14
+
+#: bits of each GLV half of a secret scalar: Babai rounding keeps |k0|,
+#: |k1| ≤ λ ≈ 2¹²⁷·⁴, and the ladder's mixed additions never meet a
+#: degenerate case only while both stay below 2¹²⁸ (grandine_tpu/tpu/
+#: curve.py:604-609)
+SIGN_HALF_BITS = 128
 
 #: entries of the hash-to-G2 point cache (one per distinct signing root;
 #: a slot at mainnet width has at most 64 committees)
@@ -250,39 +265,154 @@ def g1_group_sum_plain(rows, offsets):
 def g1_group_sum(rows, offsets):
     """Σ of the Jacobian G1 rows (N, 3, 12) of each group [offsets[m],
     offsets[m+1]) — offsets, M + 1 host ints, are the only way groups are
-    given — as (M, 3, 12) Jacobian words, ∞ (1, 1, 0) for an empty group.
-    CUDA kernel `g1_group_sum` (csrc/multi.cu) on CUDA tensors, the plain
-    version on CPU tensors.
+    given — as (M, 3, 12) Jacobian words, ∞ (1, 1, 0) for an empty group;
+    a row with Z = 0 is ∞. CUDA kernel `g1_group_sum` (csrc/multi.cu, the
+    G1 instance of `group_sum<F>`) on CUDA tensors, the plain version on
+    CPU tensors.
 
     Replaces, in grandine_tpu/tpu/bls.py grouped_multi_verify_msm_kernel
     (:483), the per-message key MSM Σᵢ∈ⱼ rᵢ·pkᵢ of `_grouped_msm_verify_tail`
     (:461-466), given the rᵢ·pkᵢ that `multi_rlc_scale` computes per set
-    (the bucket MSM is queued as a perf item). One block of 128 threads per
-    group: a strided loop of complete additions, then the shared-memory
-    tree. Bound: operations — one complete G1 addition (16 Fp products) a
-    row against 144 bytes a row; at M = 12 groups on 132 SMs the kernel is
-    latency-bound on the ⌈rows/128⌉ + 7 dependent additions of a group."""
+    (the bucket MSM is queued as a perf item); and g1_aggregate_kernel
+    (:1010, curve.py sum_points_contiguous) behind `g1_aggregate_groups`.
+    One block of 128 threads per group: a strided loop of complete
+    additions, then the shared-memory tree. Bound: operations — one
+    complete G1 addition (16 Fp products) a row against 144 bytes a row;
+    at M = 12 groups on 132 SMs the kernel is latency-bound on the
+    ⌈rows/128⌉ + 7 dependent additions of a group."""
     if rows.device.type == "cpu":
         return g1_group_sum_plain(rows, offsets)
-    return _g1_group_sum_cuda(rows, offsets)
-
-
-def _g1_group_sum_cuda(rows, offsets):
-    from grandine_tpu_torch.gpu import _build
-
-    n = rows.shape[0]
-    if rows.shape != (n, 3, 12) or rows.dtype != torch.int32:
-        raise ValueError("g1_group_sum: rows (N, 3, 12) int32")
-    off = _offsets(offsets, n, "g1_group_sum")
-    m = off.size - 1
-    out = torch.empty((m, 3, 12), dtype=torch.int32, device=rows.device)
-    _build.launch("g1_group_sum", rows.contiguous(),
-                  _offsets_to(off, rows.device), ctypes.c_int(m), out)
+    out = _group_sum_cuda("g1_group_sum", rows, offsets, (3, 12))
     g1_group_sum.launches += 1
     return out
 
 
 g1_group_sum.launches = 0
+
+
+def g2_group_sum_plain(rows, offsets):
+    """Plain version of `g2_group_sum`: the G2 twin of
+    `g1_group_sum_plain`."""
+    off = _offsets(offsets, rows.shape[0], "g2_group_sum")
+    total = msm.sum_points_contiguous(C.jac_from_words(rows, 2), off,
+                                      C.FP2_OPS)
+    return C.jac_to_words(total, 2)
+
+
+def g2_group_sum(rows, offsets):
+    """Σ of the Jacobian G2 rows (N, 3, 2, 12) of each group [offsets[m],
+    offsets[m+1]) as (M, 3, 2, 12) Jacobian words, ∞ (1, 1, 0) for an
+    empty group; a row with Z = 0 is ∞. CUDA kernel `g2_group_sum`
+    (csrc/multi.cu, the G2 instance of `group_sum<F>`) on CUDA tensors,
+    the plain version on CPU tensors.
+
+    Replaces grandine_tpu/tpu/bls.py g2_aggregate_kernel (:980, curve.py
+    sum_points_contiguous :374) behind `g2_aggregate_groups`: aggregate
+    construction, every committee of a slot in one launch. One block of
+    128 threads per group, as `g1_group_sum`, over 36,864 B of static
+    shared memory (128 Jacobian G2 points). Bound: operations — one
+    complete G2 addition (48 Fp products) a row against 288 bytes a row;
+    at a slot's 12–16 groups the kernel is latency-bound on the
+    ⌈rows/128⌉ + 7 dependent additions of a group."""
+    if rows.device.type == "cpu":
+        return g2_group_sum_plain(rows, offsets)
+    out = _group_sum_cuda("g2_group_sum", rows, offsets, (3, 2, 12))
+    g2_group_sum.launches += 1
+    return out
+
+
+g2_group_sum.launches = 0
+
+
+def _group_sum_cuda(name, rows, offsets, point_shape):
+    from grandine_tpu_torch.gpu import _build
+
+    n = rows.shape[0]
+    if rows.shape[1:] != point_shape or rows.dtype != torch.int32:
+        raise ValueError(f"{name}: rows (N, {', '.join(map(str, point_shape))})"
+                         " int32")
+    off = _offsets(offsets, n, name)
+    m = off.size - 1
+    out = torch.empty((m, *point_shape), dtype=torch.int32,
+                      device=rows.device)
+    _build.launch(name, rows.contiguous(), _offsets_to(off, rows.device),
+                  ctypes.c_int(m), out)
+    return out
+
+
+def launch_geometry(name: str, n: int):
+    """(blocks, threads a block, shared memory bytes, blocks one SM holds
+    at once) of the launch that "batch_sign" makes over n rows, or
+    "g1_group_sum" / "g2_group_sum" over n groups, on the current CUDA
+    device. A query: it launches nothing."""
+    from grandine_tpu_torch.gpu import _build
+
+    geometry = np.zeros((4,), np.int32)
+    out = ctypes.c_void_p(geometry.ctypes.data)
+    if name == "batch_sign":
+        _build.launch("batch_sign_geometry", ctypes.c_int(n), out)
+    else:
+        _build.launch("group_sum_geometry",
+                      ctypes.c_int(name == "g2_group_sum"), ctypes.c_int(n),
+                      out)
+    return tuple(int(v) for v in geometry)
+
+
+# --- batch_sign -----------------------------------------------------------------
+
+
+def batch_sign_plain(msg, msg_inf, k, neg):
+    """Plain version of `batch_sign`: the 128-bit dual GLV ladder of
+    gpu/curve.py scalar_mul_glv with the sign masks."""
+    w = k.to(torch.int64) & 0xFFFFFFFF
+    out = C.scalar_mul_glv(L.from_words(msg[:, 0]), L.from_words(msg[:, 1]),
+                           msg_inf, w[:, 0], w[:, 1], C.g2_endo(msg.device),
+                           C.FP2_OPS, nbits=SIGN_HALF_BITS,
+                           neg_lo=neg[:, 0], neg_hi=neg[:, 1])
+    return C.jac_to_words(out, 2)
+
+
+def batch_sign(msg, msg_inf, k, neg):
+    """N signatures [skᵢ]·H(mᵢ): msg (N, 2, 2, 12) the affine canonical
+    words [x, y] of H(mᵢ) with msg_inf (N,) (an ∞ row gives ∞ whatever
+    its scalar); k (N, 2, 4) int32 the GLV halves |k0|, |k1| of skᵢ as
+    little-endian 32-bit words and neg (N, 2) bool their signs
+    (`sign_scalars_host`). Returns (N, 3, 2, 12) Jacobian words. CUDA
+    kernel `batch_sign` (csrc/sign.cu) on CUDA tensors, the plain version
+    on CPU tensors.
+
+    Replaces grandine_tpu/tpu/bls.py batch_sign_kernel (:896) with
+    curve.py scalar_mul_glv (:591) on FP2_OPS. One thread a signature, one
+    warp a block: exactly 128 steps of one doubling and both mixed
+    additions, the bits and the "started" state choosing by mask selects —
+    no branch and no loop bound depends on a scalar bit. Bound:
+    operations — 128 doublings and ~128 mixed additions in Fp2 (~11,000
+    Fp products a row) against 515 bytes a row; each row is one thread's
+    dependent chain, so at a lane's 512 rows the kernel is latency-bound
+    on one ladder, and a full bucket (16,384 rows, 512 one-warp blocks)
+    fills the card.
+
+    NOTE (as the JAX kernel says): secret scalars live on the card; the
+    kernel is branchless on the scalar (fixed trip count, select-based)
+    but NOT hardened against physical side channels — the field
+    arithmetic's conditional reductions still depend on the data."""
+    n = msg_inf.shape[0]
+    if (msg.shape != (n, 2, 2, 12) or k.shape != (n, 2, 4)
+            or k.dtype != torch.int32 or neg.shape != (n, 2)):
+        raise ValueError("batch_sign: msg (N, 2, 2, 12), msg_inf (N,), "
+                         "k (N, 2, 4) int32, neg (N, 2)")
+    if msg.device.type == "cpu":
+        return batch_sign_plain(msg, msg_inf, k, neg)
+    from grandine_tpu_torch.gpu import _build
+
+    out = torch.empty((n, 3, 2, 12), dtype=torch.int32, device=msg.device)
+    _build.launch("batch_sign", msg.contiguous(), msg_inf.contiguous(),
+                  k.contiguous(), neg.contiguous(), ctypes.c_int(n), out)
+    batch_sign.launches += 1
+    return out
+
+
+batch_sign.launches = 0
 
 
 # --- rlc_finish -----------------------------------------------------------------
@@ -571,17 +701,38 @@ def g2_affine_words(pt) -> "tuple[np.ndarray, bool]":
     return np.stack([x[0], y[0]]), bool(inf[0])
 
 
+def g1_affine_ints(rows) -> "list[tuple[int, int]]":
+    """Jacobian G1 coordinates [(x, y, z), …] as ints, z ≠ 0 → affine
+    [(x/z², y/z³), …], with one batched inversion."""
+    p = L.P
+    out = []
+    for (x, y, _), zi in zip(rows, batch_inverse([r[2] for r in rows], p)):
+        zi2 = zi * zi % p
+        out.append((x * zi2 % p, y * zi2 % p * zi % p))
+    return out
+
+
+def g2_affine_ints(rows) -> "list[tuple[int, int, int, int]]":
+    """Jacobian G2 coordinates [(x0, x1, y0, y1, z0, z1), …] as ints (Fp2
+    as c0 + c1·u), Z ≠ 0 → affine [(x0, x1, y0, y1), …], with one batched
+    inversion of the norms."""
+    p = L.P
+    ninv = batch_inverse([(r[4] * r[4] + r[5] * r[5]) % p for r in rows], p)
+    out = []
+    for (x0, x1, y0, y1, z0, z1), ni in zip(rows, ninv):
+        z0, z1 = z0 * ni % p, -z1 * ni % p  # 1/Z = conj(Z)/|Z|
+        a0, a1 = (z0 * z0 - z1 * z1) % p, 2 * z0 * z1 % p  # 1/Z²
+        b0, b1 = (a0 * z0 - a1 * z1) % p, (a0 * z1 + a1 * z0) % p  # 1/Z³
+        out.append(((x0 * a0 - x1 * a1) % p, (x0 * a1 + x1 * a0) % p,
+                    (y0 * b0 - y1 * b1) % p, (y0 * b1 + y1 * b0) % p))
+    return out
+
+
 def g1_affine_words(points) -> "tuple[np.ndarray, np.ndarray]":
     """Host G1 points (any Z, none ∞) → (N, 12) x and y canonical words,
     with one batched inversion."""
-    p = L.P
-    zinv = batch_inverse([pt.z.n for pt in points], p)
-    xs, ys = [], []
-    for pt, zi in zip(points, zinv):
-        zi2 = zi * zi % p
-        xs.append(pt.x.n * zi2 % p)
-        ys.append(pt.y.n * zi2 % p * zi % p)
-    w = L.ints_to_words(xs + ys)
+    xy = g1_affine_ints([(pt.x.n, pt.y.n, pt.z.n) for pt in points])
+    w = L.ints_to_words([v for v, _ in xy] + [v for _, v in xy])
     return w[: len(points)], w[len(points):]
 
 
@@ -591,19 +742,12 @@ def g2_affine_words_many(points):
     p = L.P
     n = len(points)
     inf = np.array([pt.is_infinity() for pt in points], bool).reshape(n)
-    live = [pt for pt, i in zip(points, inf) if not i]
-    ninv = batch_inverse([(pt.z.c0.n ** 2 + pt.z.c1.n ** 2) % p
-                          for pt in live], p)
-    vals = []
-    for pt, ni in zip(live, ninv):
-        z0, z1 = pt.z.c0.n * ni % p, -pt.z.c1.n * ni % p  # 1/Z = conj(Z)/|Z|
-        a0, a1 = (z0 * z0 - z1 * z1) % p, 2 * z0 * z1 % p  # 1/Z²
-        b0, b1 = (a0 * z0 - a1 * z1) % p, (a0 * z1 + a1 * z0) % p  # 1/Z³
-        x0, x1, y0, y1 = pt.x.c0.n, pt.x.c1.n, pt.y.c0.n, pt.y.c1.n
-        vals += [(x0 * a0 - x1 * a1) % p, (x0 * a1 + x1 * a0) % p,
-                 (y0 * b0 - y1 * b1) % p, (y0 * b1 + y1 * b0) % p]
+    vals = g2_affine_ints([
+        (pt.x.c0.n, pt.x.c1.n, pt.y.c0.n, pt.y.c1.n, pt.z.c0.n, pt.z.c1.n)
+        for pt, i in zip(points, inf) if not i])
     xy = np.zeros((n, 2, 2, 12), np.int32)
-    xy[~inf] = L.ints_to_words(vals).reshape(-1, 2, 2, 12)
+    xy[~inf] = L.ints_to_words([v for r in vals for v in r]).reshape(
+        -1, 2, 2, 12)
     return xy[:, 0], xy[:, 1], inf
 
 
@@ -623,11 +767,145 @@ def rlc_bits_host(pairs) -> np.ndarray:
     return out
 
 
+def sign_scalars_host(scalars, pad_to: "int | None" = None):
+    """Secret scalars → (k (N, 2, 4) int32, neg (N, 2) bool): the GLV
+    halves |k0|, |k1| (sk ≡ ±|k0| ± |k1|·λ mod r, crypto/curves.py
+    decompose_glv) as little-endian 32-bit words and their signs
+    (True = negative), the meaning of the JAX package's sign_bits_host
+    (grandine_tpu/tpu/bls.py:126) in words instead of bits. Rows past the
+    scalars, up to pad_to, are k0 = 1, k1 = 0. Raises AssertionError when
+    a half reaches 2¹²⁸, where the ladder's degeneracy argument ends."""
+    decs = [decompose_glv(int(v)) for v in scalars]
+    n = len(decs) if pad_to is None else pad_to
+    decs += [(1, 1, 0, 1)] * (n - len(decs))
+    k = np.zeros((n, 2, 4), np.uint32)
+    neg = np.zeros((n, 2), bool)
+    for i, (a, sa, b, sb) in enumerate(decs):
+        assert a < 1 << SIGN_HALF_BITS and b < 1 << SIGN_HALF_BITS
+        k[i, 0] = np.frombuffer(a.to_bytes(16, "little"), "<u4")
+        k[i, 1] = np.frombuffer(b.to_bytes(16, "little"), "<u4")
+        neg[i] = sa < 0, sb < 0
+    return k.view(np.int32), neg
+
+
+def g2_points_from_words(words) -> "list[Point]":
+    """(N, 3, 2, 12) Jacobian canonical words → host G2 points in affine
+    form (Z = 1; ∞ where Z = 0), with one batched inversion."""
+    v = L.words_to_ints(np.asarray(words).reshape(-1, 12))
+    rows = [v[6 * i : 6 * i + 6] for i in range(len(v) // 6)]
+    live = iter(g2_affine_ints([r for r in rows if r[4] or r[5]]))
+    out = []
+    for r in rows:
+        if not (r[4] or r[5]):
+            out.append(g2_infinity())
+            continue
+        x0, x1, y0, y1 = next(live)
+        out.append(Point.from_affine(Fq2.from_ints(x0, x1),
+                                     Fq2.from_ints(y0, y1), B2))
+    return out
+
+
+def g1_points_from_words(words) -> "list[Point]":
+    """(N, 3, 12) Jacobian canonical words → host G1 points in affine form
+    (Z = 1; ∞ where Z = 0), with one batched inversion."""
+    v = L.words_to_ints(np.asarray(words).reshape(-1, 12))
+    rows = [v[3 * i : 3 * i + 3] for i in range(len(v) // 3)]
+    live = iter(g1_affine_ints([r for r in rows if r[2]]))
+    out = []
+    for r in rows:
+        if not r[2]:
+            out.append(g1_infinity())
+            continue
+        x, y = next(live)
+        out.append(Point.from_affine(Fq(x), Fq(y), B1))
+    return out
+
+
+def jacobian_rows(points, k: int) -> np.ndarray:
+    """Host points of G1 (k = 1) or G2 (k = 2), any Z, ∞ allowed → (N, 3,
+    [2,] 12) Jacobian canonical words with Z = 1, or all zero (Z = 0: ∞)
+    on ∞ rows; one batched inversion."""
+    n = len(points)
+    shape = (n, 3, 12) if k == 1 else (n, 3, 2, 12)
+    out = np.zeros(shape, np.int32)
+    if k == 2:
+        x, y, inf = g2_affine_words_many(points)
+        out[:, 0], out[:, 1] = x, y
+    else:
+        inf = np.array([pt.is_infinity() for pt in points], bool).reshape(n)
+        if (~inf).any():
+            fx, fy = g1_affine_words([pt for pt, i in zip(points, inf)
+                                      if not i])
+            out[~inf, 0], out[~inf, 1] = fx, fy
+    live = np.nonzero(~inf)[0]
+    if k == 1:
+        out[live, 2, 0] = 1  # Z = 1
+    else:
+        out[live, 2, 0, 0] = 1  # Z = 1 + 0·u
+    return out
+
+
 def g1_decompress_rows(rows, device):
     """g1_decompress on (B, 48) uint8 numpy rows placed on
     `device`; the registry's ingest seam."""
     t = torch.as_tensor(np.ascontiguousarray(rows), dtype=torch.uint8)
     return C.g1_decompress(t.to(device))
+
+
+# --- aggregate construction -----------------------------------------------------
+
+
+def _aggregate_groups(groups, k: int, group_sum, device):
+    """The contiguous-group sums of `group_sum` over host points (G1 for
+    k = 1, G2 for k = 2), with the JAX package's bucketing and chunking
+    (grandine_tpu/tpu/bls.py:1031-1128): every group padded with ∞ to the
+    power-of-two bucket s of the widest, group g owning rows [g·s, g·s +
+    s); past MAX_BUCKET rows the groups go in chunks of MAX_BUCKET / s.
+    The JAX package also pads the group count to a power of two for its
+    compile cache; groups past the real ones would be all ∞ and are not
+    launched. Returns one host point a group (∞ for an empty group)."""
+    m = len(groups)
+    s = _bucket(max(max(len(grp) for grp in groups), 1))
+    per_chunk = max(1, MAX_BUCKET // s)
+    if m > per_chunk:
+        return [pt for i in range(0, m, per_chunk)
+                for pt in _aggregate_groups(groups[i : i + per_chunk], k,
+                                            group_sum, device)]
+    flat = jacobian_rows([pt for grp in groups for pt in grp], k)
+    rows = np.zeros((m * s,) + flat.shape[1:], np.int32)  # Z = 0: ∞
+    pos = 0
+    for g, grp in enumerate(groups):
+        rows[g * s : g * s + len(grp)] = flat[pos : pos + len(grp)]
+        pos += len(grp)
+    out = group_sum(torch.from_numpy(rows).to(device), range(0, m * s + 1, s))
+    words = out.cpu().numpy()
+    return (g1_points_from_words if k == 1 else g2_points_from_words)(words)
+
+
+def g2_aggregate_groups(groups, device=None) -> "list[A.Signature]":
+    """Aggregate construction: a list of signature groups → one aggregate
+    `Signature` per group, every group of the call summed on the card in
+    one `g2_group_sum` launch (grandine_tpu/tpu/bls.py g2_aggregate_groups
+    :1031 over g2_aggregate_kernel :980). An empty group gives ∞, as
+    `Signature.aggregate([])` does; the host `Signature.aggregate` is the
+    twin, byte for byte."""
+    if not groups:
+        return []
+    pts = _aggregate_groups([[sig.point for sig in grp] for grp in groups],
+                            2, g2_group_sum, resolve_device(device))
+    return [A.Signature(pt) for pt in pts]
+
+
+def g1_aggregate_groups(groups, device=None) -> "list[A.PublicKey]":
+    """The G1 twin: public-key groups → one aggregate `PublicKey` per group
+    in one `g1_group_sum` launch (grandine_tpu/tpu/bls.py
+    g1_aggregate_groups :1084 over g1_aggregate_kernel :1010); the host
+    `PublicKey.aggregate` is the twin."""
+    if not groups:
+        return []
+    pts = _aggregate_groups([[pk.point for pk in grp] for grp in groups],
+                            1, g1_group_sum, resolve_device(device))
+    return [A.PublicKey(pt) for pt in pts]
 
 
 # --- backend ------------------------------------------------------------------
@@ -649,6 +927,10 @@ class TorchBlsBackend:
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
+        if self.device.type == "cuda":  # a kernel that does not build
+            from grandine_tpu_torch.gpu import _build  # raises here
+
+            _build.library()
         self._h2c_cache = _LruCache(H2C_CACHE_CAP)
 
     # -- host prep ---------------------------------------------------------
@@ -938,6 +1220,35 @@ class TorchBlsBackend:
         out = C.g2_subgroup_check(self._up(sx), self._up(sy), self._up(inf))
         return lambda: out.cpu().numpy()
 
+    # -- signing -------------------------------------------------------------
+
+    def batch_sign(
+        self,
+        messages: Sequence[bytes],
+        secret_keys: Sequence["A.SecretKey"],
+        dst: bytes = constants.DST_SIGNATURE,
+    ) -> "list[A.Signature]":
+        """N signatures [skᵢ]·H(mᵢ) on the card (grandine_tpu/tpu/bls.py
+        TpuBlsBackend.batch_sign :2986): H(mᵢ) from the hash-to-G2 cache,
+        the scalars GLV-decomposed on the host (`sign_scalars_host`), one
+        `batch_sign` launch, the Jacobian results read back into affine
+        `Signature`s with one batched inversion. Byte for byte the host
+        `SecretKey.sign`; batches past MAX_BUCKET run in chunks."""
+        n = len(messages)
+        assert n == len(secret_keys)
+        if n == 0:
+            return []
+        if n > MAX_BUCKET:
+            return [sig for i in range(0, n, MAX_BUCKET)
+                    for sig in self.batch_sign(messages[i : i + MAX_BUCKET],
+                                               secret_keys[i : i + MAX_BUCKET],
+                                               dst)]
+        msg, msg_inf = self._messages(messages, dst)
+        k, neg = sign_scalars_host([sk.scalar for sk in secret_keys])
+        words = batch_sign(msg, msg_inf, self._up(k), self._up(neg))
+        return [A.Signature(pt)
+                for pt in g2_points_from_words(words.cpu().numpy())]
+
     # -- fault localization ----------------------------------------------
 
     def rlc_partition_verify(self, messages, signatures, member_keys,
@@ -1107,4 +1418,8 @@ __all__ = [
     "verify_sets", "verify_grouped", "grouped_route", "message_groups",
     "g1_decompress_rows", "rlc_pairs_words", "rlc_bits_host",
     "g2_affine_words", "g2_affine_words_many", "g1_affine_words",
+    "SIGN_HALF_BITS", "sign_scalars_host", "batch_sign", "batch_sign_plain",
+    "g2_group_sum", "g2_group_sum_plain", "g2_aggregate_groups",
+    "g1_aggregate_groups", "g2_points_from_words", "g1_points_from_words",
+    "jacobian_rows", "launch_geometry",
 ]

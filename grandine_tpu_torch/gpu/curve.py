@@ -151,8 +151,13 @@ def point_add_complete(p, q, ops):
 
 
 def _bits_msb(values: torch.Tensor, nbits: int):
-    """(…,) int64 scalars → list of nbits (…,) bool tensors, MSB first."""
-    return [((values >> (nbits - 1 - i)) & 1).bool() for i in range(nbits)]
+    """(…,) int64 scalars below 2³² (nbits ≤ 32), or (…, nbits/32) int64
+    little-endian 32-bit words → list of nbits (…,) bool tensors, MSB
+    first."""
+    if nbits <= 32:
+        return [((values >> (nbits - 1 - i)) & 1).bool() for i in range(nbits)]
+    return [((values[..., i // 32] >> (i % 32)) & 1).bool()
+            for i in range(nbits - 1, -1, -1)]
 
 
 def _mask_inf(st, inf, ops):
@@ -174,15 +179,25 @@ def scalar_mul(qx, qy, q_inf, bits, ops):
     return _mask_inf(st, q_inf, ops)
 
 
-def scalar_mul_glv(qx, qy, q_inf, r0, r1, endo, ops):
-    """[r0 + r1·λ]Q for affine Q: the dual 32-bit GLV ladder with mixed
+def scalar_mul_glv(qx, qy, q_inf, r0, r1, endo, ops, nbits: int = 32,
+                   neg_lo=None, neg_hi=None):
+    """[±r0 ± r1·λ]Q for affine Q: the dual n-bit GLV ladder with mixed
     adds (grandine_tpu/tpu/curve.py scalar_mul_glv); `endo` = (cx, cy)
-    with (cx·x, cy·y) = [λ](x, y); r0, r1 (…,) int64 in [0, 2³²)."""
+    with (cx·x, cy·y) = [λ](x, y). r0, r1 are (…,) int64 in [0, 2³²) for
+    the 32-bit RLC halves, or (…, nbits/32) int64 little-endian 32-bit
+    words for wider halves (128-bit signing scalars); the (…,) bool masks
+    neg_lo / neg_hi negate the y of the matching base (after the
+    endomorphism), for signed GLV decompositions. Every step doubles and
+    both additions are computed, the bits choosing by select."""
     q2x, q2y = ops.mul_many([qx, qy], list(endo))
+    if neg_lo is not None:
+        qy = L.select(neg_lo, L.neg_mod(qy), qy)
+    if neg_hi is not None:
+        q2y = L.select(neg_hi, L.neg_mod(q2y), q2y)
     one = ops.one(ops.batch(qx), qx.device)
     st = (one, one, torch.zeros_like(qx))
     started = torch.zeros(ops.batch(qx), dtype=torch.bool, device=qx.device)
-    for b0, b1 in zip(_bits_msb(r0, 32), _bits_msb(r1, 32)):
+    for b0, b1 in zip(_bits_msb(r0, nbits), _bits_msb(r1, nbits)):
         st = point_double(st, ops)
         for b, bx, by in ((b0, qx, qy), (b1, q2x, q2y)):
             added = point_madd_unsafe(st, bx, by, ops)

@@ -5,9 +5,19 @@ signatures decompressed on the host, to its uncompressed seams
 (`dispatch_bls_host_decompress`, counterpart of
 `_dispatch_bls_host_decompress`), without the scheduler's stage timers
 and metrics. These are the entry points of the port's gossip verify
-path: the call a verify scheduler makes once per batch."""
+path: the call a verify scheduler makes once per batch.
+
+Below them, the scheme table (counterpart of the table in
+grandine_tpu/tpu/schemes.py: `Scheme`, `SigningDescriptor`, `register`,
+`get`) with its `bls` row only — the backend factory and the sign-side
+descriptor the signing plane (runtime/sign_plane.py) resolves through.
+The Ed25519 and KZG rows wait for their kernels, and the verify
+scheduler's columns for the scheduler."""
 
 from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
 
 from grandine_tpu_torch.consensus.verifier import SignatureInvalid
 from grandine_tpu_torch.crypto import bls as A
@@ -108,5 +118,112 @@ def dispatch_bls_host_decompress(items, backend, registry):
         backend.fast_aggregate_verify_batch_async)
 
 
+# --- the scheme table ------------------------------------------------------
+
+
+class SigningDescriptor:
+    """Sign-side row of a scheme: `batch_sign(backend, messages,
+    secret_keys)` → wire signatures (the device dispatch), `host_sign(
+    message, secret_key)` → bytes (the anchor and degradation target,
+    byte-identical by contract) and `release_verify(backend, messages,
+    sig_bytes, public_keys)` → bool (the gate every device batch passes
+    before release). The JAX row's warm-up kinds come with the warm-up."""
+
+    __slots__ = ("batch_sign", "host_sign", "release_verify")
+
+    def __init__(self, *, batch_sign: Callable, host_sign: Callable,
+                 release_verify: Callable) -> None:
+        self.batch_sign = batch_sign
+        self.host_sign = host_sign
+        self.release_verify = release_verify
+
+
+class Scheme:
+    """One registered signature scheme: its curve parameters (documentation),
+    `make_backend(device=)` and its sign-side descriptor
+    (None when the scheme has no device signing path)."""
+
+    __slots__ = ("name", "field_bits", "curve", "make_backend", "signing")
+
+    def __init__(self, name: str, *, field_bits: int, curve: str,
+                 make_backend: Callable,
+                 signing: "Optional[SigningDescriptor]" = None) -> None:
+        self.name = name
+        self.field_bits = int(field_bits)
+        self.curve = curve
+        self.make_backend = make_backend
+        self.signing = signing
+
+
+_REGISTRY: "dict[str, Scheme]" = {}
+_LOCK = threading.Lock()
+
+
+def register(scheme: Scheme) -> Scheme:
+    """Register a scheme; re-registering a name replaces the entry (an
+    instrumented twin can shadow a row)."""
+    with _LOCK:
+        _REGISTRY[scheme.name] = scheme
+    return scheme
+
+
+def get(name: str) -> Scheme:
+    with _LOCK:
+        try:
+            return _REGISTRY[name]
+        except KeyError:
+            raise KeyError(f"unknown signature scheme {name!r}; registered: "
+                           f"{sorted(_REGISTRY)}") from None
+
+
+def names() -> "list[str]":
+    with _LOCK:
+        return sorted(_REGISTRY)
+
+
+def _make_bls_backend(*, device=None):
+    from grandine_tpu_torch.gpu.bls import TorchBlsBackend
+
+    return TorchBlsBackend(device=device)
+
+
+def _bls_batch_sign(backend, messages, secret_keys):
+    """N signatures in one `batch_sign` launch (gpu/bls.py
+    TorchBlsBackend.batch_sign), as wire bytes in request order."""
+    return [s.to_bytes()
+            for s in backend.batch_sign(list(messages), list(secret_keys))]
+
+
+def _bls_host_sign(message, secret_key) -> bytes:
+    """The scalar anchor: `SecretKey.sign` (crypto/bls.py)."""
+    return secret_key.sign(message).to_bytes()
+
+
+def _bls_release_verify(backend, messages, sig_bytes, public_keys) -> bool:
+    """The release gate: the device-produced signatures, decoded from the
+    bytes that would be released, verified against the callers' public
+    keys in one RLC `multi_verify`. Undecodable bytes fail the gate."""
+    try:
+        sigs = [A.Signature(A.g2_from_bytes(sb, subgroup_check=False))
+                for sb in sig_bytes]
+    except A.BlsError:
+        return False
+    return bool(backend.multi_verify(list(messages), sigs, list(public_keys)))
+
+
+register(Scheme(
+    "bls",
+    field_bits=381,
+    curve="BLS12-381",
+    make_backend=_make_bls_backend,
+    signing=SigningDescriptor(
+        batch_sign=_bls_batch_sign,
+        host_sign=_bls_host_sign,
+        release_verify=_bls_release_verify,
+    ),
+))
+
+
 __all__ = ["dispatch_bls_compressed", "dispatch_bls_host_decompress",
-           "sync_registry"]
+           "sync_registry", "Scheme", "SigningDescriptor", "register", "get",
+           "names"]

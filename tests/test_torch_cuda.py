@@ -350,3 +350,89 @@ def test_grouped_and_partition_on_the_card(signer_sets, cuda_device):
     loc = FaultLocalizer()
     assert loc.localize(be, items) == [False, False] + [True] * 6
     assert loc.passes["host"] == 0
+
+
+# --- the signing path ----------------------------------------------------------
+
+
+def test_batch_sign_matches_plain(cuda_device):
+    """Edge rows: ∞ message rows, both sign masks on each half, scalars 1,
+    r − 1, r − 2 and seeded ones, 40 rows (two one-warp blocks)."""
+    host = random.Random(0xC0DD)
+    scalars = [1, R - 1, R - 2] + [host.randrange(1, R) for _ in range(37)]
+    k, neg = B.sign_scalars_host(scalars)
+    assert neg.any(0).all() and (~neg).any(0).all()
+    be = B.TorchBlsBackend(device=cuda_device)
+    msg, msg_inf = be._messages([bytes([i % 5]) * 32 for i in range(40)],
+                                DST_SIGNATURE)
+    msg_inf = msg_inf.clone()
+    msg_inf[[1, 17]] = True
+    args = (msg, msg_inf, torch.from_numpy(k).to(cuda_device),
+            torch.from_numpy(neg).to(cuda_device))
+    before = B.batch_sign.launches
+    got = B.batch_sign(*args)
+    _equal((got,), (B.batch_sign_plain(*args),))
+    assert B.batch_sign.launches == before + 1
+    assert got[1, 2].abs().sum().item() == 0  # ∞: Z = 0
+
+
+def test_batch_sign_backend_on_the_card(cuda_device):
+    keys = [A.SecretKey(k) for k in (1, R - 1, R - 2, 0x7E570001)]
+    msgs = [b"a", b"", b"\xab" * 1000, b"a"]
+    got = B.TorchBlsBackend(device=cuda_device).batch_sign(msgs, keys)
+    assert [s.to_bytes() for s in got] == [k.sign(m).to_bytes()
+                                           for k, m in zip(keys, msgs)]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_group_sums_match_plain(cuda_device, k):
+    """group_sum<F> for G1 and G2: empty groups, an all-∞ group, single
+    members, a group past 128 rows, ∞ rows inside groups."""
+    host = random.Random(0xC0DE + k)
+    pts = [(G1 if k == 1 else hash_to_g2(b"g", DST_SIGNATURE)).mul(
+        host.randrange(1, R)) for _ in range(12)]
+    pts += [G1.mul(0) if k == 1 else g2_infinity()] * 2
+    rows = B.jacobian_rows([pts[i % 14] for i in range(300)], k)
+    rows_t = torch.from_numpy(rows).to(cuda_device)
+    off = [0, 0, 12, 14, 15, 150, 151, 300]  # 12:14 holds ∞ rows only
+    fn, plain = ((B.g1_group_sum, B.g1_group_sum_plain) if k == 1
+                 else (B.g2_group_sum, B.g2_group_sum_plain))
+    before = fn.launches
+    got = fn(rows_t, off)
+    _equal((got,), (plain(rows_t, off),))
+    assert fn.launches == before + 1
+    assert got[0].tolist() == got[2].tolist()  # ∞ (1, 1, 0) words
+
+
+def test_aggregate_seams_and_plane_on_the_card(cuda_device):
+    """g2/g1_aggregate_groups and the device aggregator against the host
+    aggregates; one signing-plane round on the card through the release
+    gate, released byte for byte as SecretKey.sign."""
+    from grandine_tpu_torch.runtime.sign_plane import (
+        SignLaneConfig, SigningPlane)
+    from grandine_tpu_torch.runtime.thread_pool import Priority
+    from grandine_tpu_torch.validator.duties import device_aggregator
+
+    sks = [A.SecretKey(0x7E570001 + 0x1357 * i) for i in range(8)]
+    roots = [bytes([i + 1]) * 32 for i in range(8)]
+    sigs = [sk.sign(r) for sk, r in zip(sks, roots)]
+    groups = [sigs[:5], sigs[5:6], [], sigs[6:]]
+    assert [a.to_bytes() for a in device_aggregator()(groups)] == [
+        A.Signature.aggregate(g).to_bytes() for g in groups]
+    pk_groups = [[sk.public_key() for sk in sks[:3]], [sks[3].public_key()]]
+    assert [a.to_bytes() for a in B.g1_aggregate_groups(pk_groups)] == [
+        A.PublicKey.aggregate(g).to_bytes() for g in pk_groups]
+    lanes = (SignLaneConfig("attestation", Priority.HIGH, 8, 0.05, 64,
+                            shed=False),)
+    plane = SigningPlane(lanes=lanes, settle_timeout_s=120.0)
+    try:
+        tickets = [plane.submit(r, sk, duty_kind="attestation",
+                                public_key=sk.public_key())
+                   for sk, r in zip(sks, roots)]
+        assert [t.result(120.0) for t in tickets] == [s.to_bytes()
+                                                      for s in sigs]
+        st = plane.stats()["attestation"]
+        assert st["device_batches"] == st["batches"] >= 1
+        assert st["degraded"] == st["gate_failures"] == 0
+    finally:
+        plane.stop()

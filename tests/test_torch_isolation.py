@@ -30,8 +30,11 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert {"grandine_tpu_torch.gpu.bls", "grandine_tpu_torch.runtime.isolation",
-            "grandine_tpu_torch.consensus.keys"} <= set(mods)
-    assert len(mods) >= 18
+            "grandine_tpu_torch.consensus.keys",
+            "grandine_tpu_torch.runtime.sign_plane",
+            "grandine_tpu_torch.runtime.health",
+            "grandine_tpu_torch.validator.duties"} <= set(mods)
+    assert len(mods) >= 26
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -78,6 +81,22 @@ def test_entry_points_default_to_cuda(cls):
     with pytest.raises(RuntimeError, match="CUDA"):
         cls()
     assert cls(device="cpu").device.type == "cpu"
+
+
+def test_signing_entry_points_default_to_cuda():
+    from grandine_tpu_torch.gpu.bls import g2_aggregate_groups
+    from grandine_tpu_torch.crypto.bls import SecretKey
+    from grandine_tpu_torch.runtime.sign_plane import SigningPlane
+    from grandine_tpu_torch.validator.duties import device_aggregator
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SigningPlane()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_aggregator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g2_aggregate_groups([[SecretKey(1).sign(b"m")]])
 
 
 def test_torch_verifier_defaults_to_cuda():
