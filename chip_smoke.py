@@ -6,10 +6,10 @@ kernel of that path against its plain PyTorch version.
 
 Phases (any failure raises and exits non-zero):
   1. build the kernels from csrc/ (nvcc, sm_90a) and print ptxas' report;
-  2. each of the five kernels against its plain version on the card, on
-     edge rows at a reduced size (2,048 registry rows with infinity and
-     bad rows, 8 aggregates with a bad and a non-G2 signature, ∞ pairs):
-     exact equality;
+  2. each of the first five kernels against its plain version on the
+     card, on edge rows at a reduced size (2,048 registry rows with
+     infinity and bad rows, 8 aggregates with a bad and a non-G2
+     signature, ∞ pairs): exact equality;
   3. the main path at real size: a 50,000-validator registry ingested on
      the card, then one slot of gossip aggregates (12 committees × 16
      aggregators = 192 aggregates of 87–130 members) through
@@ -59,11 +59,25 @@ Phases (any failure raises and exits non-zero):
      (ChaosBackend, wrong_signature) releasing no bad signature, one gate
      failure, one batch degraded; one full bucket of 16,384 keys through
      TorchBlsBackend.batch_sign, every point its anchor;
-  8. each kernel again against its plain version, exactly, on the
+  8. the EIP-4844 blob-KZG plane on the official 4,096-point setup:
+     g1_scalar_mul against its plain version and the host ladder on edge
+     rows (k = 0, 1, r − 1, an ∞ base, the generator); a block's 6 blobs
+     committed and proved on the card (kzg.eip4844, one device pass
+     each), one proof at a root of unity, commitment and proof 0 equal to
+     the host Pippenger, a constant blob's commitment c·G1, the zero
+     blob's ∞; batch verification through verify_blob_kzg_proof_batch and
+     the `blob_kzg` scheme row (prepare → verify_blobs_async) on the 6
+     blobs (True), a forged proof, a tampered blob (False) and a batch
+     with the zero blob (True), each verdict the host batch tail's and
+     each batch launching g1_scalar_mul, g1_group_sum, miller_loop_pairs
+     and rlc_finish; host_check_item names exactly the forged item; the
+     commitment, proof and batch-verify p50 split host / device;
+  9. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
      members; the block's 131 sets; the window's 1,048 sets; the
      partition passes; both grouped shapes; the full bucket and a lane
-     batch of batch_sign; the three aggregate calls), and its time there
+     batch of batch_sign; the three aggregate calls; the KZG batch verify
+     and setup MSM), and its time there
      (CUDA events, after warm-up) beside the plain version's and its bound;
      end-to-end p50 of the gossip batch, the block and the window with
      the hash-to-G2 cache warm and cold, host prep kept apart from
@@ -100,6 +114,9 @@ ROUTE_ROUNDS = 2
 #: timed rounds of the operator slot through the signing plane (after one
 #: warm round), and the signers of its chaos round
 SIGN_ROUNDS, CHAOS_SIGNERS = 3, 32
+#: a Deneb block's blob sidecars (grandine_tpu/types/preset.py), and the
+#: timed repetitions of the batch verify
+MAX_BLOBS_PER_BLOCK, KZG_REPS = 6, 5
 #: H100 HBM3 rate (NVIDIA data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer multiply / multiply-add results per clock per SM for
@@ -312,6 +329,15 @@ def finish_shape(record):
     nf, ns = int(fo[-1] - fo[0]), int(so[-1] - so[0])
     return groups, (nf * (576 + 1) + ns * (288 + 2) + 8 * len(groups)
                     + len(groups))
+
+
+def finish_operands(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
+                    s_off=None):
+    """A recorded rlc_finish call's operands with its offsets resolved."""
+    from grandine_tpu_torch.gpu.bls import finish_groups
+
+    fo, so, _, _ = finish_groups(f, rsig, f_off, s_off)
+    return f, rsig, agg_inf, sig_ok, sig_sub, fo, so
 
 
 def progression_points(h, a, d, indices, R):
@@ -885,6 +911,329 @@ def signing_phase(c):
     return rows
 
 
+class KzgSplit:
+    """Stands in, while a `with` block runs, for the two device passes of
+    gpu/kzg.py (`lincomb`, `blob_verify`: host clock at entry, CUDA events
+    around their launches) and for the host steps of the batch call
+    (kzg/eip4844.py `_decode_points`, `_batch_inputs` and
+    `KzgDeviceBackend.pack`: host seconds each). `start()` opens a call's
+    split and `finish()` closes it; all are looked up at call time."""
+
+    def __init__(self, GK, K, torch):
+        self.torch, self.split = torch, {}
+        self.slots = [(GK, "lincomb", self._device), (GK, "blob_verify",
+                                                      self._device),
+                      (K, "_decode_points", self._host),
+                      (K, "_batch_inputs", self._host),
+                      (K.KzgDeviceBackend, "pack", self._host)]
+
+    def start(self):
+        self.split = {"t0": time.perf_counter()}
+
+    def finish(self):
+        s = self.split
+        s["total_s"] = time.perf_counter() - s["t0"]
+        events = s.pop("events", None)
+        s["kernel_ms"] = events[0].elapsed_time(events[1]) if events else None
+        return s
+
+    def _host(self, name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.split[name] = time.perf_counter() - t
+            return out
+        return run
+
+    def _device(self, name, fn):
+        def run(*args, **kwargs):
+            self.split["t_pass"] = time.perf_counter()
+            cuda = args[0].is_cuda
+            events = ([self.torch.cuda.Event(enable_timing=True)
+                       for _ in range(2)] if cuda else [])
+            for e in events[:1]:
+                e.record()
+            out = fn(*args, **kwargs)
+            for e in events[1:]:
+                e.record()
+            self.split["events"] = events or None
+            return out
+        return run
+
+    def __enter__(self):
+        self.saved = [(owner, name, getattr(owner, name))
+                      for owner, name, _ in self.slots]
+        for (owner, name, wrap), (_, _, fn) in zip(self.slots, self.saved):
+            setattr(owner, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def kzg_phase(c):
+    """The EIP-4844 blob-KZG plane at c.setup's width (c: what main()
+    built): a block's blobs committed and proved on the card, held against
+    the host anchors; batch verification through the batch call and the
+    `blob_kzg` scheme row, every verdict the host tail's; the split of
+    each call. Returns timing rows."""
+    torch, np, A, B, R = c.torch, c.np, c.A, c.B, c.R
+    from grandine_tpu_torch.crypto.curves import G1, g1_infinity
+    from grandine_tpu_torch.gpu import kzg as GK
+    from grandine_tpu_torch.gpu import pairing as TP
+    from grandine_tpu_torch.gpu import schemes
+    from grandine_tpu_torch.kzg import eip4844 as K
+    from grandine_tpu_torch.kzg import fr
+    from grandine_tpu_torch.runtime.verify_scheduler import VerifyItem
+
+    dev, at, setup = c.dev, c.at, c.setup
+    width = setup.width
+    rng = random.Random(20261020)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def ms(v):
+        return "not measured (no card)" if v is None else f"{v:.3f} ms"
+
+    # the ladder against its plain version on edge rows
+    lag = setup.g1_lagrange_brp
+    edge_pts = [lag[0], lag[1], lag[2], g1_infinity(), G1, G1, lag[3]]
+    edge_k = [0, 1, R - 1, rng.randrange(R), rng.randrange(R), 1, R - 1]
+    inf = np.array([p.is_infinity() for p in edge_pts], bool)
+    px = np.zeros((len(edge_pts), 12), np.int32)
+    py = np.zeros_like(px)
+    px[~inf], py[~inf] = B.g1_affine_words([p for p in edge_pts
+                                            if not p.is_infinity()])
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in (px, py, inf, GK.scalar_words(edge_k)))
+    got = GK.g1_scalar_mul(*args)
+    c.same("g1_scalar_mul", got, GK.g1_scalar_mul_plain(*args),
+           "edge rows: k = 0, 1, r - 1 on setup points, an ∞ base, the "
+           "generator with a random k, 1 and r - 1")
+    back = B.g1_points_from_words(got.cpu().numpy())
+    if [a == p.mul(k) for a, p, k in zip(back, edge_pts, edge_k)] != \
+            [True] * len(edge_pts):
+        fail("g1_scalar_mul: an edge row differs from the host ladder")
+
+    # the producer: a block's blobs committed and proved on the card
+    blobs = [b"".join(rng.randrange(R).to_bytes(32, "big")
+                      for _ in range(width)) for _ in range(c.n_blobs)]
+    split = KzgSplit(GK, K, torch)
+    rec = {name: Recorder(mod, name, lambda *a: a) for mod, name in (
+        (GK, "g1_scalar_mul"), (TP, "miller_loop_pairs"))}
+    rec["g1_group_sum"] = Recorder(B, "g1_group_sum",
+                                   lambda rows, off: (rows, list(off)))
+    rec["rlc_finish"] = Recorder(B, "rlc_finish", finish_operands)
+
+    def timed(fn, *a):
+        split.start()
+        out = fn(*a)
+        sync()
+        return out, split.finish()
+
+    c.count_reset()
+    with split, rec["g1_scalar_mul"], rec["g1_group_sum"]:
+        made = [timed(K.blob_to_kzg_commitment, b, setup, dev)
+                for b in blobs]
+        comms = [m[0] for m in made]
+        proved = [timed(K.compute_blob_kzg_proof, b, cm, setup, dev)
+                  for b, cm in zip(blobs, comms)]
+        proofs = [p[0] for p in proved]
+        j_root = 77 % width  # the special row of the quotient
+        z_root = setup.roots_brp[j_root].to_bytes(32, "big")
+        (proof_r, y_r), _ = timed(K.compute_kzg_proof, blobs[0], z_root,
+                                  setup, dev)
+    producer = c.count_read()
+    msm_ops = {name: r.calls[0][0] for name, r in rec.items() if r.calls}
+    n_pass = 2 * c.n_blobs + 1
+    log(f"kzg producer: {c.n_blobs} blobs of {width} field elements "
+        f"committed and proved, 1 proof at a root of unity, on the card; "
+        f"launches {json.dumps(producer)}")
+    if producer["g1_scalar_mul"] != n_pass or \
+            producer["g1_group_sum"] != n_pass:
+        fail(f"kzg producer: {n_pass} device passes expected, launches "
+             f"{producer}")
+    for what, rows in (("commitment", made), ("blob proof", proved)):
+        for i, (_, s) in enumerate(rows):
+            log(f"  kzg {what} {i}: {s['total_s'] * 1e3:.1f} ms = host prep "
+                f"{(s['t_pass'] - s['t0']) * 1e3:.1f} ms + device pass, "
+                f"readback and encoding "
+                f"{(s['t0'] + s['total_s'] - s['t_pass']) * 1e3:.1f} ms "
+                f"(kernels {ms(s['kernel_ms'])}, CUDA events) {at}")
+    # the host anchors: one commitment and one proof by the host Pippenger
+    poly0 = K._blob_to_polynomial(blobs[0], width)
+    t0 = time.perf_counter()
+    anchor_c = A.g1_to_bytes(K._msm_host(lag, poly0))
+    anchor_c_s = time.perf_counter() - t0
+    z0 = K._compute_challenge(blobs[0], comms[0], width)
+    y0 = fr.evaluate_polynomial_in_evaluation_form(poly0, z0, setup.roots_brp)
+    t0 = time.perf_counter()
+    anchor_p = A.g1_to_bytes(K._msm_host(
+        lag, K._quotient(poly0, z0, y0, setup.roots_brp)))
+    anchor_p_s = time.perf_counter() - t0
+    log(f"kzg host anchors (host Pippenger): commitment 0 {anchor_c_s:.1f} s,"
+        f" proof 0 {anchor_p_s:.1f} s (host); equal to the card's: "
+        f"{anchor_c == comms[0]}, {anchor_p == proofs[0]}")
+    if anchor_c != comms[0] or anchor_p != proofs[0]:
+        fail("kzg: a commitment or proof differs from the host anchor")
+    if y_r != blobs[0][j_root * 32:(j_root + 1) * 32] or \
+            not K.verify_kzg_proof(comms[0], z_root, y_r, proof_r, setup):
+        fail("kzg: the proof at a root of unity does not verify")
+    const = 0x1234_5678
+    got = K.blob_to_kzg_commitment(const.to_bytes(32, "big") * width, setup,
+                                   dev)
+    zero = bytes(32 * width)
+    zc = K.blob_to_kzg_commitment(zero, setup, dev)
+    zp = K.compute_blob_kzg_proof(zero, zc, setup, dev)
+    log(f"kzg: a constant blob commits to c·G1: "
+        f"{got == A.g1_to_bytes(G1.mul(const))}; the zero blob's commitment "
+        f"and proof are ∞: {zc == zp == K.G1_POINT_AT_INFINITY}; the proof "
+        f"at a root of unity verifies on the host")
+    if got != A.g1_to_bytes(G1.mul(const)) or \
+            not zc == zp == K.G1_POINT_AT_INFINITY:
+        fail("kzg: the constant or the zero blob")
+
+    # the verifier: the batch call and the scheme row's backend
+    flip = bytearray(blobs[4])
+    flip[5 * 32 + 31] ^= 1  # a low bit of element 5: still below r
+    cases = {
+        f"{c.n_blobs} blobs": (blobs, comms, proofs, True),
+        "forged proof at item 2": (blobs, comms, proofs[:2] + [proofs[3]]
+                                   + proofs[3:], False),
+        "tampered blob at item 4": (blobs[:4] + [bytes(flip)] + blobs[5:],
+                                    comms, proofs, False),
+        "the zero blob (∞ commitment and proof)": (
+            blobs[:-1] + [zero], comms[:-1] + [zc], proofs[:-1] + [zp], True),
+    }
+    row = schemes.get("blob_kzg")
+    backend = row.make_backend(device=dev)
+    c.count_reset()
+    with rec["g1_scalar_mul"], rec["g1_group_sum"], \
+            rec["miller_loop_pairs"], rec["rlc_finish"]:
+        for r in rec.values():
+            r.calls.clear()
+        verdicts = {}
+        for where, (bl, cm, pr, want) in cases.items():
+            v_call = K.verify_blob_kzg_proof_batch(bl, cm, pr, setup, dev)
+            items = [VerifyItem(b, p, public_keys=[m])
+                     for b, m, p in zip(bl, cm, pr)]
+            status, prep = backend.prepare(items)
+            v_row = getattr(backend, row.async_seam[0])(prep)()
+            verdicts[where] = (v_call, status, v_row, want)
+    verifier = c.count_read()
+    for where, (bl, cm, pr, want) in cases.items():
+        v_call, status, v_row, _ = verdicts[where]
+        host = K._batch_pairing_host(setup, *K._batch_inputs(bl, cm, pr,
+                                                              setup))
+        log(f"kzg batch {where}: verify_blob_kzg_proof_batch -> {v_call}, "
+            f"blob_kzg prepare {status} -> verify_blobs_async {v_row}; host "
+            f"batch tail {host}")
+        if not v_call == v_row == host == want or status != "ok":
+            fail(f"kzg batch {where}: verdicts differ")
+    log(f"launches on the kzg verify path ({2 * len(cases)} batches): "
+        f"{json.dumps(verifier)}")
+    for name in ("g1_scalar_mul", "g1_group_sum", "miller_loop_pairs",
+                 "rlc_finish"):
+        if verifier[name] != 2 * len(cases):
+            fail(f"kzg verify: {name} launched {verifier[name]} times for "
+                 f"{2 * len(cases)} batches")
+    bl, cm, pr, _ = cases["forged proof at item 2"]
+    named = [i for i, it in enumerate(zip(bl, cm, pr))
+             if not row.host_check(VerifyItem(it[0], it[2],
+                                              public_keys=[it[1]]))]
+    log(f"kzg forged batch: host_check_item names {named} (forged [2])")
+    if named != [2]:
+        fail("kzg: host_check_item did not name exactly the forged item")
+
+    # p50 of each call, host prep apart from the device
+    rows_c = [s for _, s in made]
+    rows_p = [s for _, s in proved]
+    for what, rows in (("commitment", rows_c), ("blob proof", rows_p)):
+        total = statistics.median(s["total_s"] for s in rows)
+        host = statistics.median(s["t_pass"] - s["t0"] for s in rows)
+        kern = ([s["kernel_ms"] for s in rows] if dev.type == "cuda"
+                else None)
+        log(f"kzg {what} p50 {total * 1e3:.1f} ms over {len(rows)} (host "
+            f"prep {host * 1e3:.1f} ms, device pass + readback "
+            f"{(total - host) * 1e3:.1f} ms, kernels "
+            f"{ms(statistics.median(kern) if kern else None)}) {at}")
+    batch = []
+    with split:
+        for _ in range(c.kzg_reps):
+            batch.append(timed(K.verify_blob_kzg_proof_batch, blobs, comms,
+                               proofs, setup, dev)[1])
+    med = {k: statistics.median(s[k] for s in batch)
+           for k in ("total_s", "_decode_points", "_batch_inputs", "pack")}
+    kern = statistics.median(s["kernel_ms"] for s in batch) \
+        if dev.type == "cuda" else None
+    log(f"kzg batch verify of {c.n_blobs} blobs p50 {med['total_s'] * 1e3:.1f}"
+        f" ms over {c.kzg_reps} (medians: decode with subgroup checks "
+        f"{med['_decode_points'] * 1e3:.1f} ms, challenges + barycentric "
+        f"evaluations "
+        f"{(med['_batch_inputs'] - med['_decode_points']) * 1e3:.1f}"
+        f" ms, pack {med['pack'] * 1e3:.1f} ms, upload + device pass + wait "
+        f"{(med['total_s'] - med['_batch_inputs'] - med['pack']) * 1e3:.1f}"
+        f" ms;"
+        f" kernels {ms(kern)}, CUDA events) {at}")
+
+    # timing rows: (name, where, kernel, plain, reps, Fp products, bytes,
+    # replaces, launches on its path, kernels-line entry)
+    def ladder_ops(k, inf):
+        total = 0
+        for row_k, row_inf in zip(k.cpu().numpy(), inf.cpu().tolist()):
+            v = int.from_bytes(row_k.tobytes(), "little")
+            total += 3 + ((2 + 255 * c.ops.dbl1 + c.ops.madd1 * (
+                bin(v).count("1") - 1)) if v and not row_inf else 0)
+        return total
+
+    ver = {name: r.calls[0][0] for name, r in rec.items()}
+    out = []
+    for where, ops_k, n_l, entry in (
+            (f"batch verify, bucket 8, {ver['g1_scalar_mul'][2].shape[0]} "
+             f"rows", ver["g1_scalar_mul"], verifier["g1_scalar_mul"],
+             "g1_scalar_mul"),
+            (f"setup MSM, {width} rows", msm_ops["g1_scalar_mul"],
+             producer["g1_scalar_mul"], "g1_scalar_mul/msm")):
+        n = ops_k[2].shape[0]
+        out.append(("g1_scalar_mul", where,
+                    lambda a=ops_k: GK.g1_scalar_mul(*a),
+                    lambda a=ops_k: GK.g1_scalar_mul_plain(*a), 5,
+                    ladder_ops(ops_k[3], ops_k[2]), n * (129 + 144),
+                    "grandine_tpu/kzg/eip4844.py:370", n_l, entry))
+    for where, ops_s, n_l, entry in (
+            ("batch verify, 4 groups of 8", ver["g1_group_sum"],
+             verifier["g1_group_sum"], "g1_group_sum/kzg"),
+            (f"setup MSM, 1 group of {width}", msm_ops["g1_group_sum"],
+             producer["g1_group_sum"], "g1_group_sum/kzg_msm")):
+        counts = np.diff(ops_s[1]).tolist()
+        out.append(("g1_group_sum", where,
+                    lambda a=ops_s: B.g1_group_sum(*a),
+                    lambda a=ops_s: B.g1_group_sum_plain(*a), 5,
+                    c.ops.group_sum(counts),
+                    ops_s[0].shape[0] * 144 + len(counts) * (144 + 4) + 4,
+                    "grandine_tpu/kzg/eip4844.py:" + (
+                        "370" if entry.endswith("kzg") else "150"),
+                    n_l, entry))
+    ml = ver["miller_loop_pairs"]
+    out.append(("miller_loop_pairs", "batch verify, 4 pairs",
+                lambda a=ml: TP.miller_loop_pairs(*a),
+                lambda a=ml: TP.miller_loop_pairs_plain(*a), 5,
+                c.ops.miller * int((~ml[2]).sum()),
+                4 * (144 + 96 + 1 + 576), "grandine_tpu/kzg/eip4844.py:370",
+                verifier["miller_loop_pairs"], "miller_loop_pairs/kzg"))
+    groups, nbytes = finish_shape(rec["rlc_finish"].calls[0])
+    out.append(("rlc_finish", "batch verify, 1 group of 4 terms",
+                lambda a=ver["rlc_finish"]: B.rlc_finish(*a),
+                lambda a=ver["rlc_finish"]: B.rlc_finish_plain(*a), 3,
+                c.ops.finish(groups), nbytes,
+                "grandine_tpu/kzg/eip4844.py:370", verifier["rlc_finish"],
+                "rlc_finish/kzg"))
+    return out
+
+
 # --- main ------------------------------------------------------------------
 
 
@@ -909,6 +1258,7 @@ def main() -> None:
     from grandine_tpu_torch.gpu import _build
     from grandine_tpu_torch.gpu import bls as B
     from grandine_tpu_torch.gpu import curve as C
+    from grandine_tpu_torch.gpu import kzg as GK
     from grandine_tpu_torch.gpu import limbs as L
     from grandine_tpu_torch.gpu import pairing as TP
     from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
@@ -946,6 +1296,7 @@ def main() -> None:
         "miller_loop_pairs": TP.miller_loop_pairs,
         "rlc_finish": B.rlc_finish,
         "batch_sign": B.batch_sign,
+        "g1_scalar_mul": GK.g1_scalar_mul,
     }
 
     # 1. build ---------------------------------------------------------------
@@ -1306,11 +1657,6 @@ def main() -> None:
     e_keys[3] = []
     e_sigs = [A.Signature.from_bytes(sigs[i]) for i in range(6)]
     e_sigs[1] = e_sigs[2]
-    def finish_operands(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
-                        s_off=None):
-        fo, so, _, _ = B.finish_groups(f, rsig, f_off, s_off)
-        return f, rsig, agg_inf, sig_ok, sig_sub, fo, so
-
     def recording_finish():
         return Recorder(B, "rlc_finish", finish_operands)
 
@@ -1585,7 +1931,21 @@ def main() -> None:
         sign_rounds=SIGN_ROUNDS, chaos_signers=CHAOS_SIGNERS,
         full_bucket=B.MAX_BUCKET, settle_timeout_s=5.0))
 
-    # 8. timings -----------------------------------------------------------------
+    # 8. the blob-KZG plane at full width: the official setup, a block's
+    # blobs -------------------------------------------------------------------
+    from grandine_tpu_torch.kzg.setup import official_setup
+
+    t0 = time.perf_counter()
+    kzg_setup = official_setup()
+    log(f"kzg setup: the official trusted setup ({kzg_setup.width} Lagrange "
+        f"points) parsed, or loaded from its cache, in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    kzg_rows = kzg_phase(SimpleNamespace(
+        torch=torch, np=np, A=A, B=B, R=R, dev=dev, at=at, same=same, ops=ops,
+        setup=kzg_setup, n_blobs=MAX_BLOBS_PER_BLOCK, kzg_reps=KZG_REPS,
+        count_reset=count_reset, count_read=count_read))
+
+    # 9. timings ---------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -1756,7 +2116,7 @@ def main() -> None:
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
             "rlc_finish"))
-    timed += sign_rows
+    timed += sign_rows + kzg_rows
     for where, (ops_r, verdict_r) in finish_records:
         if where in timed_finish:
             continue

@@ -43,6 +43,7 @@ LIBRARIES = {
                  "group_sum_geometry"),
     "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry"),
     "sign.cu": ("batch_sign", "batch_sign_geometry"),
+    "kzg.cu": ("g1_scalar_mul",),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
 #: the deepest kernel's need (ptxas "cumulative stack size") rounded up to
@@ -72,6 +73,7 @@ SIGNATURES = {
     "g2_group_sum": [_vp, _vp, _i, _vp],
     "batch_sign": [_vp, _vp, _vp, _vp, _i, _vp],
     "batch_sign_geometry": [_i, _vp],
+    "g1_scalar_mul": [_vp, _vp, _vp, _vp, _i, _vp],
     "group_sum_geometry": [_i, _i, _vp],
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
     "rlc_finish_geometry": [_i, _i, _vp],

@@ -923,7 +923,8 @@ class TorchBlsBackend:
     `multi_verify_async` routes a keyed batch with repeated messages to
     the grouped kernels where the JAX package does; `rlc_partition_verify`
     gives per-group verdicts for the fault localizer
-    (runtime/isolation.py)."""
+    (runtime/isolation.py); `verify` and `fast_aggregate_verify` are
+    batches of one."""
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
@@ -1207,6 +1208,23 @@ class TorchBlsBackend:
         not cover fails."""
         return self._sets_async(messages, signatures, indices, registry, dst,
                                 rng, compressed=False)()
+
+    # -- single-item seams ---------------------------------------------------
+
+    def verify(self, message: bytes, signature: "A.Signature",
+               public_key: "A.PublicKey",
+               dst: bytes = constants.DST_SIGNATURE) -> bool:
+        """One (message, signature, key) set: a flat batch of one
+        (grandine_tpu/tpu/bls.py TpuBlsBackend.verify :2173)."""
+        return self.multi_verify([message], [signature], [public_key], dst)
+
+    def fast_aggregate_verify(self, message: bytes, signature: "A.Signature",
+                              public_keys: Sequence["A.PublicKey"],
+                              dst: bytes = constants.DST_SIGNATURE) -> bool:
+        """One aggregate over `public_keys`: a fast-aggregate batch of one
+        (TpuBlsBackend.fast_aggregate_verify :2828); no keys is False."""
+        return self.fast_aggregate_verify_batch([message], [signature],
+                                                [public_keys], dst)
 
     def g2_subgroup_check_batch(self, points) -> np.ndarray:
         return self.g2_subgroup_check_batch_async(points)()

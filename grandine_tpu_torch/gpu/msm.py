@@ -81,6 +81,8 @@ def sum_points_contiguous(points, offsets, ops, tree: int = TREE):
     each in the order of a `tree`-thread block (strided_tree_sum). The
     counterpart of grandine_tpu/tpu/curve.py sum_points_contiguous (groups
     of one power-of-two width there; any offsets here)."""
+    if points[0].shape[0] == 0:  # every group empty: give the gather a row
+        points = _pad_inf(points, 0, 1, ops)
     idx, live = group_rows(offsets, points[0].device)
     return strided_tree_sum(tuple(c[idx] for c in points), live, ops, tree)
 

@@ -9,10 +9,12 @@ path: the call a verify scheduler makes once per batch.
 
 Below them, the scheme table (counterpart of the table in
 grandine_tpu/tpu/schemes.py: `Scheme`, `SigningDescriptor`, `register`,
-`get`) with its `bls` row only — the backend factory and the sign-side
-descriptor the signing plane (runtime/sign_plane.py) resolves through.
-The Ed25519 and KZG rows wait for their kernels, and the verify
-scheduler's columns for the scheduler."""
+`get`) with its `bls` row (the backend factory and the sign-side
+descriptor the signing plane, runtime/sign_plane.py, resolves through)
+and its `blob_kzg` row (the backend factory, the host twin and the
+backend's async seam). The Ed25519 row waits for its kernel, and the
+verify scheduler's columns past these (`device_dispatch`, the `bls`
+row's host twin and seams) for the scheduler."""
 
 from __future__ import annotations
 
@@ -140,18 +142,27 @@ class SigningDescriptor:
 
 class Scheme:
     """One registered signature scheme: its curve parameters (documentation),
-    `make_backend(device=)` and its sign-side descriptor
-    (None when the scheme has no device signing path)."""
+    `make_backend(device=)`, `host_check(item)` → bool (the scalar twin of
+    the device verdict: the bisection leaf and the degradation target,
+    agreeing with the device on every input), `async_seam` (the backend's
+    method names that launch and return a settle callable) and its
+    sign-side descriptor (None when the scheme has no device signing
+    path)."""
 
-    __slots__ = ("name", "field_bits", "curve", "make_backend", "signing")
+    __slots__ = ("name", "field_bits", "curve", "make_backend", "host_check",
+                 "async_seam", "signing")
 
     def __init__(self, name: str, *, field_bits: int, curve: str,
                  make_backend: Callable,
+                 host_check: "Optional[Callable]" = None,
+                 async_seam: "tuple[str, ...]" = (),
                  signing: "Optional[SigningDescriptor]" = None) -> None:
         self.name = name
         self.field_bits = int(field_bits)
         self.curve = curve
         self.make_backend = make_backend
+        self.host_check = host_check
+        self.async_seam = tuple(async_seam)
         self.signing = signing
 
 
@@ -221,6 +232,39 @@ register(Scheme(
         host_sign=_bls_host_sign,
         release_verify=_bls_release_verify,
     ),
+))
+
+
+# --- KZG blob proofs (EIP-4844, deneb) -------------------------------------
+
+
+def _make_blob_kzg_backend(*, device=None):
+    """`KzgDeviceBackend` (kzg/eip4844.py): host prep (commitment and proof
+    decoding, Fiat–Shamir challenges, barycentric evaluations, the batch
+    challenge's powers) in `prepare`, then ONE device pass in
+    `verify_blobs_async` — one 255-bit ladder over the four groups, their
+    sums and a width-4 pairing check against [G2, G2, G2, τG2]. Mixed blob
+    widths or more than MAX_ITEMS items prepare as "mixed" / "oversize"
+    (host degradation, per-item verdicts stay correct); undecodable bytes
+    as "invalid" (the batch fails for bisection to isolate)."""
+    from grandine_tpu_torch.kzg.eip4844 import KzgDeviceBackend
+
+    return KzgDeviceBackend(device=device)
+
+
+def _host_check_blob_kzg(item) -> bool:
+    from grandine_tpu_torch.kzg import eip4844
+
+    return eip4844.host_check_item(item)
+
+
+register(Scheme(
+    "blob_kzg",
+    field_bits=381,
+    curve="BLS12-381",
+    make_backend=_make_blob_kzg_backend,
+    host_check=_host_check_blob_kzg,
+    async_seam=("verify_blobs_async",),
 ))
 
 

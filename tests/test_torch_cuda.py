@@ -436,3 +436,105 @@ def test_aggregate_seams_and_plane_on_the_card(cuda_device):
         assert st["degraded"] == st["gate_failures"] == 0
     finally:
         plane.stop()
+
+
+# --- the blob-KZG plane ---------------------------------------------------------
+
+
+def _kzg_rows(points, scalars, dev):
+    from grandine_tpu_torch.gpu import kzg as GK
+
+    inf = np.array([p.is_infinity() for p in points], bool)
+    px = np.zeros((len(points), 12), np.int32)
+    py = np.zeros((len(points), 12), np.int32)
+    px[~inf], py[~inf] = B.g1_affine_words(
+        [p for p, i in zip(points, inf) if not i])
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        px, py, inf, GK.scalar_words(scalars)))
+
+
+def test_g1_scalar_mul_matches_plain_on_edge_rows(cuda_device):
+    """k = 0, 1, r − 1, an ∞ base, the generator and random rows: the kernel
+    equals its plain version word for word and the host ladder as points."""
+    from grandine_tpu_torch.crypto.curves import g1_infinity
+    from grandine_tpu_torch.gpu import kzg as GK
+
+    rng = random.Random(0x4844)
+    points = [G1.mul(rng.randrange(1, R)) for _ in range(5)]
+    points += [g1_infinity(), G1, G1, G1]
+    scalars = [0, 1, R - 1, rng.randrange(R), 2, rng.randrange(R), 1, R - 1,
+               rng.randrange(R)]
+    args = _kzg_rows(points, scalars, cuda_device)
+    before = GK.g1_scalar_mul.launches
+    got = GK.g1_scalar_mul(*args)
+    assert GK.g1_scalar_mul.launches == before + 1
+    _equal((got,), (GK.g1_scalar_mul_plain(*args),))
+    back = B.g1_points_from_words(got.cpu().numpy())
+    assert [a == p.mul(k) for a, p, k in zip(back, points, scalars)] == \
+        [True] * len(points)
+
+
+def test_g1_scalar_mul_and_lincomb_at_setup_width(cuda_device):
+    """4,096 rows: the official setup's Lagrange points with random scalars
+    (the MSM shape); the ladder and the whole setup MSM equal the plain
+    versions on the same operands."""
+    from grandine_tpu_torch.gpu import kzg as GK
+    from grandine_tpu_torch.kzg.setup import official_setup
+
+    setup = official_setup()
+    rng = np.random.default_rng(7)
+    scalars = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(4096)]
+    px, py, inf = setup.device_g1(cuda_device)
+    k = torch.from_numpy(GK.scalar_words(scalars)).to(cuda_device)
+    rows = GK.g1_scalar_mul(px, py, inf, k)
+    _equal((rows,), (GK.g1_scalar_mul_plain(px, py, inf, k),))
+    _equal((GK.lincomb(px, py, inf, k),),
+           (B.g1_group_sum_plain(rows, [0, 4096]),))
+
+
+def test_blob_plane_on_the_card(cuda_device):
+    """Width 8: commitments and proofs on the card equal the plain
+    versions' bytes; the row-15 pass (ladder, four group sums, width-4
+    Miller loop, finish) equals its plain composition, and batch verdicts
+    (valid, forged, ∞ proof) equal the host tail."""
+    from grandine_tpu_torch.gpu import kzg as GK
+    from grandine_tpu_torch.kzg import eip4844 as K
+    from grandine_tpu_torch.kzg.setup import dev_setup
+
+    setup = dev_setup(8)
+    rng = np.random.default_rng(0x4844)
+    blobs = [b"".join((int.from_bytes(rng.bytes(31), "big")).to_bytes(
+        32, "big") for _ in range(8)) for _ in range(3)] + [bytes(256)]
+    comms = [K.blob_to_kzg_commitment(b, setup) for b in blobs]
+    assert comms == [K.blob_to_kzg_commitment(b, setup, device="cpu")
+                     for b in blobs]
+    proofs = [K.compute_blob_kzg_proof(b, c, setup)
+              for b, c in zip(blobs, comms)]
+    assert proofs[0] == K.compute_blob_kzg_proof(blobs[0], comms[0], setup,
+                                                 device="cpu")
+    backend = K.KzgDeviceBackend()
+    batches = {"valid": (blobs[:3], comms[:3], proofs[:3], True),
+               "forged": (blobs[:3], comms[:3],
+                          [proofs[0], proofs[2], proofs[2]], False),
+               "infinity": (blobs[1:], comms[1:], proofs[1:], True)}
+    for name, (bl, cm, pr, want) in batches.items():
+        assert K.verify_blob_kzg_proof_batch(bl, cm, pr, setup) is want, name
+        assert K._batch_pairing_host(setup, *K._batch_inputs(
+            bl, cm, pr, setup)) is want, name
+        _, prep = backend.prepare_raw(bl, cm, pr, setup)
+        px, py, pinf, k, _, _ = prep
+        args = [torch.from_numpy(a).to(cuda_device)
+                for a in (px, py, pinf, k)]
+        q2 = setup.device_g2(cuda_device)
+        rows = GK.g1_scalar_mul_plain(*args)
+        sums = B.g1_group_sum_plain(rows, [0, 4, 8, 12, 16])
+        sum_inf = (sums[:, 2] == 0).all(-1)
+        f = TP.miller_loop_pairs_plain(sums, q2, sum_inf)
+        none = torch.zeros((0,), dtype=torch.bool, device=cuda_device)
+        plain = B.rlc_finish_plain(
+            f, torch.zeros((0, 3, 2, 12), dtype=torch.int32,
+                           device=cuda_device),
+            torch.zeros_like(sum_inf), none, none, [0, 4], [0, 0])
+        got = GK.blob_verify(*args, q2, 4)
+        _equal((got,), (plain,))
+        assert bool(got.item()) is want, name

@@ -33,8 +33,11 @@ def test_importing_every_module_loads_no_jax():
             "grandine_tpu_torch.consensus.keys",
             "grandine_tpu_torch.runtime.sign_plane",
             "grandine_tpu_torch.runtime.health",
-            "grandine_tpu_torch.validator.duties"} <= set(mods)
-    assert len(mods) >= 26
+            "grandine_tpu_torch.validator.duties",
+            "grandine_tpu_torch.gpu.kzg", "grandine_tpu_torch.kzg.fr",
+            "grandine_tpu_torch.kzg.setup",
+            "grandine_tpu_torch.kzg.eip4844"} <= set(mods)
+    assert len(mods) >= 31
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -114,3 +117,47 @@ def test_package_has_no_prebuilt_binary():
         assert not any(f.endswith((".so", ".cubin", ".fatbin")) for f in fs
                        if "build" not in d), d
     assert grandine_tpu_torch.__name__ == "grandine_tpu_torch"
+
+
+@pytest.mark.parametrize("mod", ["kzg/fr.py", "kzg/setup.py",
+                                 "kzg/eip4844.py", "gpu/kzg.py"])
+def test_kzg_sources_read_no_path_of_the_reference(mod):
+    """No string the code uses (docstrings aside) names a path under
+    grandine_tpu/: the port reads its own ceremony copy and writes its
+    cache under grandine_tpu_torch/kzg/data/."""
+    tree = ast.parse(open(os.path.join(PKG, mod), encoding="utf-8").read())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            assert node.value.rstrip("/") != "grandine_tpu", mod
+            assert "grandine_tpu/" not in node.value, mod
+
+
+def test_kzg_entry_points_default_to_cuda():
+    from grandine_tpu_torch.gpu import schemes
+    from grandine_tpu_torch.kzg import eip4844 as K
+    from grandine_tpu_torch.kzg import setup as S
+
+    assert S._OFFICIAL_TXT.startswith(os.path.join(PKG, "kzg", "data"))
+    assert S._OFFICIAL_CACHE.startswith(os.path.join(PKG, "kzg", "data"))
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        K.KzgDeviceBackend()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        schemes.get("blob_kzg").make_backend()
+    setup = S.dev_setup(8)
+    blob = bytes(32 * 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        K.blob_to_kzg_commitment(blob, setup)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        K.compute_kzg_proof(blob, bytes(32), setup)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        K.compute_blob_kzg_proof(blob, K.G1_POINT_AT_INFINITY, setup)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        K.verify_blob_kzg_proof_batch([blob] * 2, [K.G1_POINT_AT_INFINITY] * 2,
+                                      [K.G1_POINT_AT_INFINITY] * 2, setup)
+    assert K.KzgDeviceBackend(device="cpu").device.type == "cpu"

@@ -373,7 +373,7 @@ def test_breaker_walks_the_jax_state_sequence():
 def test_scheme_table_and_lanes():
     bls = schemes.get("bls")
     assert bls.signing is not None and bls.field_bits == 381
-    assert schemes.names() == ["bls"]
+    assert schemes.names() == ["blob_kzg", "bls"]
     with pytest.raises(KeyError):
         schemes.get("ed25519")
     from grandine_tpu.runtime.sign_plane import DEFAULT_SIGN_LANES as JL
