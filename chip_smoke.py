@@ -72,12 +72,33 @@ Phases (any failure raises and exits non-zero):
      each batch launching g1_scalar_mul, g1_group_sum, miller_loop_pairs
      and rlc_finish; host_check_item names exactly the forged item; the
      commitment, proof and batch-verify p50 split host / device;
-  9. each kernel again against its plain version, exactly, on the
+  9. the verify scheduler as the entry point (runtime.verify_scheduler.
+     VerifyScheduler with DEFAULT_LANES on the card): ed25519_verify
+     against its plain version on edge rows (B = 8, 32, 128; zero
+     scalars, k = 1, 2^253 - 1, L - 1; the identity, the order-2 point,
+     x = 0 negated, the base point, a torsion-carrying R, which must
+     verify); the `ed25519` lane at full width — 1,008 signatures under
+     1,008 seeded keys as jobs of 1-8, 16 batches of 63 (bucket 128),
+     pipelined and then one batch at a time — and a poisoned stream (a
+     forged message, S + 1, S >= L, a torsion specimen), every verdict
+     the host twin's, the failed batch bisected with 0 device faults; the
+     block's 131 sets through DeferredVerifier on the `block` lane, then
+     one job a set with one forged (exactly that ticket False, localized
+     on the card with 0 host sweeps), the 512-member sync slot on
+     `sync_message`, the 6 blobs and a forged proof on `blob_kzg`, each
+     verdict the direct seam's; a chaos round (ChaosBackend,
+     wrong_verdict: every ticket True by bisection, one verdict fault);
+     per lane 0 device faults, degraded batches, breaker skips and
+     retries; every ed25519_verify launch of the phase against the plain
+     version; the lane's batch p50 split host prep / device wait,
+     signatures/s, the host twin's batch of 63, the block p50 through
+     DeferredVerifier beside the direct TorchVerifier;
+ 10. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
      members; the block's 131 sets; the window's 1,048 sets; the
      partition passes; both grouped shapes; the full bucket and a lane
      batch of batch_sign; the three aggregate calls; the KZG batch verify
-     and setup MSM), and its time there
+     and setup MSM; ed25519_verify at B = 8, 32, 128), and its time there
      (CUDA events, after warm-up) beside the plain version's and its bound;
      end-to-end p50 of the gossip batch, the block and the window with
      the hash-to-G2 cache warm and cold, host prep kept apart from
@@ -117,6 +138,8 @@ SIGN_ROUNDS, CHAOS_SIGNERS = 3, 32
 #: a Deneb block's blob sidecars (grandine_tpu/types/preset.py), and the
 #: timed repetitions of the batch verify
 MAX_BLOBS_PER_BLOCK, KZG_REPS = 6, 5
+#: rounds of (direct TorchVerifier, DeferredVerifier) timing the block
+SCHED_BLOCK_REPS = 3
 #: H100 HBM3 rate (NVIDIA data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit integer multiply / multiply-add results per clock per SM for
@@ -311,8 +334,10 @@ class OpModel:
         return total
 
 
-def bound_ms(fp_muls, nbytes, sms, clock_hz):
-    ops_s = fp_muls * MULS_PER_FP_MUL / (INT32_MUL_PER_CLK_SM * sms * clock_hz)
+def bound_ms(fp_muls, nbytes, sms, clock_hz, muls_per=MULS_PER_FP_MUL):
+    """The larger of the operations' time (field products × `muls_per`
+    int32 multiplies at the card's rate) and the bytes' (at HBM rate)."""
+    ops_s = fp_muls * muls_per / (INT32_MUL_PER_CLK_SM * sms * clock_hz)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes")
@@ -564,6 +589,10 @@ def timed_signing_scheme(schemes, records, split):
 
     twin = schemes.Scheme("bls", field_bits=base.field_bits, curve=base.curve,
                           make_backend=base.make_backend,
+                          host_check=base.host_check,
+                          device_dispatch=base.device_dispatch,
+                          async_seam=base.async_seam,
+                          kernel_label=base.kernel_label, canary=base.canary,
                           signing=schemes.SigningDescriptor(
                               batch_sign=batch_sign,
                               host_sign=base.signing.host_sign,
@@ -1217,6 +1246,7 @@ def kzg_phase(c):
                     "grandine_tpu/kzg/eip4844.py:" + (
                         "370" if entry.endswith("kzg") else "150"),
                     n_l, entry))
+    c.blobs, c.comms, c.proofs = blobs, comms, proofs  # for the lanes
     ml = ver["miller_loop_pairs"]
     out.append(("miller_loop_pairs", "batch verify, 4 pairs",
                 lambda a=ml: TP.miller_loop_pairs(*a),
@@ -1231,6 +1261,470 @@ def kzg_phase(c):
                 c.ops.finish(groups), nbytes,
                 "grandine_tpu/kzg/eip4844.py:370", verifier["rlc_finish"],
                 "rlc_finish/kzg"))
+    return out
+
+
+class MetricsRecorder:
+    """A metrics sink that records what the verify plane feeds it:
+    every series the scheduler, the flight recorder, the supervisor and
+    the localizer touch, by name and labels (`count(name, *labels)`)."""
+
+    class _Series:
+        def __init__(self, store, name, labels=()):
+            self.store, self.name, self.lbl = store, name, labels
+
+        def labels(self, *labels):
+            return MetricsRecorder._Series(self.store, self.name, labels)
+
+        def inc(self, *labels, amount=1, **_):
+            key = (self.name, self.lbl + tuple(labels))
+            self.store[key] = self.store.get(key, 0) + amount
+
+        def observe(self, *labels, value=None, **_):
+            self.inc(*(labels if value is not None else ()))
+
+        def set(self, *labels, value=None, **_):
+            pass
+
+    def __init__(self):
+        self.store = {}
+
+    def __getattr__(self, name):
+        return MetricsRecorder._Series(self.store, name)
+
+    def count(self, name, *labels):
+        return self.store.get((name, labels), 0)
+
+
+class LaneSplit:
+    """Stands in for an Ed25519 backend's `prepare` and
+    `verify_batch_async` while a `with` block runs: the host seconds of
+    each prepare (decode and RLC), and each settle's device wait, on the
+    settle thread."""
+
+    def __init__(self, backend):
+        self.backend, self.prep, self.wait = backend, [], []
+
+    def __enter__(self):
+        be, prep, wait = self.backend, self.backend.prepare, \
+            self.backend.verify_batch_async
+
+        def timed_prepare(items):
+            t = time.perf_counter()
+            out = prep(items)
+            self.prep.append(time.perf_counter() - t)
+            return out
+
+        def timed_launch(payload):
+            settle = wait(payload)
+
+            def timed_settle():
+                t = time.perf_counter()
+                out = settle()
+                self.wait.append(time.perf_counter() - t)
+                return out
+            return timed_settle
+
+        be.prepare, be.verify_batch_async = timed_prepare, timed_launch
+        return self
+
+    def __exit__(self, *exc):
+        del self.backend.prepare, self.backend.verify_batch_async
+
+
+#: int32 multiplies of one 2²⁵⁵ − 19 product as csrc/ed25519.cu runs it:
+#: 64 32×32→64 partial products (low and high halves), the high half's
+#: 8 words times 38 (low and high halves), the fold of the bits from 2²⁵⁵
+#: by 19
+MULS_PER_ED_MUL = 2 * 64 + 2 * 8 + 1
+#: products of one unified addition (a doubling is one too)
+ED_ADD_MULS = 9
+
+
+def ed_verify_ops(k_words):
+    """Field products of ed25519_verify at the function's least work on
+    these scalars: per row with k ≠ 0, bit_length(k) − 1 doublings and
+    popcount(k) − 1 additions; live rows − 1 tree additions; 3 doublings."""
+    from grandine_tpu_torch.gpu.ed25519 import words_to_ints
+
+    ks = [k for k in words_to_ints(k_words) if k]
+    steps = sum(k.bit_length() - 1 + bin(k).count("1") - 1 for k in ks)
+    return ED_ADD_MULS * (steps + max(0, len(ks) - 1) + 3)
+
+
+def scheduler_phase(c):
+    """The verify scheduler as the entry point (c: what main() built):
+    ed25519_verify against its plain version on edge rows; the `ed25519`
+    lane at full width (1,008 signatures, 16 batches of 63) and a poisoned
+    stream; the `block`, `sync_message` and `blob_kzg` lanes on the
+    operands of the earlier phases, each verdict the direct seam's; a
+    chaos round; every recorded ed25519_verify launch against the plain
+    version; timings. Returns the kernels-line rows of ed25519_verify."""
+    torch, np, A, dev, at = c.torch, c.np, c.A, c.dev, c.at
+    from grandine_tpu_torch.crypto import ed25519 as HE
+    from grandine_tpu_torch.gpu import ed25519 as E
+    from grandine_tpu_torch.runtime.verify_scheduler import (
+        DEFAULT_LANES, VerifyItem, VerifyScheduler)
+    from grandine_tpu_torch.testing.chaos import ChaosBackend, FaultPlan
+
+    rng = random.Random(20261021)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def affine(p):
+        zinv = pow(p[2], HE.P - 2, HE.P)
+        return p[0] * zinv % HE.P, p[1] * zinv % HE.P
+
+    def torsion_item(sk, msg):
+        a, prefix = HE.secret_expand(sk)
+        pk = HE.secret_to_public(sk)
+        r = int.from_bytes(HE.sha512(prefix + msg), "little") % HE.L
+        r_enc = HE.point_compress(HE.point_add(HE.point_mul(r, HE.BASE),
+                                               HE.ORDER2))
+        k = int.from_bytes(HE.sha512(r_enc + pk + msg), "little") % HE.L
+        return VerifyItem(msg, r_enc + ((r + k * a) % HE.L).to_bytes(
+            32, "little"), public_keys=(pk,))
+
+    # 1. ed25519_verify against its plain version on edge rows ----------------
+    t_item = torsion_item(b"\x11" * 32, b"torsion specimen")
+    r_t = HE.point_decompress(t_item.signature[:32])
+    edge_pts = [(0, 1), affine(HE.ORDER2), affine(HE.BASE),
+                ((HE.P - 0) % HE.P, HE.P - 1), affine(r_t), affine(HE.BASE),
+                affine(HE.point_neg(r_t)), (0, 1)]
+    edge_k = [0, 1, (1 << 253) - 1, HE.L - 1, rng.randrange(1 << 128),
+              HE.L - 1, 8, 0]
+    edge = {}
+    for b in E.BUCKETS:
+        pts = edge_pts + [affine(HE.point_mul(rng.randrange(1, HE.L),
+                                              HE.BASE))
+                          for _ in range(b - len(edge_pts))]
+        ks = edge_k + [rng.randrange(1 << 253) for _ in range(b - len(edge_k))]
+        edge[b] = tuple(torch.from_numpy(w).to(dev) for w in (
+            E.ints_to_words([x for x, _ in pts]),
+            E.ints_to_words([y for _, y in pts]),
+            E.ints_to_words([x * y % HE.P for x, y in pts]),
+            E.ints_to_words(ks)))
+        c.same("ed25519_verify", E.ed25519_verify(*edge[b]),
+               E.ed25519_verify_plain(*edge[b]),
+               f"edge rows, B = {b}: zero scalars, k = 1, 2^253 - 1, L - 1, "
+               f"8; the identity, the order-2 point, x = 0 negated, the base "
+               f"point, a torsion-carrying R")
+    be_direct = E.Ed25519Backend(device=dev)
+    status, prep = be_direct.prepare([t_item])
+    v_t = be_direct.verify_batch_async(prep)()
+    log(f"ed25519 torsion specimen: twin {HE.check_item(t_item)}, card "
+        f"{v_t} (prepare {status})")
+    if not (v_t is True and HE.check_item(t_item) is True):
+        fail("the torsion specimen must verify on the card and the twin")
+
+    # 2. the ed25519 lane at full width ---------------------------------------
+    t0 = time.perf_counter()
+    n_sigs = c.ed_batches * 63
+    items = []
+    for i in range(n_sigs):
+        sk = rng.randbytes(32)
+        msg = rng.randbytes(rng.randint(0, 96))
+        items.append(VerifyItem(msg, HE.sign(sk, msg),
+                                public_keys=(HE.secret_to_public(sk),)))
+    log(f"ed25519 host prep: {n_sigs} messages signed under {n_sigs} seeded "
+        f"keys in {time.perf_counter() - t0:.1f} s (host, not device)")
+    jobs, at_i = [], 0  # jobs of 1–8 items, each batch's jobs sum to 63
+    for _ in range(c.ed_batches):
+        left = 63
+        while left:
+            size = min(left, rng.randint(1, 8))
+            jobs.append(items[at_i:at_i + size])
+            at_i += size
+            left -= size
+    metrics = MetricsRecorder()
+    sched = VerifyScheduler(device=dev, metrics=metrics,
+                            settle_timeout_s=c.settle_timeout_s)
+    ed_calls = []
+    lane_backend = sched._backend_for(sched.lanes["ed25519"])
+    block_lane = sched.lanes["block"]
+    rec = Recorder(E, "ed25519_verify", lambda *a: a)
+
+    def submit_all(job_list, lane="ed25519"):
+        with sched._cond:  # park the dispatcher: whole batches form
+            tickets = [sched.submit(lane, j) for j in job_list]
+        return tickets
+
+    rec.__enter__()  # every launch of the phase is held against the plain
+    c.count_reset()
+    with LaneSplit(lane_backend) as split:
+        sync()
+        t0 = time.perf_counter()
+        tickets = submit_all(jobs)
+        verdicts = [t.result(120.0) for t in tickets]
+        wall = time.perf_counter() - t0
+        # the same signatures again, one batch at a time: submit → tickets
+        lat = []
+        i = 0
+        for _ in range(c.ed_batches):
+            batch_jobs, n = [], 0
+            while n < 63:
+                batch_jobs.append(jobs[i])
+                n += len(jobs[i])
+                i += 1
+            t1 = time.perf_counter()
+            bt = [sched.submit("ed25519", j) for j in batch_jobs]
+            ok = [t.result(120.0) for t in bt]
+            lat.append(time.perf_counter() - t1)
+            verdicts += ok
+        # the poisoned stream: a forged message, S + 1, S ≥ L, a torsion
+        # specimen, among valid items
+        s_of = int.from_bytes(items[3].signature[32:], "little")
+        poison = [
+            [items[0], items[1]],
+            [VerifyItem(items[2].message + b"!", items[2].signature,
+                        public_keys=items[2].public_keys)],
+            [VerifyItem(items[3].message, items[3].signature[:32] + (
+                (s_of + 1) % HE.L).to_bytes(32, "little"),
+                public_keys=items[3].public_keys)],
+            [items[4], items[5], items[6]],
+            [VerifyItem(items[7].message, items[7].signature[:32] + (
+                int.from_bytes(items[7].signature[32:], "little")
+                + HE.L).to_bytes(32, "little"),
+                public_keys=items[7].public_keys)],
+            [torsion_item(b"\x12" * 32, b"torsion 2"), items[8]],
+        ]
+        want_p = [all(HE.check_item(it) for it in j) for j in poison]
+        got_p = [t.result(120.0) for t in submit_all(poison)]
+    ed_launches = c.count_read()["ed25519_verify"]
+    ed_calls = list(rec.calls)
+    st = dict(sched.stats["ed25519"])
+    log(f"ed25519 lane: {n_sigs} signatures as {len(jobs)} jobs of 1-8, "
+        f"twice (pipelined, then one batch at a time) -> "
+        f"{sum(verdicts)} True of {len(verdicts)}; poisoned stream "
+        f"{got_p} (twin {want_p}); stats {json.dumps(st)}; launches "
+        f"{ed_launches}, buckets {[a[0].shape[0] for a, _ in ed_calls]}")
+    if not all(verdicts) or len(verdicts) != 2 * len(jobs):
+        fail("a valid ed25519 batch did not verify")
+    if got_p != want_p or want_p != [True, False, False, True, False, True]:
+        fail(f"ed25519 poisoned stream {got_p}, twin {want_p}")
+    full = [a for a, _ in ed_calls if a[0].shape[0] == 128]
+    if len(full) != 2 * c.ed_batches or st["max_batch_items"] != 63:
+        fail(f"ed25519: {len(full)} launches at bucket 128 for "
+             f"{2 * c.ed_batches} full batches, max batch "
+             f"{st['max_batch_items']}")
+    for key in ("device_faults", "breaker_skips", "retries"):
+        if st[key]:
+            fail(f"ed25519 lane: {key} = {st[key]}")
+    degraded = metrics.count("verify_lane_batches", "ed25519", "degraded")
+    if degraded or ed_launches != len(ed_calls):
+        fail(f"ed25519 lane: {degraded} degraded batches, launches "
+             f"{ed_launches} for {len(ed_calls)} recorded calls")
+    flights = [r for r in sched.flight.snapshot("ed25519") if r.note != "shed"]
+    if any(r.fault for r in flights) or any(r.kernel != "ed25519_verify"
+                                            for r in flights):
+        fail("ed25519 lane: a flight record with a fault or no kernel")
+    if metrics.count("verify_watchdog_fired", "ed25519"):
+        fail("ed25519 lane: the settle watchdog fired")
+    log(f"ed25519 bisection: the poisoned batch named exactly the bad jobs "
+        f"{[i for i, w in enumerate(got_p) if not w]} with 0 device faults")
+
+    # 3. the BLS and KZG lanes through the same scheduler -------------------
+    keys = c.keys
+    block = c.block
+
+    def keys_of(mem):
+        return [keys[i] for i in mem]
+
+    from grandine_tpu_torch.consensus.verifier import (SignatureInvalid,
+                                                       TorchVerifier)
+
+    def deferred_block(sets):
+        v = sched.deferred("block", timeout=120.0)
+        for root, mem, sig in sets:
+            if len(mem) == 1:
+                v.verify_singular(root, sig, keys[mem[0]])
+            else:
+                v.verify_aggregate(root, sig, keys_of(mem))
+        try:
+            v.finish()
+        except SignatureInvalid:
+            return False
+        return True
+
+    def direct_block(sets):
+        v = TorchVerifier(c.block_backend)
+        for root, mem, sig in sets:
+            if len(mem) == 1:
+                v.verify_singular(root, sig, keys[mem[0]])
+            else:
+                v.verify_aggregate(root, sig, keys_of(mem))
+        try:
+            v.finish()
+        except SignatureInvalid:
+            return False
+        return True
+
+    c.count_reset()
+    v_sched = deferred_block(block)
+    v_direct = direct_block(block)
+    forged_i = min(41, len(block) - 2)
+    forged_sets = list(block)
+    r0, m0, _ = forged_sets[forged_i]
+    forged_sets[forged_i] = (r0, m0, block[forged_i + 1][2])
+    loc = sched._localizer
+    passes0 = dict(loc.passes)
+    set_tickets = submit_all([[VerifyItem(r, s, public_keys=keys_of(m))]
+                              for r, m, s in forged_sets], "block")
+    set_v = [t.result(120.0) for t in set_tickets]
+    passes = {k: loc.passes[k] - passes0.get(k, 0) for k in loc.passes}
+    # the 512-member sync committee slot, one job a signature
+    s_items = [VerifyItem(m, A.g2_to_bytes(s.point), public_keys=[k])
+               for m, s, k in zip(c.s_msgs, c.s_sigs, c.s_keys)]
+    s_v = [t.result(120.0) for t in submit_all([[it] for it in s_items],
+                                                "sync_message")]
+    s_direct = c.block_backend.multi_verify(c.s_msgs, c.s_sigs, c.s_keys)
+    # the blob lane: the block's blobs in one job, a forged proof in another
+    from grandine_tpu_torch.kzg import eip4844 as K
+
+    blob_items = [VerifyItem(b, p, public_keys=[m])
+                  for b, m, p in zip(c.blobs, c.comms, c.proofs)]
+    forged_blob = VerifyItem(c.blobs[2], c.proofs[3],
+                             public_keys=[c.comms[2]])
+    blob_v = [t.result(300.0) for t in submit_all([blob_items,
+                                                   [forged_blob]],
+                                                  "blob_kzg")]
+    blob_direct = [K.verify_blob_kzg_proof_batch(c.blobs, c.comms, c.proofs,
+                                                 c.setup, dev),
+                   K.verify_blob_kzg_proof_batch([c.blobs[2]], [c.comms[2]],
+                                                 [c.proofs[3]], c.setup,
+                                                 dev)]
+    bls_launches = c.count_read()
+    log(f"block lane: the block's {len(block)} sets through DeferredVerifier "
+        f"-> {v_sched} (direct TorchVerifier {v_direct}); one job a set with "
+        f"set {forged_i} forged -> False at "
+        f"{[i for i, v in enumerate(set_v) if not v]}; localization passes "
+        f"{json.dumps(passes)}")
+    log(f"sync_message lane: {len(s_items)} signatures -> "
+        f"{sum(s_v)} True (direct multi_verify {s_direct}); blob_kzg lane: "
+        f"{len(blob_items)} blobs -> {blob_v[0]}, forged proof -> "
+        f"{blob_v[1]} (direct {blob_direct}); launches "
+        f"{json.dumps(bls_launches)}")
+    if not (v_sched is v_direct is True):
+        fail("the block through DeferredVerifier")
+    if [i for i, v in enumerate(set_v) if not v] != [forged_i]:
+        fail(f"block lane: rejected {[i for i, v in enumerate(set_v) if not v]}")
+    if passes.get("host", 0) or not passes.get("rlc_partition"):
+        fail(f"block lane localization: {passes}")
+    if not all(s_v) or s_direct is not True:
+        fail("sync_message lane")
+    if blob_v != blob_direct or blob_v != [True, False]:
+        fail(f"blob_kzg lane {blob_v}, direct {blob_direct}")
+    for lane in ("block", "sync_message", "blob_kzg"):
+        st_l = sched.stats[lane]
+        bad = {k: st_l[k] for k in ("device_faults", "breaker_skips",
+                                    "retries") if st_l[k]}
+        deg = metrics.count("verify_lane_batches", lane, "degraded")
+        if bad or deg:
+            fail(f"{lane} lane: {bad}, {deg} degraded")
+    for name in ("multi_rlc_scale", "aggregate_rlc_scale",
+                 "miller_loop_pairs", "rlc_finish", "g1_scalar_mul"):
+        if bls_launches.get(name, 0) < 1:
+            fail(f"the BLS and KZG lanes did not launch {name}")
+    # every block and sync_message batch took the compressed route: one
+    # decompression launch a batch (the direct seams decompress on the
+    # host, the localizer checks the subgroup without decompressing)
+    lane_batches = sum(sched.stats[n]["batches"]
+                       for n in ("block", "sync_message"))
+    if bls_launches.get("g2_decompress_subgroup", 0) != lane_batches:
+        fail(f"{lane_batches} block and sync_message batches, "
+             f"{bls_launches.get('g2_decompress_subgroup')} decompression "
+             f"launches")
+
+    # 4. a chaos round: the device says False on a valid batch ----------------
+    chaos = ChaosBackend(E.Ed25519Backend(device=dev),
+                         FaultPlan(["wrong_verdict"]))
+    ed_lane = next(l for l in DEFAULT_LANES if l.name == "ed25519")
+    csched = VerifyScheduler(backend=chaos, lanes=[ed_lane],
+                             settle_timeout_s=c.settle_timeout_s)
+    try:
+        with csched._cond:
+            ctk = [csched.submit("ed25519", j) for j in jobs[:6]]
+        cv = [t.result(120.0) for t in ctk]
+        cfaults = dict(csched.health.breaker.stats["faults"])
+    finally:
+        csched.stop()
+    log(f"ed25519 chaos round (wrong_verdict): {len(cv)} tickets -> "
+        f"{cv}; breaker faults {cfaults}")
+    if not all(cv) or cfaults["verdict"] != 1 or \
+            chaos.plan.injected["wrong_verdict"] != 1:
+        fail("the chaos round")
+    rec.__exit__()
+
+    # every launch of the phase against the plain version, one plain pass
+    # per bucket with the launches stacked
+    t0 = time.perf_counter()
+    for b in E.BUCKETS:
+        calls = [(a, o) for a, o in rec.calls if a[0].shape[0] == b]
+        if not calls:
+            continue
+        stacked = [torch.stack([a[i] for a, _ in calls], 1)
+                   for i in range(4)]
+        got = (torch.cat([o[0] for _, o in calls]),
+               torch.stack([o[1] for _, o in calls], 1),
+               torch.stack([o[2] for _, o in calls]))
+        c.same("ed25519_verify", got, E.ed25519_verify_plain(*stacked),
+               f"every launch of the phase at B = {b} ({len(calls)} "
+               f"launches: lane, bisection, chaos)")
+    log(f"ed25519 plain check of {len(rec.calls)} launches: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 5. timings --------------------------------------------------------------
+    # block p50 through DeferredVerifier beside the direct TorchVerifier, in
+    # turns, hash-to-G2 caches warm
+    rows_b = {"scheduler": [], "direct": []}
+    for name in ["direct", "scheduler"] * c.block_reps:
+        sync()
+        t0 = time.perf_counter()
+        ok = (deferred_block if name == "scheduler" else direct_block)(block)
+        rows_b[name].append(time.perf_counter() - t0)
+        if ok is not True:
+            fail(f"block ({name}) did not verify")
+    p_s = statistics.median(rows_b["scheduler"])
+    p_d = statistics.median(rows_b["direct"])
+    log(f"block p50 through DeferredVerifier (block lane) {p_s * 1e3:.1f} ms "
+        f"beside the direct TorchVerifier {p_d * 1e3:.1f} ms over "
+        f"{c.block_reps} each, in turns: the scheduler adds "
+        f"{(p_s - p_d) * 1e3:.1f} ms {at}")
+    nb = c.ed_batches
+    log(f"ed25519 lane: batch p50 submit to ticket "
+        f"{statistics.median(lat) * 1e3:.1f} ms over {nb} batches of 63, one "
+        f"at a time (host prep: decode and RLC p50 "
+        f"{statistics.median(split.prep[nb:2 * nb]) * 1e3:.1f} ms, device "
+        f"wait p50 {statistics.median(split.wait[nb:2 * nb]) * 1e3:.1f} ms); "
+        f"pipelined {n_sigs / wall:.1f} signatures/s ({wall:.2f} s for "
+        f"{n_sigs}, host prep {sum(split.prep[:nb]):.2f} s) {at}")
+    batch63 = items[:63]
+    t0 = time.perf_counter()
+    if not all(HE.check_item(it) for it in batch63):
+        fail("the host twin rejects a valid batch")
+    log(f"ed25519 host twin: one batch of 63 in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host)")
+    sched.stop()
+
+    # kernels-line rows: (name, where, kernel, plain, reps, field products,
+    # bytes, replaces, launches on its path, entry, int32 multiplies a
+    # product)
+    out = []
+    for b in E.BUCKETS:
+        recorded = [a for a, _ in ed_calls if a[0].shape[0] == b]
+        ops_in = recorded[0] if recorded else edge[b]
+        where = (f"ed25519 lane, B = {b}" if recorded
+                 else f"edge rows, B = {b}")
+        out.append(("ed25519_verify", where,
+                    lambda a=ops_in: E.ed25519_verify(*a),
+                    lambda a=ops_in: E.ed25519_verify_plain(*a), 5,
+                    ed_verify_ops(ops_in[3]), b * (4 * 32 + 128) + 128 + 1,
+                    "grandine_tpu/tpu/ed25519.py:298", len(recorded),
+                    "ed25519_verify" + ("" if b == 128 else f"/b{b}"),
+                    MULS_PER_ED_MUL))
     return out
 
 
@@ -1258,6 +1752,7 @@ def main() -> None:
     from grandine_tpu_torch.gpu import _build
     from grandine_tpu_torch.gpu import bls as B
     from grandine_tpu_torch.gpu import curve as C
+    from grandine_tpu_torch.gpu import ed25519 as GE
     from grandine_tpu_torch.gpu import kzg as GK
     from grandine_tpu_torch.gpu import limbs as L
     from grandine_tpu_torch.gpu import pairing as TP
@@ -1297,6 +1792,7 @@ def main() -> None:
         "rlc_finish": B.rlc_finish,
         "batch_sign": B.batch_sign,
         "g1_scalar_mul": GK.g1_scalar_mul,
+        "ed25519_verify": GE.ed25519_verify,
     }
 
     # 1. build ---------------------------------------------------------------
@@ -1320,7 +1816,7 @@ def main() -> None:
         f"setting it took {taken / 2**20:.1f} MiB of device memory, "
         f"{taken_24k / 2**20:.1f} MiB with a 24576 B limit {at}")
 
-    # host prep: registry keys, committees, aggregates -------------------------
+    # host prep: registry keys, committees, aggregates ------------------------
     rng = random.Random(20261017)
     # the backend's RLC draw (rng=) takes the `randbits` of `secrets`
     bits = SimpleNamespace(randbits=random.Random(20261018).getrandbits)
@@ -1415,7 +1911,7 @@ def main() -> None:
     fin = (f, agg[2], agg[1], dec[3], dec[7])
     same("rlc_finish", B.rlc_finish(*fin), B.rlc_finish_plain(*fin), edge)
 
-    # 3. the main path at real size ---------------------------------------------
+    # 3. the main path at real size -------------------------------------------
     backend = B.TorchBlsBackend()
     registry = DevicePubkeyRegistry()
 
@@ -1502,7 +1998,7 @@ def main() -> None:
             fail(f"host anchor rejects aggregate {i}")
     log("host anchor: 3 aggregates verify on the host")
 
-    # 4. the block-verify path -------------------------------------------------
+    # 4. the block-verify path ------------------------------------------------
     brng = random.Random(20261019)
     t0 = time.perf_counter()
     blocks = [make_block(brng, N_VALIDATORS, sks, R,
@@ -1675,7 +2171,7 @@ def main() -> None:
             fail(f"partition verdicts {got.tolist()} at G = {groups}, "
                  f"expected {want}")
 
-    # 5. the replay window and the uncompressed gossip seams ---------------------
+    # 5. the replay window and the uncompressed gossip seams ------------------
     window = [s for b in blocks for s in b]
 
     def window_items(sets):
@@ -1723,7 +2219,7 @@ def main() -> None:
         fail("a signature outside G2 verified through the uncompressed seams")
 
 
-    # 6. fault localization of failed batches, and the grouped route -------------
+    # 6. fault localization of failed batches, and the grouped route ----------
     def count_reset():
         for fn in kernels.values():
             fn.launches = 0
@@ -1940,12 +2436,25 @@ def main() -> None:
     log(f"kzg setup: the official trusted setup ({kzg_setup.width} Lagrange "
         f"points) parsed, or loaded from its cache, in "
         f"{time.perf_counter() - t0:.1f} s (host)")
-    kzg_rows = kzg_phase(SimpleNamespace(
+    kzg_ctx = SimpleNamespace(
         torch=torch, np=np, A=A, B=B, R=R, dev=dev, at=at, same=same, ops=ops,
         setup=kzg_setup, n_blobs=MAX_BLOBS_PER_BLOCK, kzg_reps=KZG_REPS,
-        count_reset=count_reset, count_read=count_read))
+        count_reset=count_reset, count_read=count_read)
+    kzg_rows = kzg_phase(kzg_ctx)
 
-    # 9. timings ---------------------------------------------------------------
+    # 9. the verify scheduler: every lane through VerifyScheduler ------------
+    t0 = time.perf_counter()
+    sched_rows = scheduler_phase(SimpleNamespace(
+        torch=torch, np=np, A=A, dev=dev, at=at, same=same, keys=keys,
+        block=block, block_backend=block_backend, s_msgs=s_msgs,
+        s_sigs=s_sigs, s_keys=s_keys, blobs=kzg_ctx.blobs,
+        comms=kzg_ctx.comms, proofs=kzg_ctx.proofs, setup=kzg_setup,
+        block_reps=SCHED_BLOCK_REPS, ed_batches=16, settle_timeout_s=5.0,
+        count_reset=count_reset,
+        count_read=count_read))
+    log(f"scheduler phase: {time.perf_counter() - t0:.1f} s")
+
+    # 10. timings -------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -2116,7 +2625,7 @@ def main() -> None:
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
             "rlc_finish"))
-    timed += sign_rows + kzg_rows
+    timed += sign_rows + kzg_rows + sched_rows
     for where, (ops_r, verdict_r) in finish_records:
         if where in timed_finish:
             continue
@@ -2133,14 +2642,15 @@ def main() -> None:
         ms, got = cuda_ms(kern, reps)
         p_ms, ref = plain_ms(plain)
         err = same(name, got, ref, f"main-path operands, {where}")
-        b_ms, b_by = bound_ms(fp_muls, nbytes, sms, clock_hz)
+        b_ms, b_by = bound_ms(fp_muls, nbytes, sms, clock_hz,
+                              *row[10:11])
         # launches: on the gossip path for its kernels, on the block path
         # for the kernels it brought, on its own path for the rest
         n_l = row[8] if len(row) > 8 else (
             launches if where == gossip else block_launches)[name]
         entry = row[9] if len(row) > 9 else name
         log(f"time {name} ({where}): kernel {ms:.3f} ms, plain {p_ms:.1f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by}; {fp_muls} Fp products, "
+            f"ms, bound {b_ms:.4f} ms ({b_by}; {fp_muls} field products, "
             f"{nbytes} B), launches on its path {n_l} {at}")
         if entry in errs:  # the kernels line: each entry at its first shape
             continue

@@ -44,6 +44,7 @@ LIBRARIES = {
     "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry"),
     "sign.cu": ("batch_sign", "batch_sign_geometry"),
     "kzg.cu": ("g1_scalar_mul",),
+    "ed25519.cu": ("ed25519_verify",),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
 #: the deepest kernel's need (ptxas "cumulative stack size") rounded up to
@@ -74,6 +75,7 @@ SIGNATURES = {
     "batch_sign": [_vp, _vp, _vp, _vp, _i, _vp],
     "batch_sign_geometry": [_i, _vp],
     "g1_scalar_mul": [_vp, _vp, _vp, _vp, _i, _vp],
+    "ed25519_verify": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp],
     "group_sum_geometry": [_i, _i, _vp],
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
     "rlc_finish_geometry": [_i, _i, _vp],

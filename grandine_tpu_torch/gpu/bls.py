@@ -926,6 +926,11 @@ class TorchBlsBackend:
     (runtime/isolation.py); `verify` and `fast_aggregate_verify` are
     batches of one."""
 
+    #: the uncompressed verify seams run `g2_subgroup_check` on the card
+    #: and fold its mask into the verdict, so a dispatcher stacks no
+    #: separate subgroup pass (the reference's fused verify programs)
+    fuse_subgroup = True
+
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
         if self.device.type == "cuda":  # a kernel that does not build

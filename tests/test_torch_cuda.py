@@ -538,3 +538,64 @@ def test_blob_plane_on_the_card(cuda_device):
         got = GK.blob_verify(*args, q2, 4)
         _equal((got,), (plain,))
         assert bool(got.item()) is want, name
+
+
+# --- ed25519_verify ----------------------------------------------------------------
+
+
+def _ed_rows(B, seed):
+    from grandine_tpu_torch.crypto import ed25519 as HE
+    from grandine_tpu_torch.gpu import ed25519 as E
+
+    rng = random.Random(seed)
+
+    def affine(p):
+        zinv = pow(p[2], HE.P - 2, HE.P)
+        return p[0] * zinv % HE.P, p[1] * zinv % HE.P
+
+    pts = [(0, 1), (0, HE.P - 1), affine(HE.BASE), affine(HE.point_add(
+        HE.point_mul(99, HE.BASE), HE.ORDER2))]
+    ks = [0, 1, (1 << 253) - 1, HE.L - 1]
+    pts += [affine(HE.point_mul(rng.randrange(1, HE.L), HE.BASE))
+            for _ in range(B - 4)]
+    ks += [rng.randrange(1 << 253) for _ in range(B - 4)]
+    return [E.ints_to_words(v) for v in (
+        [x for x, _ in pts], [y for _, y in pts],
+        [x * y % HE.P for x, y in pts], ks)]
+
+
+@pytest.mark.parametrize("B", [8, 32, 128])
+def test_ed25519_verify_matches_plain(cuda_device, B):
+    from grandine_tpu_torch.gpu import ed25519 as E
+
+    args = [torch.from_numpy(a).to(cuda_device) for a in _ed_rows(B, B)]
+    before = E.ed25519_verify.launches
+    got = E.ed25519_verify(*args)
+    assert E.ed25519_verify.launches == before + 1
+    _equal(got, E.ed25519_verify_plain(*args))
+
+
+def test_ed25519_lane_on_the_card(cuda_device):
+    from grandine_tpu_torch.crypto import ed25519 as HE
+    from grandine_tpu_torch.gpu import ed25519 as E
+    from grandine_tpu_torch.runtime.verify_scheduler import VerifyScheduler
+
+    rng = random.Random(0xED)
+    items = []
+    for i in range(5):
+        sk = rng.randbytes(32)
+        msg = rng.randbytes(8)
+        items.append(VerifyItem(msg + (b"!" if i == 3 else b""),
+                                HE.sign(sk, msg),
+                                public_keys=(HE.secret_to_public(sk),)))
+    sched = VerifyScheduler(device=cuda_device)
+    try:
+        before = E.ed25519_verify.launches
+        tickets = [sched.submit("ed25519", [it]) for it in items]
+        assert [t.result(60.0) for t in tickets] == [
+            HE.check_item(it) for it in items]
+        st = sched.stats["ed25519"]
+        assert st["device_faults"] == st["retries"] == 0
+        assert E.ed25519_verify.launches > before
+    finally:
+        sched.stop()

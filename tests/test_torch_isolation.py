@@ -36,8 +36,14 @@ def test_importing_every_module_loads_no_jax():
             "grandine_tpu_torch.validator.duties",
             "grandine_tpu_torch.gpu.kzg", "grandine_tpu_torch.kzg.fr",
             "grandine_tpu_torch.kzg.setup",
-            "grandine_tpu_torch.kzg.eip4844"} <= set(mods)
-    assert len(mods) >= 31
+            "grandine_tpu_torch.kzg.eip4844",
+            "grandine_tpu_torch.crypto.ed25519",
+            "grandine_tpu_torch.gpu.ed25519",
+            "grandine_tpu_torch.runtime.verify_scheduler",
+            "grandine_tpu_torch.runtime.flight",
+            "grandine_tpu_torch.testing.chaos",
+            "grandine_tpu_torch.tracing"} <= set(mods)
+    assert len(mods) >= 34
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -100,6 +106,23 @@ def test_signing_entry_points_default_to_cuda():
         device_aggregator()
     with pytest.raises(RuntimeError, match="CUDA"):
         g2_aggregate_groups([[SecretKey(1).sign(b"m")]])
+
+
+def test_verify_scheduler_defaults_to_cuda():
+    from grandine_tpu_torch.gpu.ed25519 import Ed25519Backend
+    from grandine_tpu_torch.runtime.verify_scheduler import VerifyScheduler
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VerifyScheduler()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Ed25519Backend()
+    sched = VerifyScheduler(device="cpu")
+    try:
+        assert sched.device.type == "cpu"
+    finally:
+        sched.stop()
 
 
 def test_torch_verifier_defaults_to_cuda():

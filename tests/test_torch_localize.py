@@ -2,10 +2,11 @@
 exact: `rlc_partition_verify` (the port's plain route) against the JAX
 backend's group verdicts and host anchors; `runtime.isolation`'s ladder
 and `FaultLocalizer.localize` against the JAX FaultLocalizer on the same
-truth-table fakes (per-item verdicts, device passes, host leaves, pass
-counts) — except that a device fault raises instead of sweeping on the
-host; one localization end to end on the port's backend; the key cache
-and `host_check_item` against their JAX counterparts."""
+truth-table fakes, each package's own (per-item verdicts, device passes,
+host leaves, pass counts), with and without a health supervisor — a
+device fault, an open breaker or an expired deadline sweeps the suspects
+on the host, counted; one localization end to end on the port's backend;
+the key cache and `host_check_item` against their JAX counterparts."""
 
 import random
 import time
@@ -22,14 +23,17 @@ from grandine_tpu.crypto.curves import G1, B1, Point
 from grandine_tpu.crypto.fields import Fq
 from grandine_tpu.crypto.hash_to_curve import hash_to_g2
 from grandine_tpu.metrics import Metrics
+from grandine_tpu.runtime import health as jhealth
 from grandine_tpu.runtime import isolation as jiso
 from grandine_tpu.runtime import verify_scheduler as jvs
-from grandine_tpu.testing.chaos import KnownAnswerBackend
+from grandine_tpu.testing.chaos import KnownAnswerBackend as JKnownAnswer
 from grandine_tpu_torch.consensus import keys as PK
 from grandine_tpu_torch.crypto import bls as PA
 from grandine_tpu_torch.gpu import bls as B
+from grandine_tpu_torch.runtime import health as phealth
 from grandine_tpu_torch.runtime import isolation as iso
 from grandine_tpu_torch.runtime import verify_scheduler as pvs
+from grandine_tpu_torch.testing.chaos import KnownAnswerBackend
 
 rng = random.Random(0x10C)
 
@@ -81,8 +85,15 @@ def _items(n, sig=None):
              for m, s in zip(msgs, sigs)])
 
 
-def _run_both(n, forged, backend_cls=KnownAnswerBackend, sig=None,
-              deadline=None):
+def _same(cls):
+    return cls
+
+
+def _run_both(n, forged, wrap=_same, sig=None, deadline=None, health=None):
+    """One localization on each package: the port's localizer over the
+    port's KnownAnswerBackend, the JAX one over the JAX fake, each class
+    passed through `wrap` (a fault or a flag injected alike); `health`
+    makes each package's supervisor (a callable of the module)."""
     msgs, jitems, pitems = _items(n, sig)
     truth = {m: i not in forged for i, m in enumerate(msgs)}
     calls = {"jax": 0, "port": 0}
@@ -94,9 +105,13 @@ def _run_both(n, forged, backend_cls=KnownAnswerBackend, sig=None,
         return host_check
 
     metrics = Metrics()
-    jkab, pkab = backend_cls(truth), backend_cls(truth)
-    jloc = jiso.FaultLocalizer(metrics=metrics, host_check=check("jax"))
-    ploc = iso.FaultLocalizer(host_check=check("port"))
+    jkab, pkab = wrap(JKnownAnswer)(truth), wrap(KnownAnswerBackend)(truth)
+    jsup = psup = None
+    if health is not None:
+        jsup, psup = health(jhealth), health(phealth)
+    jloc = jiso.FaultLocalizer(health=jsup, metrics=metrics,
+                               host_check=check("jax"))
+    ploc = iso.FaultLocalizer(health=psup, host_check=check("port"))
     want = jloc.localize(jkab, jitems, deadline=deadline)
     got = ploc.localize(pkab, pitems, deadline=deadline)
     return (got, want, pkab, jkab, calls, ploc.passes,
@@ -136,53 +151,109 @@ def test_localize_host_leaves_match_jax():
     assert pkab.partitions == jkab.partitions
     assert all(n_items <= 5 for n_items, _ in pkab.partitions)
 
-    class SubgroupFlagged(KnownAnswerBackend):
-        def g2_subgroup_check_batch_async(self, points):
-            flags = np.ones((len(points),), dtype=bool)
-            flags[1] = False
-            return lambda: flags
+    def subgroup_flagged(cls):
+        class SubgroupFlagged(cls):
+            def g2_subgroup_check_batch_async(self, points):
+                flags = np.ones((len(points),), dtype=bool)
+                flags[1] = False
+                return lambda: flags
+        return SubgroupFlagged
 
-    got, want, pkab, jkab, calls, *_ = _run_both(8, set(), SubgroupFlagged)
+    got, want, pkab, jkab, calls, *_ = _run_both(8, set(), subgroup_flagged)
     assert got == want == [True] * 8
     assert calls["port"] == calls["jax"] == 1
     assert pkab.partitions == jkab.partitions == [(7, 8)]
 
 
+def _faulting(where):
+    """A fake whose partition dispatch or settle, or subgroup dispatch,
+    raises."""
+    def wrap(cls):
+        class Faulting(cls):
+            def rlc_partition_verify_async(self, *a, **kw):
+                if where == "dispatch":
+                    raise RuntimeError("injected partition fault")
+                super().rlc_partition_verify_async(*a, **kw)
+
+                def settle():
+                    raise RuntimeError("injected settle fault")
+                return settle
+
+            def g2_subgroup_check_batch_async(self, points):
+                if where == "subgroup":
+                    raise ValueError("injected subgroup fault")
+                return super().g2_subgroup_check_batch_async(points)
+        return Faulting
+    return wrap
+
+
+def _supervisor(mod):
+    return mod.BackendHealthSupervisor(settle_timeout_s=5.0)
+
+
 @pytest.mark.parametrize("where", ["dispatch", "settle", "subgroup"])
 def test_device_fault_raises_not_swept(where):
-    """A device fault propagates: the port does not sweep on the host
-    (the reference does), so a failing kernel cannot hide."""
-
-    class Faulting(KnownAnswerBackend):
-        def rlc_partition_verify_async(self, *a, **kw):
-            if where == "dispatch":
-                raise RuntimeError("injected partition fault")
-            super().rlc_partition_verify_async(*a, **kw)
-
-            def settle():
-                raise RuntimeError("injected settle fault")
-            return settle
-
-        def g2_subgroup_check_batch_async(self, points):
-            if where == "subgroup":
-                raise ValueError("injected subgroup fault")
-            return super().g2_subgroup_check_batch_async(points)
-
-    msgs, jitems, pitems = _items(12)
-    truth = {m: i != 9 for i, m in enumerate(msgs)}
-    calls = [0]
-
-    def host_check(item):
-        calls[0] += 1
-        return truth[bytes(item.message)]
-
-    loc = iso.FaultLocalizer(host_check=host_check)
+    """A device fault raises out of the seam — no backend or wrapper
+    swallows it — and is never swept silently: the localizer, the one
+    place that catches it, files it with the health supervisor's breaker
+    and sweeps the remaining suspects on the host as one counted "host"
+    pass, exactly as the reference does (its
+    test_localize_device_fault_mid_descent_sweeps_on_host)."""
     with pytest.raises((RuntimeError, ValueError), match="injected"):
-        loc.localize(Faulting(truth), pitems)
-    assert calls[0] == 0 and loc.passes["host"] == 0
-    # the reference sweeps the same fault on the host
-    assert jiso.FaultLocalizer(host_check=host_check).localize(
-        Faulting(truth), jitems) == [truth[m] for m in msgs]
+        fake = _faulting(where)(KnownAnswerBackend)({})
+        if where == "subgroup":
+            fake.g2_subgroup_check_batch_async([None])
+        else:
+            fake.rlc_partition_verify_async([b""], [None], [[]], 4)()
+    sups = {}
+
+    def health(mod):
+        sups[mod] = _supervisor(mod)
+        return sups[mod]
+
+    got, want, pkab, jkab, calls, passes, jpasses, truth, msgs = _run_both(
+        12, {9}, _faulting(where), health=health)
+    assert got == want == [truth[m] for m in msgs]
+    assert pkab.partitions == jkab.partitions
+    assert passes["host"] == jpasses["host"] == 1
+    assert calls["port"] == calls["jax"]
+    faults = [sups[m].breaker.stats["faults"] for m in (phealth, jhealth)]
+    assert faults[0] == faults[1]
+    assert faults[0]["settle" if where == "settle" else "dispatch"] == 1
+
+
+def test_open_breaker_never_touches_the_device_like_jax():
+    def opened(mod):
+        sup = mod.BackendHealthSupervisor(fault_threshold=1,
+                                          backoff_initial_s=60.0)
+        sup.record_fault("dispatch")
+        return sup
+
+    got, want, pkab, jkab, calls, passes, jpasses, truth, msgs = _run_both(
+        8, {1}, health=opened)
+    assert got == want == [truth[m] for m in msgs]
+    assert pkab.partitions == jkab.partitions == []
+    assert passes["host"] == jpasses["host"] == 1
+    assert passes["g2_subgroup"] == jpasses["g2_subgroup"] == 0
+
+
+@pytest.mark.parametrize("n,forged", [(12, {9}), (64, {0, 33})])
+def test_localize_under_a_supervisor_matches_jax(n, forged):
+    """Healthy passes under the watchdog: the same dispatches, leaves and
+    passes as the JAX localizer, each settle a breaker success."""
+    sups = {}
+
+    def health(mod):
+        sups[mod] = _supervisor(mod)
+        return sups[mod]
+
+    got, want, pkab, jkab, calls, passes, jpasses, truth, msgs = _run_both(
+        n, forged, health=health)
+    assert got == want == [truth[m] for m in msgs]
+    assert pkab.partitions == jkab.partitions
+    assert {k: passes[k] for k in jpasses} == jpasses
+    assert passes["host"] == 0
+    assert all(sups[m].state == "closed" for m in sups)
 
 
 def test_expired_deadline_sweeps_and_is_counted():

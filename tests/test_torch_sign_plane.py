@@ -373,9 +373,10 @@ def test_breaker_walks_the_jax_state_sequence():
 def test_scheme_table_and_lanes():
     bls = schemes.get("bls")
     assert bls.signing is not None and bls.field_bits == 381
-    assert schemes.names() == ["blob_kzg", "bls"]
+    assert schemes.names() == ["blob_kzg", "bls", "ed25519"]
+    assert schemes.get("ed25519").signing is None
     with pytest.raises(KeyError):
-        schemes.get("ed25519")
+        schemes.get("secp256k1")
     from grandine_tpu.runtime.sign_plane import DEFAULT_SIGN_LANES as JL
     assert [(c.name, int(c.priority), c.max_batch, c.max_wait_s, c.max_queue,
              c.shed) for c in DEFAULT_SIGN_LANES] == [
