@@ -93,13 +93,33 @@ Phases (any failure raises and exits non-zero):
      version; the lane's batch p50 split host prep / device wait,
      signatures/s, the host twin's batch of 63, the block p50 through
      DeferredVerifier beside the direct TorchVerifier;
- 10. each kernel again against its plain version, exactly, on the
+ 10. the slasher at full width (grandine_tpu_torch.slasher.Slasher):
+     span_update_grid against its plain version on edge rows (n = 1, 255,
+     256, 257, 16,385, 50,000, 300; a row not valid, s below the grid, t
+     past it, s = t - 1, UNSET and 0 inputs; grid bases 0, 2^30 - 64,
+     2^31 - 64); the native CRC-32C of the database's snappy framing
+     (required); six epoch windows at 50,000 validators (targets 96-101,
+     32 slots x 12 committees of 130-131, every validator voting once, so
+     all 50,000 rows go through the grid merge) and a poisoned seventh (a
+     surround on the grid, a surrounded vote and a double vote on the
+     collision path), each one on_attestations_bulk call on a device
+     Slasher() and on a Slasher(device="cpu"), over sqlite databases —
+     identical hits, exactly the injected offenders, one span_update_grid
+     launch a window, each held against the plain version; two double
+     proposals through on_block; prune dropping the same rows on both;
+     the two sl: keyspaces equal byte for byte; the window p50 on the card
+     and the CPU twin and the device slasher's split (checks, grid
+     assembly, copy to the card, kernel by CUDA events, copy back, scatter
+     and below-grid walk, record puts, flush);
+ 11. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
      members; the block's 131 sets; the window's 1,048 sets; the
      partition passes; both grouped shapes; the full bucket and a lane
      batch of batch_sign; the three aggregate calls; the KZG batch verify
-     and setup MSM; ed25519_verify at B = 8, 32, 128), and its time there
-     (CUDA events, after warm-up) beside the plain version's and its bound;
+     and setup MSM; ed25519_verify at B = 8, 32, 128; span_update_grid at
+     a window's 50,000 rows), and its time there (CUDA events, after
+     warm-up) beside the plain version's, its bound and, where one stock
+     PyTorch computation gives the same function, that one's;
      end-to-end p50 of the gossip batch, the block and the window with
      the hash-to-G2 cache warm and cold, host prep kept apart from
      device time.
@@ -1728,6 +1748,313 @@ def scheduler_phase(c):
     return out
 
 
+# --- the slasher: surround, double-vote and double-block detection ---------
+
+#: the cell's registry and its honest epoch windows (targets; source one
+#: below), near genesis so that a fresh slasher's min tail stays short
+SLASHER_VALIDATORS = 50_000
+SLASHER_TARGETS = tuple(range(96, 102))
+#: span_update_grid's edge cases: (rows, grid base)
+SPAN_EDGE = ((1, 0), (255, (1 << 30) - 64), (256, 48), (257, 0),
+             (16_385, (1 << 30) - 64), (50_000, 48), (300, (1 << 31) - 64))
+
+
+class SlasherSplit:
+    """Splits the device slasher's `on_attestations_bulk` calls: host clocks
+    around its steps (its instance methods wrapped while the phase runs;
+    the slasher has no trace knob) and, around each span_update_grid
+    launch, a synchronize and CUDA events. `rec` is a Recorder that stands
+    in for gpu/spans.py `span_update_grid` inside a `with` block (SpanPlane
+    looks it up as a module global) and keeps each launch's operands and
+    result; `t` holds the seconds of each step of the current call."""
+
+    STEPS = ("checks", "grid assembly", "copy to card", "kernel",
+             "copy back", "scatter + below-grid walk", "record puts",
+             "flush")
+
+    def __init__(self, sl, spans, torch):
+        self.torch = torch
+        self.cuda = sl.span_plane.device.type == "cuda"
+        self.t, self.marks, self.in_flush = {}, {}, False
+        split = self
+
+        class Timed(Recorder):
+            def __call__(self, *args):
+                split.sync()
+                split.mark("kernel in")
+                if split.cuda:
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                out = self.fn(*args)
+                if split.cuda:
+                    e1.record()
+                split.sync()
+                split.mark("kernel out")
+                split.t["kernel"] += (
+                    e0.elapsed_time(e1) / 1e3 if split.cuda else
+                    split.marks["kernel out"] - split.marks["kernel in"])
+                self.calls.append((args, out))
+                return out
+
+        self.rec = Timed(spans, "span_update_grid", lambda *a: a)
+        for name in ("_check_rows", "_check_one"):
+            self._wrap(sl, name, "checks")
+        self._wrap(sl, "flush", "flush", flush=True)
+        self._wrap(sl.db, "put_batch", "record puts", outside_flush=True)
+        self._wrap(sl, "_merge_grid", None, marks="grid")
+        self._wrap(sl.span_plane, "update", None, marks="update")
+        self.start()
+
+    def sync(self):
+        if self.cuda:
+            self.torch.cuda.synchronize()
+
+    def mark(self, name):
+        self.marks[name] = time.perf_counter()
+
+    def start(self):
+        self.t = dict.fromkeys(self.STEPS, 0.0)
+
+    def _wrap(self, obj, name, key, flush=False, outside_flush=False,
+              marks=None):
+        fn = getattr(obj, name)
+        split = self
+
+        def run(*args, **kwargs):
+            if marks:
+                split.mark(marks + " in")
+            t0 = time.perf_counter()
+            split.in_flush |= flush
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if flush:
+                    split.in_flush = False
+                if key and not (outside_flush and split.in_flush):
+                    split.t[key] += time.perf_counter() - t0
+                if marks:
+                    split.mark(marks + " out")
+                    split.close(marks)
+
+        setattr(obj, name, run)
+
+    def close(self, which):
+        m, t = self.marks, self.t
+        if m.get("update in", 0) < m[which + " in"] and which == "grid":
+            return  # no grid row: the merge made no launch
+        if which == "update":
+            t["copy to card"] += m["kernel in"] - m["update in"]
+            t["copy back"] += m["update out"] - m["kernel out"]
+        else:
+            t["grid assembly"] += m["update in"] - m["grid in"]
+            t["scatter + below-grid walk"] += m["grid out"] - m["update out"]
+
+
+def poisoned_window(window, target, seed):
+    """The honest window at `target` with known offenders injected; returns
+    it and {(kind, validator)} the slasher must report. Surround: 4
+    validators leave their committee's aggregate and vote (90, target)
+    alone (grid rows). Surrounded: 3 validators first vote (target − 2,
+    target + 2), which surrounds nothing; their honest (target − 1, target)
+    after it is surrounded (the collision path). Double vote: 5 validators
+    vote their honest (source, target) again over another root (the
+    collision path)."""
+    rng = random.Random(seed)
+    window = list(window)
+    a, b, d = rng.sample(range(len(window)), 3)
+    ids, s, t, root = window[a]
+    surround = ids[:4]
+    window[a] = (ids[4:], s, t, root)
+    window.append((surround, 90, target, root))
+    surrounded = window[b][0][:3]
+    window.insert(0, (surrounded, target - 2, target + 2, window[b][3]))
+    double = window[d + 1][0][-5:]
+    window.append((double, target - 1, target, rng.randbytes(32)))
+    want = ({("surround_vote", v) for v in surround}
+            | {("surrounded_vote", v) for v in surrounded}
+            | {("double_vote", v) for v in double})
+    return window, want
+
+
+def slasher_phase(c):
+    """The slasher at full width (c: what main() built): span_update_grid
+    against its plain version on edge rows; the CRC-32C in use (native
+    required); six epoch windows at `c.n_validators` validators (every one
+    votes once: all rows go through the grid merge) and a poisoned
+    seventh through a device `Slasher()` and a `Slasher(device="cpu")`
+    over sqlite databases, one on_attestations_bulk call a window — equal
+    hits, exactly the injected offenders, one launch a window each held
+    against the plain version; double proposals through on_block; prune;
+    equal `sl:` keyspaces. Prints the window p50 on the card and the CPU
+    twin and the device slasher's split. Returns the kernels-line row."""
+    import itertools
+    import shutil
+    import tempfile
+
+    torch, np, dev, at = c.torch, c.np, c.dev, c.at
+    from grandine_tpu_torch import slasher as SL
+    from grandine_tpu_torch.gpu import spans as GS
+    from grandine_tpu_torch.spec_tests.snappy import crc_engine
+    from grandine_tpu_torch.storage.database import Database
+    from grandine_tpu_torch.testing.slasher import (
+        epoch_window, span_edge_rows)
+
+    t_phase = time.perf_counter()
+    # 1. span_update_grid against its plain version on edge rows -------------
+    for n, base in c.span_edge:
+        ops = [torch.from_numpy(a).to(dev)
+               for a in span_edge_rows(n, base, seed=n)]
+        c.same("span_update_grid", GS.span_update_grid(*ops, base),
+               GS.span_update_grid_plain(*ops, base),
+               f"edge rows, n = {n}, base = {base}: a row not valid, s below "
+               f"the grid, t past it, s = t - 1, s = t, UNSET and 0 inputs")
+
+    # 2. the CRC-32C of every database put -----------------------------------
+    engine = crc_engine()
+    log(f"slasher CRC-32C: {engine} (grandine_tpu_torch/native, g++ at "
+        f"first use)")
+    if not engine.startswith("native"):
+        fail("the snappy framing runs the Python CRC loop, not the native "
+             "one")
+
+    # 3. the cell: six epoch windows and a poisoned seventh ----------------
+    n_val = c.n_validators
+    windows = [epoch_window(n_val, t, seed=20261023 + t)
+               for t in c.targets]
+    last = c.targets[-1] + 1
+    bad, want = poisoned_window(epoch_window(n_val, last, seed=20261023 +
+                                             last), last, 20261024)
+    windows.append(bad)
+    scratch = os.path.join(HERE, ".scratch")
+    os.makedirs(scratch, exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="slasher-", dir=scratch)
+    try:
+        card = SL.Slasher(Database.persistent(
+            os.path.join(workdir, "card.sqlite")), device=dev)
+        host = SL.Slasher(Database.persistent(
+            os.path.join(workdir, "cpu.sqlite")), device="cpu")
+        split = SlasherSplit(card, GS, torch)
+        rows, hits_all = [], []
+        c.count_reset()
+        for w in windows:
+            split.start()
+            split.sync()
+            t0 = time.perf_counter()
+            with split.rec:
+                got = card.on_attestations_bulk(w)
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = host.on_attestations_bulk(w)
+            t_host = time.perf_counter() - t0
+            key = [[(h.kind, h.validator_index, h.evidence) for h in x]
+                   for x in got]
+            if key != [[(h.kind, h.validator_index, h.evidence) for h in x]
+                       for x in ref]:
+                fail(f"slasher window at target {w[-1][2]}: the card's hits "
+                     f"differ from the CPU slasher's")
+            hits_all.append(key)
+            rows.append((t_card, t_host, dict(split.t),
+                         sum(len(a[0]) for a in w)))
+        launches = c.count_read()["span_update_grid"]
+        for k, (t_card, t_host, t, n_idx) in enumerate(rows):
+            other = t_card - sum(t.values())
+            log(f"slasher window {k + 1} (target "
+                f"{windows[k][-1][2]}, {len(windows[k])} aggregates, {n_idx} "
+                f"attesting indices): card {t_card * 1e3:.1f} ms = "
+                + ", ".join(f"{name} {v * 1e3:.2f}" for name, v in t.items())
+                + f", other {other * 1e3:.1f}; the CPU slasher "
+                f"{t_host * 1e3:.1f} ms {at}")
+        honest = rows[:len(c.targets)]
+        p_card = statistics.median(r[0] for r in honest)
+        p_host = statistics.median(r[1] for r in honest)
+        p_step = {k: statistics.median(r[2][k] for r in honest) * 1e3
+                  for k in ("kernel", "copy to card", "copy back")}
+        log(f"slasher window p50 over {len(honest)} honest windows of "
+            f"{n_val} validators: card {p_card * 1e3:.1f} ms "
+            f"({n_val / p_card:.0f} attesting indices/s), the CPU slasher "
+            f"{p_host * 1e3:.1f} ms ({n_val / p_host:.0f} attesting "
+            f"indices/s); kernel p50 {p_step['kernel']:.4f} ms, copies p50 "
+            f"to card {p_step['copy to card']:.2f} ms, back "
+            f"{p_step['copy back']:.2f} ms {at}")
+        if launches != len(windows) or len(split.rec.calls) != len(windows):
+            fail(f"span_update_grid launched {launches} times "
+                 f"({len(split.rec.calls)} recorded) over {len(windows)} "
+                 f"windows: one a window required")
+        for k, (args, out) in enumerate(split.rec.calls):
+            c.same("span_update_grid", out, GS.span_update_grid_plain(*args),
+                   f"slasher window {k + 1}, {args[0].shape[0]} rows, base "
+                   f"{args[5]}")
+        if any(h for key in hits_all[:-1] for h in key):
+            fail("an honest slasher window reported an offense")
+        found = {(k, v) for hits in hits_all[-1] for k, v, _ in hits}
+        n_found = sum(len(x) for x in hits_all[-1])
+        log(f"slasher offenses in the poisoned window: {n_found} -> "
+            f"{sorted(found, key=lambda h: (h[0], h[1]))}")
+        if found != want or n_found != len(want):
+            fail(f"the slasher found {sorted(found)}, injected {sorted(want)}")
+
+        # double proposals, then prune
+        rng = random.Random(20261025)
+        first_slot = last * 32
+        blocks = [(rng.randrange(n_val), first_slot + i, rng.randbytes(32))
+                  for i in range(32)]
+        blocks += [(p, slot, rng.randbytes(32)) for p, slot, _ in
+                   (blocks[3], blocks[17])]
+        proposals = []
+        for b in blocks:
+            hb, hh = card.on_block(*b), host.on_block(*b)
+            if (hb and (hb.kind, hb.validator_index, hb.evidence)) != (
+                    hh and (hh.kind, hh.validator_index, hh.evidence)):
+                fail("on_block: the two slashers disagree")
+            if hb:
+                proposals.append((hb.kind, hb.validator_index))
+        log(f"slasher double proposals: {proposals}")
+        if proposals != [("double_block", blocks[3][0]),
+                         ("double_block", blocks[17][0])]:
+            fail("the double proposals were not both found")
+        kinds = {k for k, _ in found} | {k for k, _ in proposals}
+        if kinds != {"surround_vote", "surrounded_vote", "double_vote",
+                     "double_block"}:
+            fail(f"not every kind of offense appeared: {sorted(kinds)}")
+        drained = card.drain()
+        if len(drained) != len(host.drain()) or len(drained) != (
+                n_found + len(proposals)):
+            fail("drain: the two slashers disagree")
+        finalized = card.history_epochs + c.targets[0]
+        dropped = (card.prune(finalized), host.prune(finalized))
+        log(f"slasher prune at finalized epoch {finalized}: {dropped[0]} and "
+            f"{dropped[1]} rows dropped (card, CPU)")
+        if dropped[0] != dropped[1] or not dropped[0]:
+            fail("prune: the two slashers dropped different rows")
+        t0 = time.perf_counter()
+        n_keys = n_bytes = 0
+        for a, b in itertools.zip_longest(card.db.iterate_prefix(b"sl:"),
+                                          host.db.iterate_prefix(b"sl:")):
+            if a != b:
+                fail(f"the sl: keyspaces differ at {a and a[0]!r}, "
+                     f"{b and b[0]!r}")
+            n_keys += 1
+            n_bytes += len(a[1])
+        log(f"slasher state: the sl: keyspaces of the card's and the CPU "
+            f"slasher equal byte for byte, {n_keys} keys, {n_bytes} value "
+            f"bytes ({time.perf_counter() - t0:.1f} s to read both)")
+        for sl in (card, host):
+            sl.db.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"slasher phase: {time.perf_counter() - t_phase:.1f} s")
+
+    ops = split.rec.calls[len(c.targets) - 1][0]
+    n = ops[0].shape[0]
+    return [("span_update_grid", f"slasher window, {n} rows",
+             lambda a=ops: GS.span_update_grid(*a),
+             lambda a=ops: GS.span_update_grid_plain(*a), 20, 0,
+             2 * n * 64 * 4 + 9 * n + 2 * n * 64 * 4,
+             "grandine_tpu/tpu/spans.py:45", launches, "span_update_grid",
+             MULS_PER_FP_MUL, lambda a=ops: GS.span_update_grid_plain(*a))]
+
+
 # --- main ------------------------------------------------------------------
 
 
@@ -1756,6 +2083,7 @@ def main() -> None:
     from grandine_tpu_torch.gpu import kzg as GK
     from grandine_tpu_torch.gpu import limbs as L
     from grandine_tpu_torch.gpu import pairing as TP
+    from grandine_tpu_torch.gpu import spans as GS
     from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
     from grandine_tpu_torch.consensus.verifier import (
         SignatureInvalid, TorchVerifier)
@@ -1793,6 +2121,7 @@ def main() -> None:
         "batch_sign": B.batch_sign,
         "g1_scalar_mul": GK.g1_scalar_mul,
         "ed25519_verify": GE.ed25519_verify,
+        "span_update_grid": GS.span_update_grid,
     }
 
     # 1. build ---------------------------------------------------------------
@@ -2454,7 +2783,13 @@ def main() -> None:
         count_read=count_read))
     log(f"scheduler phase: {time.perf_counter() - t0:.1f} s")
 
-    # 10. timings -------------------------------------------------------------
+    # 10. the slasher at full width: six epoch windows and a poisoned one ------
+    slasher_rows = slasher_phase(SimpleNamespace(
+        torch=torch, np=np, dev=dev, at=at, same=same,
+        n_validators=SLASHER_VALIDATORS, targets=SLASHER_TARGETS,
+        span_edge=SPAN_EDGE, count_reset=count_reset, count_read=count_read))
+
+    # 11. timings -------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -2625,7 +2960,7 @@ def main() -> None:
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
             "rlc_finish"))
-    timed += sign_rows + kzg_rows + sched_rows
+    timed += sign_rows + kzg_rows + sched_rows + slasher_rows
     for where, (ops_r, verdict_r) in finish_records:
         if where in timed_finish:
             continue
@@ -2649,9 +2984,17 @@ def main() -> None:
         n_l = row[8] if len(row) > 8 else (
             launches if where == gossip else block_launches)[name]
         entry = row[9] if len(row) > 9 else name
+        # the library column: stock PyTorch computing the same function,
+        # where it can (the span grid's plain torch.where / minimum /
+        # maximum expression), by CUDA events after warm-up
+        lib_ms = None
+        if len(row) > 11:
+            lib_ms = cuda_ms(row[11], reps)[0]
         log(f"time {name} ({where}): kernel {ms:.3f} ms, plain {p_ms:.1f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}; {fp_muls} field products, "
-            f"{nbytes} B), launches on its path {n_l} {at}")
+            f"{nbytes} B), library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, launches "
+            f"on its path {n_l} {at}")
         if entry in errs:  # the kernels line: each entry at its first shape
             continue
         errs[entry] = err
@@ -2660,7 +3003,7 @@ def main() -> None:
             "source": "grandine_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": n_l,
             "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
 
     # end to end: host prep apart from device time --------------------------

@@ -45,6 +45,7 @@ LIBRARIES = {
     "sign.cu": ("batch_sign", "batch_sign_geometry"),
     "kzg.cu": ("g1_scalar_mul",),
     "ed25519.cu": ("ed25519_verify",),
+    "spans.cu": ("span_update_grid",),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
 #: the deepest kernel's need (ptxas "cumulative stack size") rounded up to
@@ -76,6 +77,7 @@ SIGNATURES = {
     "batch_sign_geometry": [_i, _vp],
     "g1_scalar_mul": [_vp, _vp, _vp, _vp, _i, _vp],
     "ed25519_verify": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp],
+    "span_update_grid": [_vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
     "group_sum_geometry": [_i, _i, _vp],
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
     "rlc_finish_geometry": [_i, _i, _vp],

@@ -599,3 +599,57 @@ def test_ed25519_lane_on_the_card(cuda_device):
         assert E.ed25519_verify.launches > before
     finally:
         sched.stop()
+
+
+# --- span_update_grid ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,base", [(1, 0), (255, (1 << 30) - 64), (256, 48),
+                                    (257, 0), (16_385, (1 << 30) - 64),
+                                    (50_000, 48), (300, (1 << 31) - 64)])
+def test_span_update_grid_matches_plain(cuda_device, n, base):
+    from grandine_tpu_torch.gpu import spans as S
+    from grandine_tpu_torch.testing.slasher import span_edge_rows
+
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in span_edge_rows(n, base, seed=n)]
+    before = S.span_update_grid.launches
+    got = S.span_update_grid(*args, base)
+    assert S.span_update_grid.launches == before + 1
+    _equal(got, S.span_update_grid_plain(*args, base))
+
+
+def _dump(db):
+    return [(bytes(k), bytes(v)) for k, v in db.iterate_prefix(b"sl:")]
+
+
+def _hits(lists):
+    return [[(h.kind, h.validator_index, h.evidence) for h in hits]
+            for hits in lists]
+
+
+def test_slasher_on_the_card(cuda_device):
+    """A device Slasher() against Slasher(device="cpu") on a
+    4,096-validator two-window stream, the second poisoned with a double
+    vote (the collision path) and a surround (a grid row): identical hits
+    and `sl:` dumps, one launch a window."""
+    from grandine_tpu_torch.gpu import spans as S
+    from grandine_tpu_torch.slasher import Slasher
+    from grandine_tpu_torch.testing.slasher import epoch_window
+
+    windows = [epoch_window(4096, t, seed=t) for t in (96, 97)]
+    second = windows[1]
+    second.append((second[0][0][:3], 96, 97, b"\xee" * 32))
+    ids, s, t, root = second[5]
+    second[5] = (ids[1:], s, t, root)
+    second.append(([ids[0]], 90, 97, root))
+    card, host = Slasher(), Slasher(device="cpu")
+    before = S.span_update_grid.launches
+    outs = [(card.on_attestations_bulk(w), host.on_attestations_bulk(w))
+            for w in windows]
+    assert S.span_update_grid.launches == before + len(windows)
+    for got, want in outs:
+        assert _hits(got) == _hits(want)
+    kinds = sorted(h.kind for hits in outs[1][0] for h in hits)
+    assert kinds == ["double_vote"] * 3 + ["surround_vote"]
+    assert _dump(card.db) == _dump(host.db)

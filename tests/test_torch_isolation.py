@@ -15,6 +15,7 @@ import torch
 import grandine_tpu_torch
 from grandine_tpu_torch.gpu.bls import TorchBlsBackend
 from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
+from grandine_tpu_torch.gpu.spans import SpanPlane
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "grandine_tpu_torch")
@@ -42,8 +43,13 @@ def test_importing_every_module_loads_no_jax():
             "grandine_tpu_torch.runtime.verify_scheduler",
             "grandine_tpu_torch.runtime.flight",
             "grandine_tpu_torch.testing.chaos",
-            "grandine_tpu_torch.tracing"} <= set(mods)
-    assert len(mods) >= 34
+            "grandine_tpu_torch.tracing",
+            "grandine_tpu_torch.slasher", "grandine_tpu_torch.gpu.spans",
+            "grandine_tpu_torch.storage.database",
+            "grandine_tpu_torch.spec_tests.snappy",
+            "grandine_tpu_torch.native",
+            "grandine_tpu_torch.testing.slasher"} <= set(mods)
+    assert len(mods) >= 48
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -83,7 +89,8 @@ def test_sources_import_nothing_of_the_reference(rel):
         assert not bad, f"{f} imports {bad}"
 
 
-@pytest.mark.parametrize("cls", [TorchBlsBackend, DevicePubkeyRegistry])
+@pytest.mark.parametrize("cls", [TorchBlsBackend, DevicePubkeyRegistry,
+                                 SpanPlane])
 def test_entry_points_default_to_cuda(cls):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
