@@ -111,7 +111,27 @@ Phases (any failure raises and exits non-zero):
      and the CPU twin and the device slasher's split (checks, grid
      assembly, copy to the card, kernel by CUDA events, copy back, scatter
      and below-grid walk, record puts, flush);
- 11. each kernel again against its plain version, exactly, on the
+ 11. the multi-device verify plane (gpu.mesh.VerifyMesh over D virtual
+     shards of the card, the counterpart of XLA's virtual devices), each
+     case valid, forged and swapped, every verdict the single-device
+     route's and the host anchor's (host_check_item on the changed sets):
+     the block's 131 sets (distinct roots: the flat route, b = 256)
+     through TorchVerifier over TorchBlsBackend(mesh=) at D = 2 and 4;
+     the window's 1,048 sets through runtime.replay.dispatch_window at
+     D = 4; the 512-signer sync slot (grouped: bm = 4, bk = 512) at D = 2
+     and 4 and the 1,562-signer unaggregated slot (bm = 16, bk = 256) at
+     D = 4 through multi_verify — one rlc_partial launch a shard on each
+     sharded run; the gossip slot's 192 aggregates through
+     dispatch_bls_compressed over the 50,000-key registry sharded over
+     D = 4 (16,384 rows a shard, 4 g1_decompress launches, rows equal to
+     the single registry's); the block through VerifyScheduler(mesh=)'s
+     block lane via DeferredVerifier over that registry, devices == 4 on
+     its flight records, 0 device faults, degraded batches, breaker skips
+     and retries; over distinct cards (VerifyMesh.build()) when there are
+     several; every rlc_partial launch against its plain version, exactly;
+     the sharded and single-device routes timed on the same triples, p50
+     of 3 in turns, host clock and the kernels' span by CUDA events;
+ 12. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
      members; the block's 131 sets; the window's 1,048 sets; the
      partition passes; both grouped shapes; the full bucket and a lane
@@ -328,6 +348,12 @@ class OpModel:
                          if ns else 0)
                       + self.final_exp)
         return total
+
+    def partial(self, spans):
+        """rlc_partial at the function's least work: each Fp12 term's
+        conversion, nf − 1 Fp12 products a group and its output
+        conversion."""
+        return sum(nf * 12 + max(0, nf - 1) * self.fp12 + 12 for nf in spans)
 
     def group_sum(self, counts, k=1):
         """g1_group_sum (k = 1) or g2_group_sum (k = 2) at the function's
@@ -2058,6 +2084,313 @@ def slasher_phase(c):
 # --- main ------------------------------------------------------------------
 
 
+def mesh_phase(c):
+    """The multi-device verify plane over D virtual shards of the card
+    (`VerifyMesh([card] * D)`, the counterpart of XLA's virtual devices):
+    every route against the single-device route's verdict and the host
+    anchor's (`host_check_item` on the changed sets), valid, forged and
+    swapped; one `rlc_partial` launch a shard on the sharded routes, every
+    one held against its plain version; the sharded and single-device
+    routes timed on the same triples. Returns the timed rows of
+    `rlc_partial`."""
+    torch, np, A, B = c.torch, c.np, c.A, c.B
+    from grandine_tpu_torch.consensus.verifier import SignatureInvalid
+    from grandine_tpu_torch.gpu.mesh import VerifyMesh
+    from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
+    from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
+    from grandine_tpu_torch.runtime.replay import dispatch_window
+    from grandine_tpu_torch.runtime.verify_scheduler import (
+        DeferredVerifier, VerifyItem, VerifyScheduler, host_check_item)
+
+    t_phase = time.perf_counter()
+    meshes = {d: VerifyMesh([c.dev] * d) for d in (2, 4)}
+
+    def mesh_backend(d, warm):
+        be = B.TorchBlsBackend(mesh=meshes[d])
+        # the roots' hash-to-G2 points cached, as for the single-device
+        # backend it shares them with: both routes run warm
+        be._h2c_cache = warm._h2c_cache
+        return be
+
+    anchors = {}
+
+    def anchor(key, items):
+        """The host anchor's verdict on the sets a variant changed (every
+        other set is the valid batch's)."""
+        if key not in anchors:
+            anchors[key] = all(host_check_item(it) for it in items)
+        return anchors[key]
+
+    def held(where, d, variant, got, single, host, launches, partials,
+             sums=None):
+        log(f"mesh {where}, D = {d}, {variant}: sharded -> {got}, "
+            f"single-device -> {single}, host anchor -> {host}; launches "
+            f"rlc_partial {launches['rlc_partial']}, g1_group_sum "
+            f"{launches['g1_group_sum']}, rlc_finish "
+            f"{launches['rlc_finish']} {c.at}")
+        if not (got is single is host is (variant == "valid")):
+            fail(f"mesh {where}, D = {d}, {variant}: verdicts disagree")
+        if launches["rlc_partial"] != partials or launches["rlc_finish"] < 1 \
+                or (sums is not None and launches["g1_group_sum"] != sums):
+            fail(f"mesh {where}, D = {d}, {variant}: launches {launches}")
+
+    def set_item(sets, i):
+        root, mem, sig = sets[i]
+        return VerifyItem(root, sig, public_keys=[c.keys[j] for j in mem])
+
+    def two_swapped(sets, i, j):
+        return c.with_set(c.with_set(sets, i, root=sets[j][0]), j,
+                          root=sets[i][0])
+
+    n = len(c.block)
+    blk = {"valid": (c.block, [0, n - 1]),
+           "forged": (c.with_set(c.block, 5, sig=c.block[6][2]), [5]),
+           "swapped": (two_swapped(c.block, 7, 8), [7, 8])}
+    k5, k2 = 5 * n + 3, 2 * n + 7
+    win = {"valid": (c.window, [0, len(c.window) - 1]),
+           "forged": (c.with_set(c.window, k5, sig=c.window[k5 + 1][2]),
+                      [k5]),
+           "swapped": (two_swapped(c.window, k2, k2 + 1), [k2, k2 + 1])}
+    recorded = {}  # (where, d) -> the first rlc_partial call of its run
+    with Recorder(B, "rlc_partial", lambda *a: a) as rec:
+
+        def run(where, d, fn):
+            c.count_reset()
+            first = len(rec.calls)
+            got = fn()
+            torch.cuda.synchronize()
+            recorded.setdefault((where, d), (rec.calls[first:],
+                                             c.count_read()))
+            return got, c.count_read()
+
+        # the block through TorchVerifier (flat: b = 256)
+        for d in (2, 4):
+            be = mesh_backend(d, c.block_backend)
+            for variant, (sets, changed) in blk.items():
+                got, launches = run("block", d,
+                                    lambda: c.block_verdict(sets, be))
+                held("block through TorchVerifier", d, variant, got,
+                     c.block_single[variant],
+                     anchor(("block", variant),
+                            [set_item(sets, i) for i in changed]),
+                     launches, d, 0)
+        # the replay window through dispatch_window (flat: b = 2,048)
+        wbe = mesh_backend(4, c.window_backend)
+        for variant, (sets, changed) in win.items():
+            items = c.window_items(sets)
+            got, launches = run("window", 4,
+                                lambda: dispatch_window(items, wbe)())
+            single = c.window_single.get(variant)
+            if single is None:
+                single = dispatch_window(items, c.window_backend)()
+            held("window through dispatch_window", 4, variant, got, single,
+                 anchor(("window", variant),
+                        [set_item(sets, i) for i in changed]),
+                 launches, 4, 0)
+        # the grouped shapes: sync slot (bm = 4, bk = 512), unaggregated
+        # slot (bm = 16, bk = 256)
+        for where, (ml, sl, kl), ds in (
+                ("sync slot", c.sync, (2, 4)),
+                ("unaggregated slot", c.unagg, (4,))):
+            groups = B.message_groups(ml)
+            bm = B._bucket(len(groups))
+            bk = B._bucket(max(map(len, groups.values())))
+            forged = list(sl)
+            forged[7] = sl[8]
+            other = next((i for i, m in enumerate(ml) if m != ml[3]), 4)
+            swapped = list(sl)
+            swapped[3], swapped[other] = sl[other], sl[3]
+            variants = {"valid": (sl, [0, len(sl) - 1]),
+                        "forged": (forged, [7]),
+                        "swapped": (swapped, [3, other])}
+            singles = {v: c.backend.multi_verify(ml, s_l, kl)
+                       for v, (s_l, _) in variants.items()}
+            for d in ds:
+                be = mesh_backend(d, c.backend)
+                for variant, (s_l, changed) in variants.items():
+                    got, launches = run(where, d,
+                                        lambda: be.multi_verify(ml, s_l, kl))
+                    held(f"{where} (grouped, bm = {bm}, bk = {bk})", d,
+                         variant, got, singles[variant],
+                         anchor((where, variant), [VerifyItem(
+                             ml[i], s_l[i].to_bytes(), public_keys=[kl[i]])
+                             for i in changed]), launches, d, d + 1)
+        # the gossip slot over the registry sharded 4 ways
+        reg4 = DevicePubkeyRegistry(mesh=meshes[4])
+        c.count_reset()
+        t0 = time.perf_counter()
+        reg4.ensure(c.pubkeys)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        rx, ry, _ = c.registry.arrays()
+        sx, sy, _ = reg4.arrays()
+        log(f"mesh registry: {reg4.count} keys at capacity {reg4.capacity}, "
+            f"{len(sx)} blocks of {sx[0].shape[0]} rows, ingested by "
+            f"{c.count_read()['g1_decompress']} g1_decompress launches in "
+            f"{ingest_s * 1e3:.1f} ms (host prep included) {c.at}")
+        if c.count_read()["g1_decompress"] != 4 or not (
+                torch.equal(torch.cat(sx), rx)
+                and torch.equal(torch.cat(sy), ry)):
+            fail("the sharded registry's rows are not the single registry's")
+        gbe = mesh_backend(4, c.backend)
+        m_aggs = len(c.msgs)
+        half = m_aggs // 2  # another committee's aggregate
+        gsw = list(c.sigs)
+        gsw[0], gsw[half] = c.sigs[half], c.sigs[0]
+        gossip = {"valid": (c.sigs, [0, m_aggs - 1]),
+                  "forged": ([c.sigs[1]] + c.sigs[1:], [0]),
+                  "swapped": (gsw, [0, half])}
+
+        def gossip_items(sl):
+            return [VerifyItem(m, s, member_indices=mm,
+                               pubkey_columns=c.pubkeys)
+                    for m, s, mm in zip(c.msgs, sl, c.members)]
+
+        for variant, (sl, changed) in gossip.items():
+            items = gossip_items(sl)
+            got, launches = run("gossip", 4, lambda: dispatch_bls_compressed(
+                items, gbe, reg4)())
+            single = dispatch_bls_compressed(items, c.backend, c.registry)()
+            held("gossip slot through dispatch_bls_compressed, registry "
+                 "sharded", 4, variant, got, single,
+                 anchor(("gossip", variant), [items[i] for i in changed]),
+                 launches, 0, 0)
+            if launches["aggregate_rlc_scale"] != 1:
+                fail(f"mesh gossip: launches {launches}")
+        # the block through the scheduler's block lane over the sharded
+        # registry (the lanes reach the fast-aggregate seams)
+        metrics = MetricsRecorder()
+        sched = VerifyScheduler(mesh=meshes[4], registry=reg4,
+                                metrics=metrics,
+                                settle_timeout_s=c.settle_timeout_s)
+        try:
+            for variant, (sets, changed) in blk.items():
+                v = DeferredVerifier(sched, "block", timeout=120.0)
+                for root, mem, sig in sets:
+                    v.verify_aggregate_indexed(root, sig, mem, c.pubkeys)
+                c.count_reset()
+                try:
+                    v.finish()
+                    got = True
+                except SignatureInvalid:
+                    got = False
+                held("block through VerifyScheduler(mesh=) and "
+                     "DeferredVerifier, registry sharded", 4, variant, got,
+                     c.block_single[variant], anchors[("block", variant)],
+                     c.count_read(), 0)
+            recs = sched.flight.snapshot(lane="block", kind="batch")
+            st = sched.stats["block"]
+            degraded = metrics.count("verify_lane_batches", "block",
+                                     "degraded")
+            log(f"mesh scheduler: {len(recs)} block-lane flight records, "
+                f"devices {sorted({r.devices for r in recs})}; device "
+                f"faults {st['device_faults']}, degraded {degraded}, "
+                f"breaker skips {st['breaker_skips']}, retries "
+                f"{st['retries']}")
+            if not recs or any(r.devices != 4 for r in recs) or degraded or \
+                    st["device_faults"] or st["retries"] or \
+                    st["breaker_skips"]:
+                fail("mesh scheduler: flight records or faults")
+        finally:
+            sched.stop()
+        if torch.cuda.device_count() > 1:  # distinct cards, where present
+            cards = B.TorchBlsBackend(mesh=VerifyMesh.build())
+            forged = list(c.block_sig_objs)
+            forged[5] = forged[6]
+            for variant, s_l in (("valid", c.block_sig_objs),
+                                 ("forged", forged)):
+                got, launches = run("cards", cards.mesh.device_count,
+                                    lambda: cards.multi_verify(
+                                        c.block_msgs, s_l, c.agg_keys))
+                held(f"block over {cards.mesh.device_count} distinct cards",
+                     cards.mesh.device_count, variant, got,
+                     c.block_single[variant], anchors[("block", variant)],
+                     launches, cards.mesh.device_count, 0)
+
+        # the routes timed on the same triples: p50 of 3 each, in turns,
+        # host clock to the settled verdict, CUDA events around the
+        # enqueue for the kernels' span on the card
+        win_msgs = [root for root, _, _ in c.window]
+        win_sigs = [A.Signature(A.g2_from_bytes(sig, subgroup_check=False))
+                    for _, _, sig in c.window]
+        win_keys = [c.keys[mem[0]] if len(mem) == 1 else
+                    A.PublicKey.aggregate([c.keys[i] for i in mem])
+                    for _, mem, _ in c.window]
+        cases = [(f"block, {n} sets", d,
+                  lambda be: be.multi_verify_async(
+                      c.block_msgs, c.block_sig_objs, c.agg_keys),
+                  c.block_backend) for d in (2, 4)]
+        cases.append((f"window, {len(c.window)} sets", 4,
+                      lambda be: be.multi_verify_async(win_msgs, win_sigs,
+                                                       win_keys),
+                      c.window_backend))
+        cases += [(f"sync slot, {len(c.sync[0])} signers", d,
+                   lambda be: be.multi_verify_async(*c.sync), c.backend)
+                  for d in (2, 4)]
+        cases.append((f"unaggregated slot, {len(c.unagg[0])} signers", 4,
+                      lambda be: be.multi_verify_async(*c.unagg), c.backend))
+        items = gossip_items(c.sigs)
+        for where, d, fn, single_be in cases + [(
+                f"gossip slot, {m_aggs} aggregates, registry sharded", 4,
+                None, c.backend)]:
+            be = mesh_backend(d, single_be)
+            runs = {"single": [], "sharded": []}
+            for route in ("single", "sharded", "sharded", "single",
+                          "single", "sharded"):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                if fn is None:
+                    settle = dispatch_bls_compressed(
+                        items, single_be if route == "single" else be,
+                        c.registry if route == "single" else reg4)
+                else:
+                    settle = fn(single_be if route == "single" else be)
+                e1.record()
+                if settle() is not True:
+                    fail(f"mesh timing {where}: a valid batch failed")
+                total = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                runs[route].append((total, e0.elapsed_time(e1)))
+            p50 = {r: (statistics.median(t for t, _ in v) * 1e3,
+                       statistics.median(k for _, k in v))
+                   for r, v in runs.items()}
+            log(f"mesh time {where}, D = {d}: sharded p50 "
+                f"{p50['sharded'][0]:.1f} ms (kernels' span "
+                f"{p50['sharded'][1]:.1f} ms), single-device p50 "
+                f"{p50['single'][0]:.1f} ms (span {p50['single'][1]:.1f} "
+                f"ms); sharded / single {p50['sharded'][0] / p50['single'][0]:.3f}"
+                f" — virtual shards on one card: launch and gather "
+                f"overhead, not scaling {c.at}")
+    worst = 0
+    for ops_r, out in rec.calls:
+        for g, r in zip(out, B.rlc_partial_plain(*ops_r)):
+            diff = (g.cpu().to(torch.int64) - r.cpu().to(torch.int64)).abs()
+            worst = max(worst, int(diff.max()) if diff.numel() else 0)
+    log(f"check rlc_partial (every launch of the mesh phase, "
+        f"{len(rec.calls)} launches): max |kernel - plain| = {worst} (exact "
+        f"required) {c.at}")
+    if worst:
+        fail("rlc_partial disagrees with its plain version")
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+
+    rows = []
+    for where in ("window", "block"):
+        calls, launches = recorded[(where, 4)]
+        ops_r = calls[0][0]
+        nf, ns = ops_r[0].shape[0], ops_r[2].shape[0]
+        rows.append(("rlc_partial", f"{where}, D = 4, shard 0: {nf} sets",
+                     lambda a=ops_r: B.rlc_partial(*a),
+                     lambda a=ops_r: B.rlc_partial_plain(*a), 5,
+                     c.ops.partial([nf]),
+                     nf * (576 + 1) + 2 * ns + 16 + 576 + 1,
+                     "grandine_tpu/tpu/bls.py:1175", launches["rlc_partial"],
+                     "rlc_partial"))
+    return rows
+
+
 def main() -> None:
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "grandine_tpu_torch", "csrc")):
@@ -2122,6 +2455,7 @@ def main() -> None:
         "g1_scalar_mul": GK.g1_scalar_mul,
         "ed25519_verify": GE.ed25519_verify,
         "span_update_grid": GS.span_update_grid,
+        "rlc_partial": B.rlc_partial,
     }
 
     # 1. build ---------------------------------------------------------------
@@ -2394,11 +2728,14 @@ def main() -> None:
                                     root=block[7][0]),
         "infinity_key": with_set(block, 9, mem=[0, N_VALIDATORS - 1]),
     }
+    block_single = {"valid": ok}  # the mesh phase's single-device verdicts
     for name, sets in bad_block.items():
         v = block_verdict(sets, block_backend)
         log(f"bad block {name} (TorchVerifier): -> {v}")
         if v is not False:
             fail(f"bad block {name} verified")
+        block_single[{"forged_set": "forged",
+                      "swapped_message": "swapped"}.get(name, name)] = v
     outside = with_set(block, 10, sig=nonsub)
     v = TorchVerifier(block_backend)
     feed(v, outside)
@@ -2413,6 +2750,7 @@ def main() -> None:
                 for _, mem, _ in block]
     block_msgs = [root for root, _, _ in block]
     block_sigs = [sig for _, _, sig in block]
+    block_sig_objs = [A.Signature.from_bytes(s) for s in block_sigs]
     v = block_backend.multi_verify_compressed(block_msgs, block_sigs, agg_keys)
     log(f"block through multi_verify_compressed: -> {v}")
     if v is not True:
@@ -2432,8 +2770,7 @@ def main() -> None:
     rows_of = {i: N_VALIDATORS + j for j, i in enumerate(agg_rows)}
     indices = [rows_of.get(i, mem[0]) for i, (_, mem, _) in enumerate(block)]
     v = block_backend.multi_verify_indexed(
-        block_msgs, [A.Signature.from_bytes(s) for s in block_sigs], indices,
-        block_registry)
+        block_msgs, block_sig_objs, indices, block_registry)
     log(f"block through multi_verify_indexed ({block_registry.count} rows, "
         f"{len(agg_rows)} of them the block's aggregate keys): -> {v}")
     if v is not True:
@@ -2524,6 +2861,7 @@ def main() -> None:
     if v is not True:
         fail("the valid window did not verify")
     window_cold = (host_s, wait_s)
+    window_single = {"valid": v}  # the mesh phase's single-device verdicts
     k5 = 5 * n_sets + 3
     bad_window = {
         "forged_set_in_block_5": with_set(window, k5, sig=window[k5 + 1][2]),
@@ -2531,6 +2869,8 @@ def main() -> None:
     }
     for name, sets in bad_window.items():
         v = timed_window(window_items(sets), window_backend)[0]
+        if name == "forged_set_in_block_5":
+            window_single["forged"] = v
         log(f"bad window {name}: -> {v}")
         if v is not False:
             fail(f"bad window {name} verified")
@@ -2713,13 +3053,14 @@ def main() -> None:
     route_rows = {}
     for where, (ml, sl, kl) in shapes.items():
         groups = B.message_groups(ml)
-        sx_k, sy_k = backend._keys_src([pk.point for pk in kl])
+        fx_k, fy_k = B.g1_affine_words([pk.point for pk in kl])
+        sx_k, sy_k = backend._up(fx_k), backend._up(fy_k)
         idx_k = np.arange(len(ml), dtype=np.int32)
         runs = {
             "flat": lambda: backend._flat_multi_verify_async(
                 ml, sl, sx_k, sy_k, idx_k, DST_SIGNATURE, bits, False),
             "grouped": lambda: backend._grouped_multi_verify_async(
-                groups, sl, sx_k, sy_k, DST_SIGNATURE, bits),
+                groups, sl, fx_k, fy_k, DST_SIGNATURE, bits),
         }
         rows_r = {"flat": [], "grouped": []}
         for name in ["flat", "grouped"] + ["flat", "grouped", "grouped",
@@ -2789,7 +3130,21 @@ def main() -> None:
         n_validators=SLASHER_VALIDATORS, targets=SLASHER_TARGETS,
         span_edge=SPAN_EDGE, count_reset=count_reset, count_read=count_read))
 
-    # 11. timings -------------------------------------------------------------
+    # 11. the multi-device verify plane over virtual shards of the card -----
+    mesh_rows = mesh_phase(SimpleNamespace(
+        torch=torch, np=np, A=A, B=B, dev=dev, at=at, ops=ops, keys=keys,
+        pubkeys=pubkeys, block=block, with_set=with_set,
+        block_verdict=block_verdict, block_single=block_single,
+        window=window, window_items=window_items,
+        window_single=window_single, block_backend=block_backend,
+        window_backend=window_backend, backend=backend, registry=registry,
+        msgs=msgs, sigs=sigs, members=members,
+        sync=(s_msgs, s_sigs, s_keys), unagg=(u_msgs, u_sigs, u_keys),
+        block_msgs=block_msgs, block_sig_objs=block_sig_objs,
+        agg_keys=agg_keys, count_reset=count_reset, count_read=count_read,
+        settle_timeout_s=30.0))
+
+    # 12. timings -------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -2960,7 +3315,7 @@ def main() -> None:
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
             "rlc_finish"))
-    timed += sign_rows + kzg_rows + sched_rows + slasher_rows
+    timed += sign_rows + kzg_rows + sched_rows + slasher_rows + mesh_rows
     for where, (ops_r, verdict_r) in finish_records:
         if where in timed_finish:
             continue

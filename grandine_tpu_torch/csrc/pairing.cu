@@ -1,5 +1,6 @@
-// The pairing kernels of the BLS verify path: miller_loop_pairs and
-// rlc_finish.
+// The pairing kernels of the BLS verify path: miller_loop_pairs,
+// rlc_finish and rlc_partial (the per-shard product of the sharded
+// verify programs).
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -59,6 +60,37 @@ __global__ void miller_loop_pairs_kernel(const uint32_t* rpk,
 static_assert(2 * sizeof(jac<fp2>) <= sizeof(fp12),
               "the partial sums share the product tree's buffer");
 
+// The product half that rlc_finish and rlc_partial share. Thread t of T
+// multiplies the Fp12 terms f[i], i = f0 + t, f0 + t + T, ... < f1, into
+// `prod` and ORs their agg_inf flags into `inf`.
+__device__ __forceinline__ void fp12_strided_product(
+    fp12& prod, bool& inf, const uint32_t* f, const bool* agg_inf, int f0,
+    int f1, int t, int T, const uint32_t* K) {
+  fp12 fi;
+  for (int i = f0 + t; i < f1; i += T) {
+    fi = fp12_in(f + 144 * (size_t)i, K);
+    fp12_mul_to(prod, prod, fi);
+    inf = inf || agg_inf[i];
+  }
+}
+
+// Every thread of a T-thread block: its partial product into fpart[t] (T
+// Fp12 slots of shared memory), then a tree fold into fpart[0]; returns
+// `flag` ORed over the block. The fold multiplies position t + s into t
+// for s = pow2ceil(T)/2 ... 1 (t + s < T): a tree padded with ones.
+__device__ bool fp12_tree_product(fp12* fpart, const fp12& prod, bool flag,
+                                  int t, int T) {
+  fpart[t] = prod;
+  flag = __syncthreads_or(flag);
+  int s = 1;
+  while (2 * s < T) s *= 2;
+  for (; s > 0; s >>= 1) {
+    if (t < s && t + s < T) fp12_mul_to(fpart[t], fpart[t], fpart[t + s]);
+    __syncthreads();
+  }
+  return flag;
+}
+
 __global__ void __launch_bounds__(BLS_TREE)
 rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
                   const bool* agg_inf, const bool* sig_ok,
@@ -88,21 +120,10 @@ rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
     acc = point_add_complete(acc, q, K);
     bad = bad || !sig_ok[i] || !sig_sub[i];
   }
-  for (int i = f0 + t; i < f1; i += T) {
-    fi = fp12_in(f + 144 * (size_t)i, K);
-    fp12_mul_to(prod, prod, fi);
-    bad = bad || agg_inf[i];
-  }
+  fp12_strided_product(prod, bad, f, agg_inf, f0, f1, t, T, K);
   if (!per_thread) {
     fp12* fpart = reinterpret_cast<fp12*>(dyn_smem);
-    fpart[t] = prod;
-    bad = __syncthreads_or(bad);
-    int s = 1;
-    while (2 * s < T) s *= 2;
-    for (; s > 0; s >>= 1) {
-      if (t < s && t + s < T) fp12_mul_to(fpart[t], fpart[t], fpart[t + s]);
-      __syncthreads();
-    }
+    bad = fp12_tree_product(fpart, prod, bad, t, T);
     // the product stays in fpart[0]; the T partial sums (half an Fp12
     // each) fit in the T - 1 slots after it
     jac<fp2>* part = reinterpret_cast<jac<fp2>*>(fpart + 1);
@@ -126,6 +147,51 @@ rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
   fp12_mul_to(prod, prod, fi);
   final_exponentiation(prod, K);
   verdict[g] = (fp12_is_one(prod, K) && !bad) ? 1 : 0;
+}
+
+// --- rlc_partial: one block, or one thread, per group ------------------------
+//
+// Group g owns the Fp12 terms f[f_off[g] .. f_off[g+1]) with their agg_inf
+// flags and the signature rows [s_off[g] .. s_off[g+1]) with sig_ok and
+// sig_sub. It writes the product of its f terms (canonical words; one for
+// an empty group) to out[g] and one flag byte: bit 0 any agg_inf of its
+// terms, bit 1 every signature row decoded and in G2. No Miller loop of
+// the signature sum and no final exponentiation: that is the finish's,
+// once, over every shard's partial. Every group launches (an empty one
+// writes one), with rlc_finish's geometry: per_thread == 1 runs one group
+// a thread, else one block of blockDim threads a group with the product
+// tree over dynamic shared memory.
+
+__global__ void __launch_bounds__(BLS_TREE)
+rlc_partial_kernel(const uint32_t* f, const bool* agg_inf,
+                   const bool* sig_ok, const bool* sig_sub,
+                   const int32_t* f_off, const int32_t* s_off, int n_groups,
+                   int per_thread, uint32_t* out, uint8_t* flags,
+                   const uint32_t* K) {
+  extern __shared__ uint4 dyn_smem[];
+  int t = 0, T = 1, g;
+  if (per_thread) {
+    g = blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= n_groups) return;
+  } else {
+    g = blockIdx.x;
+    t = threadIdx.x;
+    T = blockDim.x;
+  }
+  int f0 = f_off[g], f1 = f_off[g + 1], s0 = s_off[g], s1 = s_off[g + 1];
+  bool inf = false, bad = false;
+  for (int i = s0 + t; i < s1; i += T) bad = bad || !sig_ok[i] || !sig_sub[i];
+  fp12 prod = fp12_one(K);
+  fp12_strided_product(prod, inf, f, agg_inf, f0, f1, t, T, K);
+  if (!per_thread) {
+    fp12* fpart = reinterpret_cast<fp12*>(dyn_smem);
+    inf = fp12_tree_product(fpart, prod, inf, t, T);
+    bad = __syncthreads_or(bad);
+    if (t != 0) return;
+    prod = fpart[0];
+  }
+  fp12_out(out + 144 * (size_t)g, prod);
+  flags[g] = (uint8_t)((inf ? 1 : 0) | (bad ? 0 : 2));
 }
 
 // --- C interface --------------------------------------------------------
@@ -173,6 +239,29 @@ int bls_rlc_finish(const uint32_t* f, const uint32_t* rsig,
     rlc_finish_kernel<<<blocks, block, smem, stream>>>(
         f, rsig, agg_inf, sig_ok, sig_sub, f_off, s_off, live, n_live,
         threads <= 1, verdict, K);
+  return (int)cudaGetLastError();
+}
+
+static cudaError_t partial_allow_smem() {
+  return cudaFuncSetAttribute(rlc_partial_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(BLS_TREE * sizeof(fp12)));
+}
+
+int bls_rlc_partial(const uint32_t* f, const bool* agg_inf,
+                    const bool* sig_ok, const bool* sig_sub,
+                    const int32_t* f_off, const int32_t* s_off, int n_groups,
+                    int threads, uint32_t* out, uint8_t* flags,
+                    const uint32_t* K, cudaStream_t stream) {
+  int blocks, block;
+  size_t smem;
+  finish_geometry(n_groups, threads, &blocks, &block, &smem);
+  cudaError_t err = partial_allow_smem();
+  if (err != cudaSuccess) return (int)err;
+  if (blocks > 0)
+    rlc_partial_kernel<<<blocks, block, smem, stream>>>(
+        f, agg_inf, sig_ok, sig_sub, f_off, s_off, n_groups, threads <= 1,
+        out, flags, K);
   return (int)cudaGetLastError();
 }
 

@@ -41,7 +41,8 @@ LIBRARIES = {
     "aggregate.cu": ("aggregate_rlc_scale",),
     "multi.cu": ("multi_rlc_scale", "g1_group_sum", "g2_group_sum",
                  "group_sum_geometry"),
-    "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry"),
+    "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry",
+                   "rlc_partial"),
     "sign.cu": ("batch_sign", "batch_sign_geometry"),
     "kzg.cu": ("g1_scalar_mul",),
     "ed25519.cu": ("ed25519_verify",),
@@ -81,6 +82,7 @@ SIGNATURES = {
     "group_sum_geometry": [_i, _i, _vp],
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
     "rlc_finish_geometry": [_i, _i, _vp],
+    "rlc_partial": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
 }
 
 _lock = threading.Lock()

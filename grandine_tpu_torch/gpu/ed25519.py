@@ -294,7 +294,9 @@ class Ed25519Backend:
     not build raises here, not in the first settle). `rng` is the
     randbits source of the RLC coefficients (tests inject a deterministic
     one); `metrics`, when given, counts kernel calls as the reference
-    does; `tracer` opens a "device_dispatch" span around each launch."""
+    does; `tracer` opens a "device_dispatch" span around each launch.
+    `mesh` is accepted and unused, as in the reference
+    (grandine_tpu/tpu/ed25519.py:339): a batch runs on one device."""
 
     ASYNC_SEAM = ("verify_batch_async",)
     #: beyond this the 2n + 1-row MSM leaves the 128-row bucket: prepare
@@ -303,7 +305,7 @@ class Ed25519Backend:
     MAX_ITEMS = 63
 
     def __init__(self, device=None, *, metrics=None, tracer=None,
-                 lane: str = "ed25519", rng=None) -> None:
+                 lane: str = "ed25519", mesh=None, rng=None) -> None:
         self.device = B.resolve_device(device)
         if self.device.type == "cuda":
             from grandine_tpu_torch.gpu import _build

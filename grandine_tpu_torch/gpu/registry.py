@@ -16,6 +16,15 @@ Capacity grows in powers of two (at least MIN_CAPACITY). Rows are never
 the identity: `_raw_rows` rejects the infinity encoding before a row
 enters the mirror; a wire-well-formed row that does not decompress
 (corrupted input) comes back zeroed from the kernel, fail-closed.
+
+With a `VerifyMesh` (gpu/mesh.py) the rows are row-sharded as in the
+reference (tpu/registry.py:84-94, `P("batch")`): D contiguous blocks of
+capacity/D rows, block d on shard d's device, ingested there by its own
+`g1_decompress` launch; capacity is at least the next power of two of D.
+`rows_for` is the counterpart of XLA's cross-shard gather: the rows a
+batch names, gathered on the shards that own them and copied to the
+dispatch device. Stats, `count`, `capacity` and `public_keys` are those
+of one device.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from grandine_tpu_torch.crypto.constants import P
 from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import limbs as L
 from grandine_tpu_torch.gpu.bls import g1_decompress_rows, resolve_device
+from grandine_tpu_torch.gpu.mesh import resolve_mesh
 
 MIN_CAPACITY = 16
 
@@ -45,17 +55,24 @@ def _next_pow2(n: int, lo: int = MIN_CAPACITY) -> int:
 
 class DevicePubkeyRegistry:
     """The validator set's G1 pubkeys, on `device` (default CUDA; raises
-    without one unless the caller passes device="cpu")."""
+    without one unless the caller passes device="cpu"), or row-sharded
+    over `mesh` (its first device is then the registry's device; a
+    conflicting `device` raises)."""
 
-    def __init__(self, device=None) -> None:
+    def __init__(self, device=None, mesh=None) -> None:
+        self.mesh, device = resolve_mesh(mesh, device)
         self.device = resolve_device(device)
+        #: the devices of the row blocks, in row order
+        self._devices = (self.mesh.devices if self.mesh is not None
+                         else (self.device,))
         self._lock = threading.RLock()
         self._pubkeys: "Optional[tuple]" = None
         self._stale = False
         self._hraw: "Optional[np.ndarray]" = None
         self._hcount = 0
-        self._x: "Optional[torch.Tensor]" = None
-        self._y: "Optional[torch.Tensor]" = None
+        #: the row blocks, one a device of `_devices` (None: empty)
+        self._x: "Optional[list]" = None
+        self._y: "Optional[list]" = None
         self.stats = {"hits": 0, "misses": 0, "appends": 0, "refreshes": 0,
                       "uploaded_bytes": 0, "host_grows": 0}
 
@@ -69,12 +86,49 @@ class DevicePubkeyRegistry:
     @property
     def capacity(self) -> int:
         with self._lock:
-            return 0 if self._x is None else int(self._x.shape[0])
+            return 0 if self._x is None else sum(int(b.shape[0])
+                                                 for b in self._x)
 
     def arrays(self):
-        """(x, y, count): rows past `count` are zero padding."""
+        """(x, y, count): rows past `count` are zero padding. With a mesh,
+        x and y are tuples of the D row blocks (`rows_for` gathers a
+        batch's rows from them)."""
         with self._lock:
-            return self._x, self._y, self.count
+            if self._x is None:
+                return None, None, self.count
+            if self.mesh is None:
+                return self._x[0], self._y[0], self.count
+            return tuple(self._x), tuple(self._y), self.count
+
+    def rows_for(self, indices, device):
+        """The gather source and index plane of a batch naming registry
+        rows `indices` (an int array, values below `capacity`): (src_x,
+        src_y, idx) with row idx[…] of src the key of indices[…]. On one
+        device the registry's own arrays and the indices. With a mesh the
+        batch's distinct rows, each gathered on the shard that owns it and
+        copied to `device` (stream-ordered), in a compact source, with idx
+        remapped onto it."""
+        idx = np.asarray(indices).astype(np.int64)
+        with self._lock:
+            xs, ys = self._x, self._y
+        if self.mesh is None:
+            return xs[0], ys[0], idx.astype(np.int32)
+        rows, inv = np.unique(idx.reshape(-1), return_inverse=True)
+        per = int(xs[0].shape[0])
+        cuts = np.searchsorted(rows, np.arange(len(xs) + 1) * per)
+        parts_x, parts_y = [], []
+        for d in range(len(xs)):
+            lo, hi = cuts[d], cuts[d + 1]
+            if lo == hi:
+                continue
+            (local,) = self.mesh.put([rows[lo:hi] - d * per], d)
+            parts_x.append(xs[d][local].to(device, non_blocking=True))
+            parts_y.append(ys[d][local].to(device, non_blocking=True))
+        if not parts_x:
+            empty = torch.zeros((0, 12), dtype=torch.int32, device=device)
+            return empty, empty, inv.reshape(idx.shape).astype(np.int32)
+        return (torch.cat(parts_x), torch.cat(parts_y),
+                inv.reshape(idx.shape).astype(np.int32))
 
     def public_keys(self, indices: "Sequence[int]"):
         """PublicKeys for `indices` from the host mirror (registry keys
@@ -139,8 +193,8 @@ class DevicePubkeyRegistry:
                 raise A.BlsError("identity pubkey can not enter the registry")
         return rows
 
-    def _decompress_dev(self, raw: np.ndarray):
-        x, y, *_ = g1_decompress_rows(raw, self.device)
+    def _decompress_dev(self, raw: np.ndarray, device):
+        x, y, *_ = g1_decompress_rows(raw, device)
         return x, y
 
     def _host_reserve(self, rows: int) -> None:
@@ -163,9 +217,16 @@ class DevicePubkeyRegistry:
         if end <= self.capacity:
             pad = np.zeros((_next_pow2(n_new), 48), np.uint8)
             pad[:n_new] = raw
-            dx, dy = self._decompress_dev(pad)
-            self._x[start:end] = dx[:n_new]  # in place: O(new) rows
-            self._y[start:end] = dy[:n_new]
+            dx, dy = self._decompress_dev(pad, self.device)
+            per = int(self._x[0].shape[0])
+            for d in range(start // per, (end - 1) // per + 1):
+                # in place: O(new) rows, each into the block that owns it
+                lo, hi = max(start, d * per), min(end, (d + 1) * per)
+                dev = self._devices[d]
+                self._x[d][lo - d * per: hi - d * per] = dx[
+                    lo - start: hi - start].to(dev)
+                self._y[d][lo - d * per: hi - d * per] = dy[
+                    lo - start: hi - start].to(dev)
             self.stats["uploaded_bytes"] += int(pad.nbytes)
         else:
             self._upload_full(end)
@@ -185,20 +246,28 @@ class DevicePubkeyRegistry:
 
     def _upload_full(self, count: int) -> None:
         """(Re)build the device arrays at power-of-two capacity from the
-        host mirror: one raw upload, one g1_decompress launch."""
-        cap = _next_pow2(count)
+        host mirror: one raw upload and one g1_decompress launch a row
+        block, on the block's device."""
+        cap = max(_next_pow2(count), _next_pow2(len(self._devices)))
+        per = cap // len(self._devices)
         praw = np.zeros((cap, 48), np.uint8)
         praw[:count] = self._hraw[:count]
-        self._x, self._y = self._decompress_dev(praw)
+        blocks = [self._decompress_dev(praw[d * per: (d + 1) * per], dev)
+                  for d, dev in enumerate(self._devices)]
+        self._x = [x for x, _ in blocks]
+        self._y = [y for _, y in blocks]
         self.stats["uploaded_bytes"] += int(praw.nbytes)
 
 
 def registry_from_jax_arrays(reg_x, reg_y, count: int, raw_rows,
-                             device=None) -> DevicePubkeyRegistry:
+                             device=None, mesh=None) -> DevicePubkeyRegistry:
     """A port registry equivalent to a JAX DevicePubkeyRegistry's state,
     given as numpy: reg_x/reg_y (cap, 26) int32 Montgomery digits (signed
     15-bit, R = 2³⁹⁰) and the (≥count, 48) raw mirror. Digits → canonical
-    int → canonical words; no decompression is redone."""
+    int → canonical words; no decompression is redone. With `mesh` (a JAX
+    registry's `mesh=` state, read back whole) the rows land as the D
+    blocks of a sharded port registry; the mesh must divide the
+    capacity."""
     reg_x = np.asarray(reg_x)
     reg_y = np.asarray(reg_y)
     r_inv = pow(1 << 390, -1, P)
@@ -208,17 +277,24 @@ def registry_from_jax_arrays(reg_x, reg_y, count: int, raw_rows,
         return v * r_inv % P
 
     cap = reg_x.shape[0]
-    xs = L.ints_to_words([canon(r) for r in reg_x])
-    ys = L.ints_to_words([canon(r) for r in reg_y])
-    reg = DevicePubkeyRegistry(device=device)
+    xs = L.ints_to_words([canon(r) for r in reg_x]).reshape(cap, 12)
+    ys = L.ints_to_words([canon(r) for r in reg_y]).reshape(cap, 12)
+    reg = DevicePubkeyRegistry(device=device, mesh=mesh)
+    n_blocks = len(reg._devices)
+    if cap % n_blocks:
+        raise ValueError(f"a capacity of {cap} rows does not shard over "
+                         f"{n_blocks} devices")
+    per = cap // n_blocks
     raw = np.ascontiguousarray(np.asarray(raw_rows, np.uint8)[:count])
     with reg._lock:
         reg._pubkeys = tuple(bytes(r) for r in raw)
         reg._host_reserve(count)
         reg._hraw[:count] = raw
         reg._hcount = count
-        reg._x = torch.from_numpy(xs.reshape(cap, 12).copy()).to(reg.device)
-        reg._y = torch.from_numpy(ys.reshape(cap, 12).copy()).to(reg.device)
+        reg._x = [torch.from_numpy(xs[d * per: (d + 1) * per].copy()).to(dev)
+                  for d, dev in enumerate(reg._devices)]
+        reg._y = [torch.from_numpy(ys[d * per: (d + 1) * per].copy()).to(dev)
+                  for d, dev in enumerate(reg._devices)]
     return reg
 
 

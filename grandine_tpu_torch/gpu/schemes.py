@@ -238,7 +238,8 @@ class SigningDescriptor:
 
 class Scheme:
     """One registered signature scheme: its curve parameters
-    (documentation); `make_backend(metrics=, tracer=, lane=, device=)`;
+    (documentation); `make_backend(metrics=, tracer=, lane=, device=,
+    mesh=)`;
     `host_check(item)` → bool, the scalar twin of the device verdict (the
     bisection leaf and the degradation target, agreeing with the device on
     every input); `device_dispatch(sched, lane, backend, items)` → a
@@ -304,10 +305,10 @@ def names() -> "list[str]":
 
 
 def _make_bls_backend(*, metrics=None, tracer=None, lane="attestation",
-                      device=None):
+                      device=None, mesh=None):
     from grandine_tpu_torch.gpu.bls import TorchBlsBackend
 
-    return TorchBlsBackend(device=device)
+    return TorchBlsBackend(device=device, mesh=mesh)
 
 
 def _host_check_bls(item) -> bool:
@@ -392,11 +393,11 @@ register(Scheme(
 
 
 def _make_ed25519_backend(*, metrics=None, tracer=None, lane="ed25519",
-                          device=None):
+                          device=None, mesh=None):
     from grandine_tpu_torch.gpu.ed25519 import Ed25519Backend
 
     return Ed25519Backend(device=device, metrics=metrics, tracer=tracer,
-                          lane=lane)
+                          lane=lane, mesh=mesh)
 
 
 def _host_check_ed25519(item) -> bool:
@@ -439,7 +440,7 @@ register(Scheme(
 
 
 def _make_blob_kzg_backend(*, metrics=None, tracer=None, lane="blob_kzg",
-                           device=None):
+                           device=None, mesh=None):
     """`KzgDeviceBackend` (kzg/eip4844.py): host prep (commitment and proof
     decoding, Fiat–Shamir challenges, barycentric evaluations, the batch
     challenge's powers) in `prepare`, then ONE device pass in
@@ -451,7 +452,7 @@ def _make_blob_kzg_backend(*, metrics=None, tracer=None, lane="blob_kzg",
     from grandine_tpu_torch.kzg.eip4844 import KzgDeviceBackend
 
     return KzgDeviceBackend(device=device, metrics=metrics, tracer=tracer,
-                            lane=lane)
+                            lane=lane, mesh=mesh)
 
 
 def _host_check_blob_kzg(item) -> bool:

@@ -396,7 +396,9 @@ class KzgDeviceBackend:
     card; on CUDA the constructor loads the kernel library (a kernel that
     does not build raises here). `metrics` is kept for the scheduler's
     factory signature and feeds no sink yet; `tracer`, when given, opens a
-    "device_dispatch" span around each launch, as in the reference."""
+    "device_dispatch" span around each launch, as in the reference.
+    `mesh` is accepted and unused, as in the reference
+    (grandine_tpu/kzg/eip4844.py:422): a batch runs on one device."""
 
     ASYNC_SEAM = ("verify_blobs_async",)
     #: bucket cap: batches pad into {4, 8}; anything larger degrades to the
@@ -404,7 +406,7 @@ class KzgDeviceBackend:
     MAX_ITEMS = 8
 
     def __init__(self, device=None, *, metrics=None, tracer=None,
-                 lane: str = "blob_kzg") -> None:
+                 lane: str = "blob_kzg", mesh=None) -> None:
         self.device = B.resolve_device(device)
         if self.device.type == "cuda":
             from grandine_tpu_torch.gpu import _build

@@ -32,10 +32,17 @@ funnels into one multi-lane batch-verification plane.
 (consensus/verifier.py), so block signature batches reach the `block`
 lane unchanged.
 
+An injected `VerifyMesh` (gpu/mesh.py; a 1-device mesh is no mesh)
+reaches every lane's backend, and every flight record carries its width
+as `devices`. The lanes' BLS dispatch goes through the fast-aggregate
+seams, so a mesh scheduler reads a row-sharded registry through its
+gather; callers of `multi_verify_async` (TorchVerifier, the replay
+window, the release gate) reach the sharded programs.
+
 Differences from the reference: `device=` is passed to every lane's
-backend (CUDA unless "cpu" is given; a lane's backend raises at
-construction with no card); there is no mesh (`devices` is 1 on every
-record); `metrics=` is fed where the reference feeds it but may be None
+backend (CUDA unless "cpu" is given, the mesh's first device with a
+mesh; a lane's backend raises at construction with no card); `metrics=`
+is fed where the reference feeds it but may be None
 (the port has no metrics sink yet); `tracer=` defaults to the port's null
 tracer (grandine_tpu_torch/tracing.py).
 """
@@ -55,6 +62,7 @@ from grandine_tpu_torch.consensus.verifier import (
 from grandine_tpu_torch.crypto import bls as _A
 from grandine_tpu_torch.gpu import schemes as _schemes
 from grandine_tpu_torch.gpu.bls import resolve_device
+from grandine_tpu_torch.gpu.mesh import resolve_mesh
 from grandine_tpu_torch.runtime import flight as _flight
 from grandine_tpu_torch.runtime import health as _health
 from grandine_tpu_torch.runtime import isolation as _isolation
@@ -265,6 +273,7 @@ class VerifyScheduler:
         settle_timeout_s: float = 5.0,
         flight: "Optional[_flight.FlightRecorder]" = None,
         device=None,
+        mesh=None,
         reputation: "Optional[_isolation.ReputationTable]" = None,
         use_isolation: bool = True,
         merge_window_s: float = 0.0,
@@ -297,10 +306,13 @@ class VerifyScheduler:
         #: when computing its effective flush due-time, so a near-
         #: deadline head still has a chance to dispatch AND settle
         self.deadline_margin_s = float(deadline_margin_s)
+        #: injected VerifyMesh threaded into every lane's backend; None /
+        #: 1-device collapses to the single-device plane
+        self.mesh, device = resolve_mesh(mesh, device)
         #: the device every lane's backend runs on: CUDA unless "cpu" is
-        #: passed, and with no card the scheduler raises here rather than
-        #: degrade every batch to the host (an injected backend, or
-        #: use_device=False, needs no card)
+        #: passed (the mesh's first device with a mesh), and with no card
+        #: the scheduler raises here rather than degrade every batch to the
+        #: host (an injected backend, or use_device=False, needs no card)
         self.device = (resolve_device(device)
                        if use_device and backend is None else device)
         #: flight recorder — always-on (a private ring when none is
@@ -708,7 +720,7 @@ class VerifyScheduler:
                 scheme = self._scheme_for(lane)
                 backend = self._backends[lane.name] = scheme.make_backend(
                     metrics=self.metrics, tracer=self.tracer, lane=lane.name,
-                    device=self.device,
+                    device=self.device, mesh=self.mesh,
                 )
                 # the first real canary-capable backend also answers
                 # probes for HALF_OPEN re-promotion (injected backends
@@ -806,7 +818,9 @@ class VerifyScheduler:
                 seg_lane.name, "", len(seg_items),
                 queue_wait_s=now - seg_jobs[0].ticket.enqueued_at,
                 breaker_state=self.health.state if self.use_device else "",
-                devices=1,
+                devices=(
+                    self.mesh.device_count if self.mesh is not None else 1
+                ),
                 quarantined=(seg_lane.name == "quarantine"),
             )
             if seg_lane.name == "quarantine" and self.metrics is not None:

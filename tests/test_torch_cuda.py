@@ -352,6 +352,81 @@ def test_grouped_and_partition_on_the_card(signer_sets, cuda_device):
     assert loc.passes["host"] == 0
 
 
+@pytest.mark.parametrize("spans", [[192], [9, 0], [0, 1, 8, 9], [0, 0],
+                                   [(0, 1, 8, 9)[i % 4] for i in range(63)]
+                                   + [192]])
+def test_rlc_partial_matches_plain(world, cuda_device, spans):
+    """1, 2, 4 and 64 groups of spans 0, 1, 8, 9 and 192 (one thread a
+    group up to PER_THREAD_SPAN, one block a group past it), the ∞
+    aggregate's terms among them and one signature row outside G2; a
+    call whose groups are all empty writes Fp12 one."""
+    _, fin = _valid_terms(world, cuda_device)
+    f, _, agg_inf, ok, sub = fin
+    total = sum(spans)
+    tile = torch.arange(total, device=cuda_device) % 6
+    args = [t[tile].contiguous() for t in (f, agg_inf, ok, sub)]
+    if total > 3:
+        args[3][3] = False
+    off = np.concatenate([[0], np.cumsum(spans)])
+    before = B.rlc_partial.launches
+    got = B.rlc_partial(*args, off, off)
+    _equal(got, B.rlc_partial_plain(*args, off, off))
+    assert B.rlc_partial.launches == before + 1
+    assert got[0].shape == (len(spans), 2, 3, 2, 12)
+
+
+@pytest.fixture(scope="module")
+def flat_sets():
+    """13 single-signer sets over distinct messages (bucket 16)."""
+    host = random.Random(0xC0DD)
+    sks = [host.randrange(1, R) for _ in range(13)]
+    msgs = [bytes([0x90 + i]) * 32 for i in range(13)]
+    sigs = [A.Signature(hash_to_g2(m, DST_SIGNATURE).mul(k))
+            for m, k in zip(msgs, sks)]
+    return msgs, sigs, [A.PublicKey(G1.mul(k)) for k in sks]
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_routes_on_the_card(flat_sets, signer_sets, cuda_device, d):
+    """The flat (13 sets: shard 3 of 4 holds one real row) and grouped (8
+    sets over 2 messages) routes over D virtual shards of the card give
+    the single-device route's verdicts, valid, forged and swapped, with
+    one rlc_partial launch a shard, each equal to its plain version."""
+    from grandine_tpu_torch.gpu.mesh import VerifyMesh
+
+    mesh = VerifyMesh([cuda_device] * d)
+    single = B.TorchBlsBackend(device=cuda_device)
+    sharded = B.TorchBlsBackend(mesh=mesh)
+    partial = B.rlc_partial
+
+    class Recording:  # the wrapper counts through its module global
+        calls = []
+        launches = property(lambda self: partial.launches,
+                            lambda self, n: setattr(partial, "launches", n))
+
+        def __call__(self, *a):
+            out = partial(*a)
+            self.calls.append((a, out))
+            return out
+
+    for msgs, sigs, pks in (flat_sets, signer_sets):
+        forged = list(sigs)
+        forged[1] = sigs[2]
+        swapped = [sigs[3], sigs[0], sigs[2], sigs[1]] + list(sigs[4:])
+        for variant in (sigs, forged, swapped):
+            want = single.multi_verify(msgs, variant, pks)
+            B.rlc_partial = Recording()
+            try:
+                before = partial.launches
+                got = sharded.multi_verify(msgs, variant, pks)
+            finally:
+                B.rlc_partial = partial
+            assert got is want is (variant is sigs)
+            assert partial.launches == before + d
+    for a, out in Recording.calls:
+        _equal(out, B.rlc_partial_plain(*a))
+
+
 # --- the signing path ----------------------------------------------------------
 
 

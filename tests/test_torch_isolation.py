@@ -48,8 +48,9 @@ def test_importing_every_module_loads_no_jax():
             "grandine_tpu_torch.storage.database",
             "grandine_tpu_torch.spec_tests.snappy",
             "grandine_tpu_torch.native",
-            "grandine_tpu_torch.testing.slasher"} <= set(mods)
-    assert len(mods) >= 48
+            "grandine_tpu_torch.testing.slasher",
+            "grandine_tpu_torch.gpu.mesh"} <= set(mods)
+    assert len(mods) >= 49
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -126,6 +127,27 @@ def test_verify_scheduler_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         Ed25519Backend()
     sched = VerifyScheduler(device="cpu")
+    try:
+        assert sched.device.type == "cpu"
+    finally:
+        sched.stop()
+
+
+def test_verify_mesh_defaults_to_cuda():
+    from grandine_tpu_torch.gpu.mesh import VerifyMesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VerifyMesh.build()
+    # a mesh of virtual CPU shards is the caller asking for the CPU
+    cpu = VerifyMesh.build(2, platform="cpu")
+    assert {d.type for d in cpu.devices} == {"cpu"}
+    assert TorchBlsBackend(mesh=cpu).device.type == "cpu"
+    assert DevicePubkeyRegistry(mesh=cpu).device.type == "cpu"
+    from grandine_tpu_torch.runtime.verify_scheduler import VerifyScheduler
+
+    sched = VerifyScheduler(mesh=cpu)
     try:
         assert sched.device.type == "cpu"
     finally:
