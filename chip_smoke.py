@@ -131,13 +131,37 @@ Phases (any failure raises and exits non-zero):
      several; every rlc_partial launch against its plain version, exactly;
      the sharded and single-device routes timed on the same triples, p50
      of 3 in turns, host clock and the kernels' span by CUDA events;
- 12. each kernel again against its plain version, exactly, on the
+ 12. the reference-only programs at full width (gpu.bls counterparts of
+     the JAX package's multi_verify_kernel, grouped_multi_verify_kernel,
+     aggregate_fast_verify_kernel and grouped_multi_verify_msm_packed_kernel,
+     and the port's entry.py): batch_pubkey, g1_normalize, g2_normalize and
+     unpack_words against their plain versions on edge rows (sk = 1, r − 1,
+     r − 2, both sign masks; ∞ rows, Z = ±1, a non-residue Z; N = 1; 0,
+     p − 1, p, 2^384 − 1, 2^390 − 1, bits above 390); the registry's first
+     16,384 keys derived on the card (batch_pubkey, g1_normalize,
+     compression) byte for byte the registry's; g2_normalize reading back
+     the full signing bucket, equal to and timed against the host
+     inversion; multi_verify_kernel on the block (bucket 256) and the
+     window (2,048) — valid, forged, swapped and a signature outside G2
+     (the algebra's verdict: no g2_subgroup_check launched);
+     grouped_multi_verify_kernel and, packed with check_subgroup, the
+     packed program on the unaggregated slot (bm = 16, bk = 256) and the
+     sync slot; aggregate_fast_verify_kernel on the gossip slot's 192
+     aggregates with uploaded members (bm = bk = 256) and the [P, −P]
+     committee in a real slot (False) and a padding slot (neutral) — every
+     verdict the host anchor's and the ported route's, every run's
+     launches counted; entry() and dryrun_multichip(2), (4) over virtual
+     shards; every launch of the four new kernels against its plain
+     version, exactly;
+ 13. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
      members; the block's 131 sets; the window's 1,048 sets; the
      partition passes; both grouped shapes; the full bucket and a lane
      batch of batch_sign; the three aggregate calls; the KZG batch verify
      and setup MSM; ed25519_verify at B = 8, 32, 128; span_update_grid at
-     a window's 50,000 rows), and its time there (CUDA events, after
+     a window's 50,000 rows; the registry keys of batch_pubkey and
+     g1_normalize, the signing readback of g2_normalize, a packed plane of
+     unpack_words), and its time there (CUDA events, after
      warm-up) beside the plain version's, its bound and, where one stock
      PyTorch computation gives the same function, that one's;
      end-to-end p50 of the gossip batch, the block and the window with
@@ -378,6 +402,33 @@ class OpModel:
                 total += (4 + 4 + 3 * (128 * self.dbl1
                                        + self.madd1 * max(0, adds - 1)) + 6)
         return total
+
+    def pubkey(self, k):
+        """batch_pubkey at the function's least work: per key the
+        endomorphism (2 products), 128 doublings and popcount(k0) +
+        popcount(k1) − 1 mixed additions in G1, the output conversion; the
+        branchless ladder's discarded candidates are not charged."""
+        total = 0
+        for row in k:
+            adds = sum(bin(int(w) & 0xFFFFFFFF).count("1")
+                       for w in row.reshape(-1))
+            total += 2 + 128 * self.dbl1 + self.madd1 * max(0, adds - 1) + 3
+        return total
+
+    def normalize(self, live, k=1):
+        """g1_normalize (k = 1) or g2_normalize (k = 2) over `live` rows
+        that are not ∞ (an ∞ row needs no inversion): the conversions in
+        and out, one inversion (in G2 through the norm: two squares and
+        two products around it), z⁻², z⁻³ and the two products."""
+        per = (3 + self.inv + 4 + 2) if k == 1 else (
+            6 + (2 + self.inv + 2) + 4 * self.fp2 + 4)
+        return live * per
+
+    @staticmethod
+    def unpack(n):
+        """unpack_words over n coordinates: three Montgomery products in
+        (lo·R², hi·R², ·R²) and one out."""
+        return 4 * n
 
 
 def bound_ms(fp_muls, nbytes, sms, clock_hz, muls_per=MULS_PER_FP_MUL):
@@ -952,6 +1003,7 @@ def signing_phase(c):
         fail("full bucket: a signature differs from its anchor")
     if full_launches != 1:
         fail(f"full bucket: {full_launches} batch_sign launches (1 expected)")
+    c.full_sign = full_rec.calls[0]  # (operands, Jacobian words): phase 12
 
     # timing rows: (name, where, kernel, plain, reps, Fp products, bytes,
     # replaces, launches on its path, kernels-line entry). The lane batch,
@@ -2391,6 +2443,459 @@ def mesh_phase(c):
     return rows
 
 
+def reference_phase(c):
+    """The reference-only programs at the main path's full width. The four
+    new kernels against their plain versions on edge rows; `batch_pubkey`
+    and `g1_normalize` deriving the registry's first 16,384 keys (the last
+    one r − sk₀), compressed byte for byte as the registry's; `g2_normalize`
+    reading back the full signing bucket beside today's host inversion;
+    `multi_verify_kernel` (the block, the window, a signature outside G2),
+    `grouped_multi_verify_kernel` (the unaggregated and sync slots),
+    `aggregate_fast_verify_kernel` (the gossip slot, the [P, −P] committee
+    in a real and a padding slot) and `grouped_multi_verify_msm_packed_kernel`
+    (both grouped shapes, check_subgroup on) — valid, forged and swapped,
+    each verdict the host anchor's and the ported route's, each run's
+    launches counted; the port's `entry()` and `dryrun_multichip(2)` / `(4)`.
+    Every launch of the four new kernels is held against its plain version.
+    Returns the timed rows of the new kernels."""
+    from contextlib import ExitStack
+
+    torch, np, A, B, P, R = c.torch, c.np, c.A, c.B, c.P, c.R
+    from grandine_tpu_torch import entry as E
+    from grandine_tpu_torch.crypto.curves import G1, g2_infinity
+    from grandine_tpu_torch.crypto.fields import Fq2
+    from grandine_tpu_torch.gpu import limbs as L
+    from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
+    from grandine_tpu_torch.runtime.verify_scheduler import (
+        VerifyItem, host_check_item)
+
+    t_phase = time.perf_counter()
+    dev, at = c.dev, c.at
+    news = ("batch_pubkey", "g1_normalize", "g2_normalize", "unpack_words")
+    notes = {name: [] for name in news}  # where each launch came from
+
+    def up(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    def words(ints, shape):
+        return torch.from_numpy(L.ints_to_words(ints).reshape(shape).copy()
+                                ).to(dev)
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def pairs_for(n):
+        return [B.TorchBlsBackend._rlc_pair(c.bits) for _ in range(n)]
+
+    with ExitStack() as stack:
+        recs = {name: stack.enter_context(Recorder(B, name, lambda *a: a))
+                for name in news}
+
+        # -- edge rows -------------------------------------------------------
+        scalars = [1, R - 1, R - 2] + c.sks[:29]
+        k_e, neg_e = B.sign_scalars_host(scalars)
+        if not (neg_e.any(0).all() and (~neg_e).any(0).all()):
+            fail("edge scalars: a sign mask of a half never set or cleared")
+        pk_e = B.batch_pubkey(*up((k_e, neg_e)))
+        pk_1 = B.batch_pubkey(*up((k_e[:1], neg_e[:1])))
+        notes["batch_pubkey"] += ["edge rows (sk = 1, r − 1, r − 2, both "
+                                  "sign masks), N = 32", "N = 1"]
+        gx, gy = G1.to_affine()
+        lam = 2
+        while pow(lam, (P - 1) // 2, P) != P - 1:
+            lam += 1
+        e1 = words([gx.n, gy.n, 1, gx.n, (P - gy.n) % P, P - 1,
+                    lam * lam * gx.n % P, pow(lam, 3, P) * gy.n % P, lam,
+                    0, 0, 0], (4, 3, 12))
+        xy1, inf1 = B.g1_normalize(torch.cat([pk_e, e1]))
+        one1 = B.g1_normalize(e1[2:3])[0]
+        notes["g1_normalize"] += ["edge rows (32 ladder outputs, Z = 1, "
+                                  "Z = −1, Z a non-residue, ∞), N = 36",
+                                  "N = 1 (Z a non-residue)"]
+        host = [G1.mul(s).to_affine() for s in scalars[:3]]
+        g_words = L.ints_to_words([gx.n, gy.n]).reshape(2, 12)
+        if (inf1.tolist() != [False] * 35 + [True]
+                or xy1[35].abs().sum().item()
+                or any(L.words_to_ints(xy1[i]) != [h[0].n, h[1].n]
+                       for i, h in enumerate(host))
+                or not all(np.array_equal(x.cpu().numpy(), g_words)
+                           for x in (xy1[32], xy1[33], xy1[34], one1[0]))):
+            fail("g1_normalize edge rows: masks, ∞ words or affine points")
+        hx, hy = c.h_of[c.msgs[0]].to_affine()
+        lam2 = Fq2.from_ints(1, 0)
+        while True:  # λ ∈ Fp2 a non-residue: its norm one in Fp
+            lam2 = lam2 + Fq2.from_ints(0, 1)
+            norm = (lam2.c0.n ** 2 + lam2.c1.n ** 2) % P
+            if pow(norm, (P - 1) // 2, P) == P - 1:
+                break
+        nx, ny = lam2 * lam2 * hx, lam2 * lam2 * lam2 * hy
+        e2 = words([hx.c0.n, hx.c1.n, hy.c0.n, hy.c1.n, 1, 0,
+                    hx.c0.n, hx.c1.n, (P - hy.c0.n) % P, (P - hy.c1.n) % P,
+                    P - 1, 0, nx.c0.n, nx.c1.n, ny.c0.n, ny.c1.n,
+                    lam2.c0.n, lam2.c1.n] + [0] * 6, (4, 3, 2, 12))
+        sign_ops, sign_words = c.full_sign
+        xy2, inf2 = B.g2_normalize(torch.cat([sign_words[:28], e2]))
+        one2 = B.g2_normalize(e2[2:3])[0]
+        notes["g2_normalize"] += ["edge rows (28 signatures, Z = 1, Z = −1, "
+                                  "Z a non-residue of Fp2, ∞), N = 32",
+                                  "N = 1 (Z a non-residue)"]
+        h_words = L.ints_to_words([hx.c0.n, hx.c1.n, hy.c0.n, hy.c1.n]
+                                  ).reshape(2, 2, 12)
+        if (inf2.tolist() != [False] * 31 + [True]
+                or xy2[31].abs().sum().item()
+                or not all(np.array_equal(x.cpu().numpy(), h_words)
+                           for x in (xy2[28], xy2[29], xy2[30], one2[0]))):
+            fail("g2_normalize edge rows: masks, ∞ words or affine points")
+        values = [0, P - 1, P, (1 << 384) - 1, (1 << 390) - 1, (1 << 416) - 1,
+                  ((1 << 26) - 1) << 390, (123 << 395) | 5]
+        w_edge = np.array([[(v >> (32 * j)) & 0xFFFFFFFF for j in range(13)]
+                           for v in values], np.uint32).view(np.int32)
+        got = B.unpack_words(*up((w_edge,)))
+        notes["unpack_words"].append("edge values (0, p − 1, p, 2^384 − 1, "
+                                     "2^390 − 1, bits above 390)")
+        if L.words_to_ints(got) != [(v % (1 << 390)) % P for v in values]:
+            fail("unpack_words edge values")
+        log(f"reference edge rows: batch_pubkey (N = 32, 1), g1_normalize "
+            f"(N = 36, 1), g2_normalize (N = 32, 1), unpack_words (8 values): "
+            f"masks, ∞ rows, Z = ±1 and non-residue Z, reductions as "
+            f"expected {at}")
+
+        # -- keys: the registry's first bucket derived on the card ----------
+        n_keys = B.MAX_BUCKET
+        rows_k = list(range(n_keys - 1)) + [len(c.sks) - 1]  # r − sk₀ last
+        t0 = time.perf_counter()
+        k_k, neg_k = B.sign_scalars_host([c.sks[i] for i in rows_k])
+        glv_s = time.perf_counter() - t0
+        kt, nt = up((k_k, neg_k))
+        torch.cuda.synchronize()
+        ev_p, ev_n = events(), events()
+        t0 = time.perf_counter()
+        ev_p[0].record()
+        pk_words = B.batch_pubkey(kt, nt)
+        ev_p[1].record()
+        ev_n[0].record()
+        pk_xy, pk_inf = B.g1_normalize(pk_words)
+        ev_n[1].record()
+        xy_h, inf_h = pk_xy.cpu(), pk_inf.cpu()
+        card_s = time.perf_counter() - t0
+        notes["batch_pubkey"].append(f"registry keys, N = {n_keys}")
+        notes["g1_normalize"].append(f"registry keys, N = {n_keys}")
+        ints = L.words_to_ints(xy_h)
+        derived = [_compress(ints[2 * i], ints[2 * i + 1], P)
+                   for i in range(n_keys)]
+        same_keys = (not inf_h.any()) and derived == [c.pubkeys[i]
+                                                      for i in rows_k]
+        log(f"keys: batch_pubkey + g1_normalize of the registry's first "
+            f"{n_keys} secret keys (the last r − sk₀): {card_s * 1e3:.1f} ms "
+            f"host clock (upload, kernels, copy of affine words; GLV "
+            f"decomposition {glv_s * 1e3:.1f} ms before it); kernels "
+            f"batch_pubkey {ev_p[0].elapsed_time(ev_p[1]):.3f} ms, "
+            f"g1_normalize {ev_n[0].elapsed_time(ev_n[1]):.3f} ms (CUDA "
+            f"events); compressed, byte for byte the registry's: "
+            f"{same_keys} {at}")
+        if not same_keys:
+            fail("keys derived on the card differ from the registry's")
+
+        # -- readback: the full signing bucket's affine words ----------------
+        n_sig = sign_words.shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts = B.g2_points_from_words(sign_words.cpu().numpy())
+        host_s = time.perf_counter() - t0
+        ev = events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        rb_xy, rb_inf = B.g2_normalize(sign_words)
+        ev[1].record()
+        rb_h, rb_inf_h = rb_xy.cpu().numpy(), rb_inf.cpu().numpy()
+        card_rb = time.perf_counter() - t0
+        notes["g2_normalize"].append(f"the full signing bucket, N = {n_sig}")
+        inf_host = np.array([pt.is_infinity() for pt in pts])
+        want = np.zeros((n_sig, 2, 2, 12), np.int32)
+        live = [pt for pt in pts if not pt.is_infinity()]
+        want[~inf_host] = L.ints_to_words([
+            v for pt in live for v in (pt.x.c0.n, pt.x.c1.n, pt.y.c0.n,
+                                       pt.y.c1.n)]).reshape(-1, 2, 2, 12)
+        same_rb = (np.array_equal(rb_h, want)
+                   and np.array_equal(rb_inf_h, inf_host))
+        log(f"readback of the full signing bucket ({n_sig} signatures): host "
+            f"(copy of Jacobian words + one batched inversion into points, "
+            f"g2_points_from_words) {host_s * 1e3:.1f} ms; card g2_normalize "
+            f"{ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events) + copy of "
+            f"affine words = {card_rb * 1e3:.1f} ms host clock; affine words "
+            f"equal: {same_rb} {at}")
+        if not same_rb:
+            fail("g2_normalize readback differs from the host readback")
+
+        # -- the four verify programs ----------------------------------------
+        nonsub_pt = A.g2_from_bytes(c.nonsub, subgroup_check=False)
+        nonsub_x, nonsub_y, _ = B.g2_affine_words_many([nonsub_pt])
+
+        def run(name, fn, arrays, **kw):
+            """(verdict, launches) of one program run on the card."""
+            c.count_reset()
+            v = fn(*up(arrays), **kw)
+            torch.cuda.synchronize()
+            return bool(v.item()), c.count_read()
+
+        def check(where, variant, got, launches, route, anchor, want,
+                  expect):
+            log(f"program {where}, {variant}: -> {got} (ported route "
+                f"{route}, host anchor {anchor}); launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})} "
+                f"{at}")
+            if not (got is route is anchor is want):
+                fail(f"program {where}, {variant}: verdicts disagree")
+            if {k for k, v in launches.items() if v} != expect or any(
+                    v > 1 for v in launches.values()):
+                fail(f"program {where}, {variant}: launches {launches}")
+
+        def item_of(sets, i):
+            root, mem, sig = sets[i]
+            return VerifyItem(root, sig, public_keys=[c.keys[j] for j in mem])
+
+        flat_kernels = {"multi_rlc_scale", "miller_loop_pairs", "rlc_finish"}
+        win_keys = [c.keys[mem[0]] if len(mem) == 1 else
+                    A.PublicKey.aggregate([c.keys[i] for i in mem])
+                    for _, mem, _ in c.window]
+        for where, sets, keys_l, be in (
+                (f"multi_verify_kernel, block of {len(c.block)} sets",
+                 c.block, c.agg_keys, c.block_backend),
+                (f"multi_verify_kernel, window of {len(c.window)} sets",
+                 c.window, win_keys, c.window_backend)):
+            n = len(sets)
+            b = B._bucket(n)
+            sig_objs = [A.Signature(A.g2_from_bytes(s, subgroup_check=False))
+                        for _, _, s in sets]
+            base = list(E.flat_batch([k.point for k in keys_l],
+                                     [s.point for s in sig_objs],
+                                     [g2_infinity()] * n, pairs_for(n), b))
+            base[6][:n] = np.stack([be._hash_to_g2_words(root, c.dst)[0]
+                                    for root, _, _ in sets])
+            base[7][:n] = False
+            j = 2 * n // 3  # a set of a later block in the window
+            variants = {"valid": ([], [0, n - 1]), "forged": ([(5, 6)], [5]),
+                        "swapped": ([], [j, j + 1])}
+            for variant, (copies, changed) in variants.items():
+                arr = [a.copy() for a in base]
+                sl, ml = list(sig_objs), [root for root, _, _ in sets]
+                v_sets = list(sets)
+                for dst_i, src_i in copies:
+                    arr[3][dst_i], arr[4][dst_i] = arr[3][src_i], arr[4][src_i]
+                    sl[dst_i] = sig_objs[src_i]
+                    v_sets[dst_i] = (sets[dst_i][0], sets[dst_i][1],
+                                     sets[src_i][2])
+                if variant == "swapped":
+                    arr[6][[j, j + 1]] = arr[6][[j + 1, j]]
+                    ml[j], ml[j + 1] = ml[j + 1], ml[j]
+                    v_sets[j] = (sets[j + 1][0],) + sets[j][1:]
+                    v_sets[j + 1] = (sets[j][0],) + sets[j + 1][1:]
+                got, launches = run(where, B.multi_verify_kernel, arr)
+                route = be.multi_verify(ml, sl, keys_l, rng=c.bits)
+                anchor = all(host_check_item(item_of(v_sets, i))
+                             for i in changed)
+                check(where, variant, got, launches, route, anchor,
+                      variant == "valid", flat_kernels)
+            arr = [a.copy() for a in base]
+            arr[3][10], arr[4][10] = nonsub_x[0], nonsub_y[0]
+            got, launches = run(where, B.multi_verify_kernel, arr)
+            sl = list(sig_objs)
+            sl[10] = A.Signature(nonsub_pt)
+            route = be.multi_verify([r for r, _, _ in sets], sl, keys_l,
+                                    rng=c.bits)
+            anchor = host_check_item(VerifyItem(
+                sets[10][0], c.nonsub,
+                public_keys=[c.keys[i] for i in sets[10][1]]))
+            check(where, "signature 10 outside G2 (no membership check: the "
+                  "algebra's verdict)", got, launches, route, anchor, False,
+                  flat_kernels)
+
+        grouped_kernels = flat_kernels | {"g1_group_sum"}
+        packed_kernels = grouped_kernels | {"unpack_words",
+                                            "g2_subgroup_check"}
+        for where, (ml, sl, kl) in (
+                (f"unaggregated slot, {len(c.unagg[0])} signers", c.unagg),
+                (f"sync slot, {len(c.sync[0])} signers", c.sync)):
+            groups = B.message_groups(ml)
+            bm = B._bucket(len(groups))
+            bk = B._bucket(max(map(len, groups.values())))
+            pairs = pairs_for(len(ml))
+            base = E.grouped_batch(
+                [[(kl[i].point, sl[i].point) for i in ix]
+                 for ix in groups.values()],
+                [c.h_of[root] for root in groups],
+                [[pairs[i] for i in ix] for ix in groups.values()], bm, bk)
+            slot = {i: (g, p) for g, ix in enumerate(groups.values())
+                    for p, i in enumerate(ix)}
+            other = next((i for i, m in enumerate(ml) if m != ml[3]), 4)
+            variants = {"valid": ({}, [0, len(ml) - 1]),
+                        "forged": ({7: 8}, [7]),
+                        "swapped": ({3: other, other: 3}, [3, other])}
+            for variant, (take, changed) in variants.items():
+                arr = [a.copy() for a in base]
+                v_sl = list(sl)
+                for dst_i, src_i in take.items():
+                    arr[3][slot[dst_i]] = base[3][slot[src_i]]
+                    arr[4][slot[dst_i]] = base[4][slot[src_i]]
+                    v_sl[dst_i] = sl[src_i]
+                got, launches = run(where, B.grouped_multi_verify_kernel, arr)
+                route = c.backend.multi_verify(ml, v_sl, kl, rng=c.bits)
+                anchor = all(host_check_item(VerifyItem(
+                    ml[i], v_sl[i].to_bytes(), public_keys=[kl[i]]))
+                    for i in changed)
+                tag = f"grouped_multi_verify_kernel, {where} (bm = {bm}, bk = {bk})"
+                check(tag, variant, got, launches, route, anchor,
+                      variant == "valid", grouped_kernels)
+                packed = arr[:3] + [E.packed_signatures(arr[3], arr[4])] + \
+                    arr[5:]
+                got_p, launches = run(where,
+                                      B.grouped_multi_verify_msm_packed_kernel,
+                                      packed, check_subgroup=1)
+                notes["unpack_words"].append(
+                    f"packed program, {where}, {variant}, "
+                    f"{bm * bk * 4} coordinates")
+                check(f"grouped_multi_verify_msm_packed_kernel, {where}, "
+                      f"check_subgroup", variant, got_p, launches, route,
+                      anchor, variant == "valid", packed_kernels)
+            arr = [a.copy() for a in base]
+            arr[3][slot[5]], arr[4][slot[5]] = nonsub_x[0], nonsub_y[0]
+            packed = arr[:3] + [E.packed_signatures(arr[3], arr[4])] + arr[5:]
+            got_p, launches = run(where, B.grouped_multi_verify_msm_packed_kernel,
+                                  packed, check_subgroup=1)
+            notes["unpack_words"].append(f"packed program, {where}, outside G2")
+            v_sl = list(sl)
+            v_sl[5] = A.Signature(nonsub_pt)
+            route = c.backend.multi_verify(ml, v_sl, kl, rng=c.bits)
+            anchor = host_check_item(VerifyItem(ml[5], c.nonsub,
+                                                public_keys=[kl[5]]))
+            check(f"grouped_multi_verify_msm_packed_kernel, {where}, "
+                  f"check_subgroup", "signature 5 outside G2", got_p,
+                  launches, route, anchor, False, packed_kernels)
+
+        # the firehose program: the gossip slot, members uploaded
+        m_aggs = len(c.msgs)
+        # the reference's power-of-two buckets, room for one padding slot
+        bm = B._bucket(m_aggs + 1)
+        bk = B._bucket(max(map(len, c.members)))
+        sig_pts = [A.g2_from_bytes(s, subgroup_check=False) for s in c.sigs]
+        base = list(E.firehose_batch(
+            [[c.keys[i].point for i in mem] for mem in c.members], sig_pts,
+            [c.h_of[m] for m in c.msgs], pairs_for(m_aggs), bm, bk))
+        half = m_aggs // 2
+
+        def gossip_items(sl):
+            return [VerifyItem(m, s, member_indices=mm,
+                               pubkey_columns=c.pubkeys)
+                    for m, s, mm in zip(c.msgs, sl, c.members)]
+
+        where = f"aggregate_fast_verify_kernel, gossip slot, {m_aggs} " \
+                f"aggregates (bm = {bm}, bk = {bk})"
+        fh_kernels = {"aggregate_rlc_scale", "miller_loop_pairs", "rlc_finish"}
+        for variant, take, changed in (("valid", {}, [0, m_aggs - 1]),
+                                       ("forged", {0: 1}, [0]),
+                                       ("swapped", {0: half, half: 0},
+                                        [0, half])):
+            arr = [a.copy() for a in base]
+            v_sl = list(c.sigs)
+            for dst_i, src_i in take.items():
+                arr[4][dst_i], arr[5][dst_i] = base[4][src_i], base[5][src_i]
+                v_sl[dst_i] = c.sigs[src_i]
+            got, launches = run(where, B.aggregate_fast_verify_kernel, arr)
+            items = gossip_items(v_sl)
+            route = dispatch_bls_compressed(items, c.backend, c.registry)()
+            anchor = all(host_check_item(items[i]) for i in changed)
+            check(where, variant, got, launches, route, anchor,
+                  variant == "valid", fh_kernels)
+        # the [P, −P] committee (rows 0 and 49,999) with an ∞ signature in
+        # slot m_aggs: a real slot fails the batch, a padding slot does not
+        pair_x, pair_y = B.g1_affine_words([c.keys[0].point,
+                                            c.keys[len(c.keys) - 1].point])
+        arr = [a.copy() for a in base]
+        arr[0][m_aggs, :2], arr[1][m_aggs, :2] = pair_x, pair_y
+        arr[2][m_aggs, :2] = False
+        arr[7][m_aggs] = c.block_backend._hash_to_g2_words(c.msgs[0],
+                                                            c.dst)[0]
+        arr[8][m_aggs] = False
+        for pad in (False, True):
+            arr[3][m_aggs] = pad
+            got, launches = run(where, B.aggregate_fast_verify_kernel, arr)
+            log(f"program {where}, [P, -P] with an ∞ signature in a "
+                f"{'padding' if pad else 'real'} slot: -> {got} {at}")
+            if got is not pad or {k for k, v in launches.items() if v} != \
+                    fh_kernels:
+                fail(f"the [P, -P] slot (padding {pad}): {got}, {launches}")
+        if c.block_backend.fast_aggregate_verify(
+                c.msgs[0], A.Signature.empty(),
+                [c.keys[0], c.keys[len(c.keys) - 1]]):
+            fail("the ported route verifies the [P, -P] committee")
+
+        # -- the port's entry points -------------------------------------
+        fn, args = E.entry()
+        if fn(*args).tolist() != [1]:
+            fail("entry(): the flagship program rejects its example batch")
+        log(f"entry(): multi_verify_kernel on example_batch(2, 4) -> True "
+            f"{at}")
+        for d in (2, 4):
+            t0 = time.perf_counter()
+            E.dryrun_multichip(d)
+            log(f"dryrun_multichip({d}): {time.perf_counter() - t0:.2f} s, "
+                f"both passes True {at}")
+
+    for name in news:
+        worst = 0
+        plain = getattr(B, name + "_plain")
+        for args, out in recs[name].calls:
+            ref = plain(*args)
+            for g, r in zip(out if isinstance(out, tuple) else (out,),
+                            ref if isinstance(ref, tuple) else (ref,),
+                            strict=True):
+                g64 = g.cpu().to(torch.int64) & 0xFFFFFFFF
+                r64 = r.cpu().to(torch.int64) & 0xFFFFFFFF
+                if g64.shape != r64.shape:
+                    fail(f"{name}: shape {tuple(g64.shape)} vs "
+                         f"{tuple(r64.shape)}")
+                worst = max(worst, int((g64 - r64).abs().max())
+                            if g64.numel() else 0)
+        log(f"check {name} (every launch of phase 12, "
+            f"{len(recs[name].calls)} launches: {'; '.join(notes[name])}): "
+            f"max |kernel - plain| = {worst} (exact required) {at}")
+        if worst or len(recs[name].calls) != len(notes[name]):
+            fail(f"{name}: disagrees with its plain version or launched "
+                 f"{len(recs[name].calls)} times for {len(notes[name])}")
+    log(f"reference phase: {time.perf_counter() - t_phase:.1f} s")
+
+    n_unpack = recs["unpack_words"].calls[1][0]  # the unaggregated slot's
+    return [
+        ("batch_pubkey", f"registry keys, N = {n_keys}",
+         lambda: B.batch_pubkey(kt, nt), lambda: B.batch_pubkey_plain(kt, nt),
+         3, c.ops.pubkey(k_k), n_keys * (32 + 2 + 144),
+         "grandine_tpu/tpu/bls.py:961", len(recs["batch_pubkey"].calls),
+         "batch_pubkey"),
+        ("g1_normalize", f"registry keys, N = {n_keys}",
+         lambda: B.g1_normalize(pk_words),
+         lambda: B.g1_normalize_plain(pk_words), 3,
+         c.ops.normalize(n_keys, 1), n_keys * (144 + 96 + 1),
+         "grandine_tpu/tpu/bls.py:938", len(recs["g1_normalize"].calls),
+         "g1_normalize"),
+        ("g2_normalize", f"signing bucket readback, N = {n_sig}",
+         lambda: B.g2_normalize(sign_words),
+         lambda: B.g2_normalize_plain(sign_words), 3,
+         c.ops.normalize(int((~rb_inf).sum()), 2), n_sig * (288 + 192 + 1),
+         "grandine_tpu/tpu/bls.py:951", len(recs["g2_normalize"].calls),
+         "g2_normalize"),
+        ("unpack_words", f"packed program, unaggregated slot, "
+         f"{n_unpack[0].numel() // 13} coordinates",
+         lambda a=n_unpack: B.unpack_words(*a),
+         lambda a=n_unpack: B.unpack_words_plain(*a), 5,
+         c.ops.unpack(n_unpack[0].numel() // 13),
+         n_unpack[0].numel() // 13 * (52 + 48),
+         "grandine_tpu/tpu/limbs.py:295", len(recs["unpack_words"].calls),
+         "unpack_words"),
+    ]
+
+
 def main() -> None:
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "grandine_tpu_torch", "csrc")):
@@ -2456,6 +2961,10 @@ def main() -> None:
         "ed25519_verify": GE.ed25519_verify,
         "span_update_grid": GS.span_update_grid,
         "rlc_partial": B.rlc_partial,
+        "batch_pubkey": B.batch_pubkey,
+        "g1_normalize": B.g1_normalize,
+        "g2_normalize": B.g2_normalize,
+        "unpack_words": B.unpack_words,
     }
 
     # 1. build ---------------------------------------------------------------
@@ -3088,14 +3597,15 @@ def main() -> None:
     # 7. the signing path: the operator slot through the signing plane,
     # aggregate construction, a chaos round, one full bucket ------------------
     ops = OpModel(P, -X)
-    sign_rows = signing_phase(SimpleNamespace(
+    sign_ctx = SimpleNamespace(
         torch=torch, np=np, A=A, B=B, dev=dev, at=at, sms=sms, R=R,
         dst=DST_SIGNATURE, same=same, ops=ops, sks=sks, keys=keys,
         committees=committees, roots=roots, hpts=hpts, unagg_pts=unagg_pts,
         sync_root=sync_root, sync_members=sync_members, s_pts=s_pts, a0=a0,
         d0=d0, count_reset=count_reset, count_read=count_read,
         sign_rounds=SIGN_ROUNDS, chaos_signers=CHAOS_SIGNERS,
-        full_bucket=B.MAX_BUCKET, settle_timeout_s=5.0))
+        full_bucket=B.MAX_BUCKET, settle_timeout_s=5.0)
+    sign_rows = signing_phase(sign_ctx)
 
     # 8. the blob-KZG plane at full width: the official setup, a block's
     # blobs -------------------------------------------------------------------
@@ -3144,7 +3654,21 @@ def main() -> None:
         agg_keys=agg_keys, count_reset=count_reset, count_read=count_read,
         settle_timeout_s=30.0))
 
-    # 12. timings -------------------------------------------------------------
+    # 12. the reference-only programs at full width, the port's entry -------
+    h_of = dict(zip(roots, hpts))
+    h_of[sync_root] = h_sync
+    reference_rows = reference_phase(SimpleNamespace(
+        torch=torch, np=np, A=A, B=B, P=P, R=R, dev=dev, at=at, ops=ops,
+        dst=DST_SIGNATURE, bits=bits, sks=sks, pubkeys=pubkeys, keys=keys,
+        block=block, window=window, agg_keys=agg_keys,
+        block_backend=block_backend, window_backend=window_backend,
+        backend=backend, registry=registry, msgs=msgs, sigs=sigs,
+        members=members, h_of=h_of, unagg=(u_msgs, u_sigs, u_keys),
+        sync=(s_msgs, s_sigs, s_keys), nonsub=nonsub,
+        full_sign=sign_ctx.full_sign, count_reset=count_reset,
+        count_read=count_read))
+
+    # 13. timings -------------------------------------------------------------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -3315,7 +3839,8 @@ def main() -> None:
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
             "rlc_finish"))
-    timed += sign_rows + kzg_rows + sched_rows + slasher_rows + mesh_rows
+    timed += (sign_rows + kzg_rows + sched_rows + slasher_rows + mesh_rows
+              + reference_rows)
     for where, (ops_r, verdict_r) in finish_records:
         if where in timed_finish:
             continue

@@ -1,6 +1,7 @@
 // Point decompression and subgroup kernels of the BLS verify path:
-// g1_decompress (registry ingest), g2_decompress_subgroup (signature rows)
-// and g2_subgroup_check (uploaded affine signature points).
+// g1_decompress (registry ingest), g2_decompress_subgroup (signature rows),
+// g2_subgroup_check (uploaded affine signature points) and unpack_words
+// (coordinates uploaded in the packed transfer format).
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -10,12 +11,36 @@
 // each kernel replaces in the JAX package, what bounds it on the card and
 // what its design does about that is written beside its Python wrapper
 // (gpu/curve.py, gpu/bls.py, gpu/pairing.py).
+//
+// unpack_row also compiles as plain C++ (no __CUDACC__), so a row can be
+// run on a host against the plain PyTorch version.
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 #include "bls12_381.cuh"
 
 using namespace bls;
 
+#define UNPACK_THREADS 128  // threads a block: one coordinate a thread
+
+// One packed coordinate (13 little-endian words) -> its canonical value:
+// bits 0-389 (the JAX package's 26 limbs of 15 bits, bits 390-415 dropped)
+// as hi 2^384 + lo with hi < 2^6, reduced mod p by Montgomery products as
+// the reference's to_mont_dev reduces it: (lo mod p + hi (2^384 mod p))
+// mod p. Any 390-bit value comes out below p.
+BLS_NI void unpack_row(const uint32_t* w, uint32_t* out, const uint32_t* K) {
+  fp r2 = fp_load(K + 12 * K_R2);
+  fp lo = fp_load(w);
+  fp hi = fp_zero();
+  hi.l[0] = w[12] & 0x3fu;
+  // fp_mul(a, R^2) = a R mod p for any a < 2^384: the Montgomery form of
+  // a mod p; once more for hi R = hi 2^384
+  fp m = fp_add(fp_mul(lo, r2), fp_mul(fp_mul(hi, r2), r2));
+  mont_out(out, m);
+}
+
+#ifdef __CUDACC__
 
 // --- g1_decompress: one thread per 48-byte row -------------------------------
 
@@ -72,6 +97,16 @@ __global__ void g2_subgroup_check_kernel(const uint32_t* sx,
   in_sub[i] = ok;
 }
 
+// --- unpack_words: one thread per packed coordinate -------------------------
+
+__global__ void __launch_bounds__(UNPACK_THREADS)
+unpack_words_kernel(const uint32_t* w, int n, uint32_t* out,
+                    const uint32_t* K) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  unpack_row(w + 13 * (size_t)i, out + 12 * (size_t)i, K);
+}
+
 // --- C interface --------------------------------------------------------
 
 extern "C" {
@@ -103,4 +138,13 @@ int bls_g2_subgroup_check(const uint32_t* sx, const uint32_t* sy,
   return (int)cudaGetLastError();
 }
 
+int bls_unpack_words(const uint32_t* w, int n, uint32_t* out,
+                     const uint32_t* K, cudaStream_t stream) {
+  if (n > 0)
+    unpack_words_kernel<<<(n + UNPACK_THREADS - 1) / UNPACK_THREADS,
+                          UNPACK_THREADS, 0, stream>>>(w, n, out, K);
+  return (int)cudaGetLastError();
+}
+
 }  // extern "C"
+#endif

@@ -1,4 +1,5 @@
-// The signing kernel of the device signing plane: batch_sign.
+// The secret-scalar kernels: batch_sign (the device signing plane) and its
+// G1 twin batch_pubkey.
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -7,7 +8,7 @@
 // launches on the stream it is given and returns cudaGetLastError(). What
 // the kernel replaces in the JAX package, what bounds it on the card and
 // what its design does about that is written beside its Python wrapper
-// (gpu/bls.py batch_sign).
+// (gpu/bls.py batch_sign, batch_pubkey).
 //
 // The secret scalar never steers control flow: every row runs exactly
 // SIGN_BITS steps of one doubling and both mixed additions, and the scalar
@@ -17,8 +18,8 @@
 // reductions, so this is branchless on the scalar, not hardened against
 // physical side channels (the caveat of the JAX kernel it replaces).
 //
-// sign_row also compiles as plain C++ (no __CUDACC__), so the ladder can be
-// run on a host against the plain PyTorch version.
+// sign_row and pubkey_row also compile as plain C++ (no __CUDACC__), so the
+// ladders can be run on a host against the plain PyTorch versions.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -45,10 +46,11 @@ BLS_HD T ct_select(uint32_t mask, const T& a, const T& b) {
 // one slot of a ladder step: st + (bx, by) when the bit is set (the base
 // itself before the first set bit), st otherwise; both candidates are
 // computed every time
-BLS_HD void ladder_slot(jac<fp2>& st, uint32_t& started, uint32_t bit,
-                        const fp2& bx, const fp2& by, const fp2& one) {
-  jac<fp2> added = point_madd_unsafe(st, bx, by);
-  jac<fp2> first;
+template <class F>
+BLS_HD void ladder_slot(jac<F>& st, uint32_t& started, uint32_t bit,
+                        const F& bx, const F& by, const F& one) {
+  jac<F> added = point_madd_unsafe(st, bx, by);
+  jac<F> first;
   first.x = bx;
   first.y = by;
   first.z = one;
@@ -84,6 +86,34 @@ BLS_NI void sign_row(const uint32_t* msg, bool inf, const uint32_t* k,
   mont_out2(out + 48, st.z);
 }
 
+// [±k0 ± k1*lambda] g1 for one row: the G1 twin of sign_row from the
+// generator, g1 = (x, -y) of the table's -g1; k = |k0|, |k1| as 4 + 4
+// little-endian words, neg = their signs; writes the Jacobian result (3 x
+// 12 canonical words).
+BLS_NI void pubkey_row(const uint32_t* k, const bool* neg, uint32_t* out,
+                       const uint32_t* K) {
+  fp qx = fp_load(K + 12 * K_NEG_G1_X);
+  fp qy = fp_neg(fp_load(K + 12 * K_NEG_G1_Y));
+  fp q2x = fp_mul(qx, fp_load(K + 12 * K_G1_BX));
+  fp q2y = fp_mul(qy, fp_load(K + 12 * K_G1_BY));
+  qy = ct_select(0u - (uint32_t)neg[0], fp_neg(qy), qy);
+  q2y = ct_select(0u - (uint32_t)neg[1], fp_neg(q2y), q2y);
+  fp one;
+  f_one(one, K);
+  jac<fp> st = jac_inf<fp>(K);
+  uint32_t started = 0;
+  for (int s = SIGN_BITS - 1; s >= 0; s--) {  // fixed trip count
+    uint32_t b0 = 0u - ((k[s >> 5] >> (s & 31)) & 1u);
+    uint32_t b1 = 0u - ((k[4 + (s >> 5)] >> (s & 31)) & 1u);
+    st = point_double(st);
+    ladder_slot(st, started, b0, qx, qy, one);
+    ladder_slot(st, started, b1, q2x, q2y, one);
+  }
+  mont_out(out, st.x);
+  mont_out(out + 12, st.y);
+  mont_out(out + 24, st.z);
+}
+
 #ifdef __CUDACC__
 // --- batch_sign: one thread per signature, one warp a block -------------------
 
@@ -94,6 +124,16 @@ batch_sign_kernel(const uint32_t* msg, const bool* msg_inf, const uint32_t* k,
   if (i >= n) return;
   sign_row(msg + 48 * (size_t)i, msg_inf[i], k + 8 * (size_t)i, neg + 2 * i,
            out + 72 * (size_t)i, K);
+}
+
+// --- batch_pubkey: one thread per key, one warp a block ---------------------
+
+__global__ void __launch_bounds__(32)
+batch_pubkey_kernel(const uint32_t* k, const bool* neg, int n, uint32_t* out,
+                    const uint32_t* K) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  pubkey_row(k + 8 * (size_t)i, neg + 2 * i, out + 36 * (size_t)i, K);
 }
 
 // --- C interface --------------------------------------------------------
@@ -124,6 +164,15 @@ int bls_batch_sign_geometry(int n, int32_t* geometry, const uint32_t* K,
   geometry[2] = 0;
   geometry[3] = per_sm;
   return (int)err;
+}
+
+int bls_batch_pubkey(const uint32_t* k, const bool* neg, int n, uint32_t* out,
+                     const uint32_t* K, cudaStream_t stream) {
+  // one warp a block, as batch_sign: a full bucket of 16,384 keys is 512
+  // one-warp blocks over every SM
+  if (n > 0)
+    batch_pubkey_kernel<<<(n + 31) / 32, 32, 0, stream>>>(k, neg, n, out, K);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -37,13 +37,14 @@ HEADER = "bls12_381.cuh"
 #: source → the C entries it exports (each `bls_<name>`)
 LIBRARIES = {
     "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
-                      "g2_subgroup_check"),
+                      "g2_subgroup_check", "unpack_words"),
     "aggregate.cu": ("aggregate_rlc_scale",),
     "multi.cu": ("multi_rlc_scale", "g1_group_sum", "g2_group_sum",
                  "group_sum_geometry"),
     "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry",
                    "rlc_partial"),
-    "sign.cu": ("batch_sign", "batch_sign_geometry"),
+    "sign.cu": ("batch_sign", "batch_sign_geometry", "batch_pubkey"),
+    "normalize.cu": ("g1_normalize", "g2_normalize"),
     "kzg.cu": ("g1_scalar_mul",),
     "ed25519.cu": ("ed25519_verify",),
     "spans.cu": ("span_update_grid",),
@@ -83,6 +84,10 @@ SIGNATURES = {
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
     "rlc_finish_geometry": [_i, _i, _vp],
     "rlc_partial": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
+    "batch_pubkey": [_vp, _vp, _i, _vp],
+    "g1_normalize": [_vp, _i, _vp, _vp],
+    "g2_normalize": [_vp, _i, _vp, _vp],
+    "unpack_words": [_vp, _i, _vp],
 }
 
 _lock = threading.Lock()

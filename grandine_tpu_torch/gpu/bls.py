@@ -44,6 +44,14 @@ ladder) — replacing batch_sign_kernel. Aggregate construction
 `g1_group_sum` over groups padded with ∞ — replacing g2_aggregate_kernel
 and g1_aggregate_kernel.
 
+The JAX package's reference-only programs (no runtime caller there;
+`__graft_entry__.entry` runs the flagship one) have their counterparts here
+on the same kernels: `multi_verify_kernel`, `grouped_multi_verify_kernel`,
+`aggregate_fast_verify_kernel` and `grouped_multi_verify_msm_packed_kernel`
+(with `unpack_words` for its packed signature plane), beside
+`batch_pubkey` (the G1 twin of `batch_sign`) and `g1_normalize` /
+`g2_normalize` (Jacobian → affine on the card).
+
 Host prep per batch: the row pack of the wire bytes or the affine
 conversion of the signature points, hash-to-G2 of each distinct message
 (LRU-cached), the RLC pairs and the index plane — no field arithmetic on
@@ -416,6 +424,215 @@ def batch_sign(msg, msg_inf, k, neg):
 batch_sign.launches = 0
 
 
+# --- batch_pubkey -------------------------------------------------------------
+
+
+def batch_pubkey_plain(k, neg):
+    """Plain version of `batch_pubkey`: the G1 twin of `batch_sign_plain`,
+    the 128-bit dual GLV ladder from the generator with the sign masks."""
+    n = k.shape[0]
+    dev = k.device
+    w = k.to(torch.int64) & 0xFFFFFFFF
+    gx, gy = G1.to_affine()
+    out = C.scalar_mul_glv(L.const_fp(gx.n, (n,), dev),
+                           L.const_fp(gy.n, (n,), dev),
+                           torch.zeros((n,), dtype=torch.bool, device=dev),
+                           w[:, 0], w[:, 1], C.g1_endo(dev), C.FP_OPS,
+                           nbits=SIGN_HALF_BITS, neg_lo=neg[:, 0],
+                           neg_hi=neg[:, 1])
+    return C.jac_to_words(out, 1)
+
+
+def batch_pubkey(k, neg):
+    """N public keys [skᵢ]·g1: k (N, 2, 4) int32 the GLV halves |k0|, |k1|
+    of skᵢ as little-endian 32-bit words and neg (N, 2) bool their signs
+    (`sign_scalars_host`). Returns (N, 3, 12) Jacobian words. CUDA kernel
+    `batch_pubkey` (csrc/sign.cu) on CUDA tensors, the plain version on
+    CPU tensors.
+
+    Replaces grandine_tpu/tpu/bls.py batch_pubkey_kernel (:961) with
+    curve.py scalar_mul_glv on FP_OPS. The G1 twin of `batch_sign`: one
+    thread a key, one warp a block, exactly 128 steps of one doubling and
+    both mixed additions from the fixed base g1 and [λ]g1, the bits and
+    the "started" state choosing by mask selects. Bound: operations — 128
+    doublings (7 Fp products) and popcount(k0) + popcount(k1) ≈ 128 mixed
+    additions (11) of the function, ~2,300 Fp products a key (the
+    branchless ladder computes both candidates, ~3,700), against 178
+    bytes a key; each key is one thread's dependent chain, so the kernel
+    is latency-bound on one ladder, and a full bucket (16,384 keys, 512
+    one-warp blocks) fills the card.
+
+    NOTE (as the JAX kernel says): secret scalars live on the card; the
+    kernel is branchless on the scalar (fixed trip count, select-based)
+    but NOT hardened against physical side channels — the field
+    arithmetic's conditional reductions still depend on the data."""
+    n = k.shape[0]
+    if (k.shape != (n, 2, 4) or k.dtype != torch.int32
+            or neg.shape != (n, 2) or neg.dtype != torch.bool):
+        raise ValueError("batch_pubkey: k (N, 2, 4) int32, neg (N, 2) bool")
+    if k.device.type == "cpu":
+        return batch_pubkey_plain(k, neg)
+    from grandine_tpu_torch.gpu import _build
+
+    out = torch.empty((n, 3, 12), dtype=torch.int32, device=k.device)
+    _build.launch("batch_pubkey", k.contiguous(), neg.contiguous(),
+                  ctypes.c_int(n), out)
+    batch_pubkey.launches += 1
+    return out
+
+
+batch_pubkey.launches = 0
+
+
+# --- g1_normalize, g2_normalize -----------------------------------------------
+
+
+def _normalize_plain(points, k: int):
+    """Jacobian words of G1 (k = 1) or G2 (k = 2) → (affine [x, y] words,
+    ∞ mask): z⁻¹ by Fermat (zero for ∞), x·z⁻², y·z⁻³."""
+    X, Y, Z = C.jac_from_words(points, k)
+    if k == 1:
+        zi = L.inv_mod(Z)
+        zi2 = L.montsq(zi)
+        zi3 = L.montmul(zi2, zi)
+        ops = C.FP_OPS
+    else:
+        zi = F.fp2_inv(Z)
+        zi2 = F.fp2_sq(zi)
+        zi3 = F.fp2_mul(zi2, zi)
+        ops = C.FP2_OPS
+    xy = ops.mul_many([X, Y], [zi2, zi3])
+    inf = (points[:, 2] == 0).reshape(points.shape[0], -1).all(-1)
+    return C.jac_to_words(xy, k), inf
+
+
+def g1_normalize_plain(points):
+    """Plain version of `g1_normalize`."""
+    return _normalize_plain(points, 1)
+
+
+def g2_normalize_plain(points):
+    """Plain version of `g2_normalize`."""
+    return _normalize_plain(points, 2)
+
+
+def _normalize_cuda(name, points):
+    from grandine_tpu_torch.gpu import _build
+
+    n = points.shape[0]
+    out = torch.empty((n, 2) + points.shape[2:], dtype=torch.int32,
+                      device=points.device)
+    inf = torch.empty((n,), dtype=torch.bool, device=points.device)
+    _build.launch(name, points.contiguous(), ctypes.c_int(n), out, inf)
+    return out, inf
+
+
+def _normalize_shape(name, points, k: int) -> None:
+    shape = (3, 12) if k == 1 else (3, 2, 12)
+    if points.dim() != 1 + len(shape) or points.shape[1:] != shape \
+            or points.dtype != torch.int32:
+        raise ValueError(f"{name}: points (N, {', '.join(map(str, shape))})"
+                         " int32")
+
+
+def g1_normalize(points):
+    """Jacobian → affine for (N, 3, 12) G1 canonical words: returns (xy
+    (N, 2, 12) affine [x, y] words, inf (N,) bool, Z = 0). An ∞ row comes
+    out as zero words (z⁻¹ = 0), where the reference leaves garbage under
+    its mask, so parity with it is on live rows and masks. CUDA kernel
+    `g1_normalize` (csrc/normalize.cu, the G1 instance of `normalize<F>`)
+    on CUDA tensors, the plain version on CPU tensors.
+
+    Replaces grandine_tpu/tpu/bls.py g1_normalize_kernel (:938). One
+    thread a row: one Fermat inversion (p − 2: 380 squarings and 228
+    products), z⁻², z⁻³ and two products, with the conversions in and out.
+    Bound: operations — ~620 Fp products a row against 241 bytes a row;
+    each row is one thread's dependent chain, so the kernel is
+    latency-bound on one inversion, and a full bucket (16,384 rows, 256
+    blocks of 64) is one wave on 132 SMs. A batched (Montgomery-trick)
+    inversion would cut the products per row threefold."""
+    _normalize_shape("g1_normalize", points, 1)
+    if points.device.type == "cpu":
+        return g1_normalize_plain(points)
+    out = _normalize_cuda("g1_normalize", points)
+    g1_normalize.launches += 1
+    return out
+
+
+g1_normalize.launches = 0
+
+
+def g2_normalize(points):
+    """Jacobian → affine for (N, 3, 2, 12) G2 canonical words: returns (xy
+    (N, 2, 2, 12) affine [x, y] words, inf (N,) bool), ∞ rows as zero
+    words (the reference's are garbage under its mask). CUDA kernel
+    `g2_normalize` (csrc/normalize.cu, the G2 instance of `normalize<F>`)
+    on CUDA tensors, the plain version on CPU tensors.
+
+    Replaces grandine_tpu/tpu/bls.py g2_normalize_kernel (:951). One
+    thread a row: the Fp2 inverse through the norm (one Fermat inversion
+    in Fp and four products), z⁻², z⁻³ and two Fp2 products. Bound:
+    operations — ~635 Fp products a row against 481 bytes a row;
+    latency-bound on one inversion, as `g1_normalize`. It reads back a
+    signing bucket's affine words on the card (`batch_sign`'s Jacobian
+    words), where the host today runs one batched inversion."""
+    _normalize_shape("g2_normalize", points, 2)
+    if points.device.type == "cpu":
+        return g2_normalize_plain(points)
+    out = _normalize_cuda("g2_normalize", points)
+    g2_normalize.launches += 1
+    return out
+
+
+g2_normalize.launches = 0
+
+
+# --- unpack_words -------------------------------------------------------------
+
+
+def unpack_words_plain(words):
+    """Plain version of `unpack_words`: bits 0–389 as hi·2³⁸⁴ + lo, lo and
+    hi each into Montgomery form (hi twice: hi·2³⁸⁴), summed, back out."""
+    lo = L.to_mont(L.words_to_limbs(words[..., :12]))
+    hi = torch.zeros_like(lo)
+    hi[..., 0] = words[..., 12].to(torch.int64) & 0x3F
+    return L.to_words(L.add_mod(lo, L.to_mont(L.to_mont(hi))))
+
+
+def unpack_words(words):
+    """Coordinates uploaded in the packed transfer format (…, 13) int32
+    (13 little-endian words read as uint32, `limbs.pack_fp_words_host`) →
+    (…, 12) canonical words below p. It takes exactly the bits the
+    reference's tpu/limbs.py unpack_words takes (0–389: 26 limbs of 15
+    bits; 390–415 are dropped) and reduces the value mod p as its
+    to_mont_dev Montgomery product does, so every value, not only one
+    below p, gives the reference's field element. CUDA kernel
+    `unpack_words` (csrc/decompress.cu) on CUDA tensors, the plain version
+    on CPU tensors.
+
+    Replaces grandine_tpu/tpu/limbs.py unpack_words + to_mont_dev inside
+    grandine_tpu/tpu/bls.py `_g2_packed_in` (:515) of
+    grouped_multi_verify_msm_packed_kernel (:527). One thread a
+    coordinate: three Montgomery products in and one out. Bound:
+    operations — 4 Fp products a coordinate against 100 bytes; at a
+    batch's few thousand coordinates the kernel is launch-bound."""
+    if words.shape[-1:] != (13,) or words.dtype != torch.int32:
+        raise ValueError("unpack_words: words (..., 13) int32")
+    if words.device.type == "cpu":
+        return unpack_words_plain(words)
+    from grandine_tpu_torch.gpu import _build
+
+    out = torch.empty(words.shape[:-1] + (12,), dtype=torch.int32,
+                      device=words.device)
+    _build.launch("unpack_words", words.contiguous(),
+                  ctypes.c_int(words.numel() // 13), out)
+    unpack_words.launches += 1
+    return out
+
+
+unpack_words.launches = 0
+
+
 # --- rlc_finish -----------------------------------------------------------------
 
 
@@ -695,19 +912,169 @@ def verify_sets(src_x, src_y, idx, plane, msg, pair_inf, r01, offsets=None):
                       offsets)
 
 
-def verify_grouped(src_x, src_y, idx, plane, offsets, msg, msg_inf, r01):
+def verify_grouped(src_x, src_y, idx, plane, offsets, msg, msg_inf, r01,
+                   pk_inf=None):
     """One message-grouped RLC verification: N sets ordered by message,
     message j owning sets offsets[j] … offsets[j+1] − 1 (host ints), M
     messages. Σᵢ∈ⱼ rᵢ·pkᵢ per message (`g1_group_sum` over the rᵢ·pkᵢ of
-    `multi_rlc_scale`), M Miller loops, one finish over M message terms
-    and N signature terms. Returns the (1,) uint8 verdict tensor without
-    waiting for it."""
+    `multi_rlc_scale`; a set whose `pk_inf` is set adds ∞), M Miller
+    loops, one finish over M message terms and N signature terms. Returns
+    the (1,) uint8 verdict tensor without waiting for it."""
     sx, sy, mask, ok, sub = plane
     rpk, rsig = multi_rlc_scale(src_x, src_y, idx, sx, sy, mask, r01)
+    if pk_inf is not None:  # Z = 0: the group sum takes the row as ∞
+        rpk[:, 2].masked_fill_(pk_inf.unsqueeze(-1), 0)
     gpk = g1_group_sum(rpk, offsets)
     gpk_inf = (gpk[:, 2] == 0).all(-1)
     f = TP.miller_loop_pairs(gpk, msg, gpk_inf | msg_inf)
     return rlc_finish(f, rsig, torch.zeros_like(msg_inf), ok, sub)
+
+
+# --- the reference-only programs ---------------------------------------------
+#
+# The JAX package's device programs with no caller of its own runtime
+# (grandine_tpu/tpu/bls.py:251, :322, :636, :527): the repository's
+# entry point (`__graft_entry__.entry`, here `grandine_tpu_torch.entry`),
+# the profiling tools and bench.py run them. Each takes the reference's
+# operands in the port's layout — canonical words, (…, 2) RLC halves
+# instead of 64 bit rows, the reference's ∞-padded shapes at any N —
+# launches the named kernels on the device of its inputs and returns the
+# (1,) uint8 verdict tensor without waiting. Like the reference, the first
+# three run NO membership check on the signatures: their verdict is the
+# algebra's.
+
+
+def _expect(name: str, *pairs) -> None:
+    """ValueError naming `name` unless each (tensor, shape) pair matches."""
+    for t, shape in pairs:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+
+
+def multi_verify_kernel(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf, msg,
+                        msg_inf, r01):
+    """Flat RLC verify of N (message, signature, key) triples, the
+    counterpart of grandine_tpu/tpu/bls.py multi_verify_kernel (:251):
+    pk_x, pk_y (N, 12) affine key words with pk_inf (N,); sig_x, sig_y
+    (N, 2, 12) with sig_inf (N,); msg (N, 2, 2, 12) the affine [x, y] of
+    H(mᵢ) with msg_inf (N,); r01 (N, 2) the 32-bit RLC halves (the
+    reference's r_bits rows, `rlc_bits_host`). Any N; padding rows all-∞
+    are neutral, as in the reference. No membership check: it launches
+    no `g2_subgroup_check` (`signature_plane` does), so a signature
+    outside G2 gets the algebra's verdict, as there. Launches
+    `multi_rlc_scale`, `miller_loop_pairs` and `rlc_finish` (`verify_sets`
+    over the keys as their own gather source)."""
+    n = pk_inf.shape[0]
+    _expect("multi_verify_kernel", (pk_x, (n, 12)), (pk_y, (n, 12)),
+            (sig_x, (n, 2, 12)), (sig_y, (n, 2, 12)), (sig_inf, (n,)),
+            (msg, (n, 2, 2, 12)), (msg_inf, (n,)), (r01, (n, 2)))
+    idx = torch.arange(n, dtype=torch.int32, device=pk_inf.device)
+    return verify_sets(pk_x.contiguous(), pk_y.contiguous(), idx,
+                       _signature_operands(sig_x.contiguous(),
+                                           sig_y.contiguous(), sig_inf, 0),
+                       msg.contiguous(), pk_inf | msg_inf, r01.contiguous())
+
+
+def _grouped_program(name, pk_x, pk_y, pk_inf, sx, sy, sig_inf, msg,
+                     msg_inf, r01, check_subgroup: int):
+    """The grouped programs' common tail: (M, K) member slots taken
+    row-major (slot (m, k) is set m·K + k with its own r01[m, k], the row
+    the reference's k-major flattening `_flat_km` also gives member (m,
+    k)), `verify_grouped` over groups of K with the ∞ members masked."""
+    m, k = pk_inf.shape
+    _expect(name, (pk_x, (m, k, 12)), (pk_y, (m, k, 12)), (sig_inf, (m, k)),
+            (msg, (m, 2, 2, 12)), (msg_inf, (m,)), (r01, (m, k, 2)))
+    n = m * k
+    plane = _signature_operands(sx.reshape(n, 2, 12), sy.reshape(n, 2, 12),
+                                sig_inf.reshape(n), check_subgroup)
+    idx = torch.arange(n, dtype=torch.int32, device=pk_inf.device)
+    return verify_grouped(pk_x.reshape(n, 12), pk_y.reshape(n, 12), idx,
+                          plane, range(0, n + 1, k), msg.contiguous(),
+                          msg_inf, r01.reshape(n, 2), pk_inf.reshape(n))
+
+
+def grouped_multi_verify_kernel(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf,
+                                msg, msg_inf, r01):
+    """Message-grouped RLC verify, the counterpart of grandine_tpu/tpu/
+    bls.py grouped_multi_verify_kernel (:322): M messages × K member slots
+    padded with ∞ — pk_x, pk_y (M, K, 12) with pk_inf (M, K), sig_x, sig_y
+    (M, K, 2, 12) with sig_inf (M, K), msg (M, 2, 2, 12) with msg_inf (M,),
+    r01 (M, K, 2) (member (m, k)'s halves; the reference's (M, K, 64)
+    r_bits rows, which its k-major flattening pairs with the same member).
+    Σ of each message's rᵢ·pkᵢ, M Miller loops, one finish over M message
+    terms and M·K signature terms. No membership check, as the reference.
+    Launches `multi_rlc_scale`, `g1_group_sum`, `miller_loop_pairs` and
+    `rlc_finish`."""
+    m, k = pk_inf.shape
+    _expect("grouped_multi_verify_kernel", (sig_x, (m, k, 2, 12)),
+            (sig_y, (m, k, 2, 12)))
+    return _grouped_program("grouped_multi_verify_kernel", pk_x, pk_y,
+                            pk_inf, sig_x, sig_y, sig_inf, msg, msg_inf, r01,
+                            0)
+
+
+def aggregate_fast_verify_kernel(mem_x, mem_y, mem_inf, slot_pad, sig_x,
+                                 sig_y, sig_inf, msg, msg_inf, r01):
+    """The firehose program, the counterpart of grandine_tpu/tpu/bls.py
+    aggregate_fast_verify_kernel (:636): M aggregates of up to K uploaded
+    member keys — mem_x, mem_y (M, K, 12) with mem_inf (M, K) marking
+    padding members, slot_pad (M,) marking padding slots — and per
+    aggregate sig_x, sig_y (M, 2, 12) with sig_inf, msg (M, 2, 2, 12)
+    with msg_inf, r01 (M, 2). pkᵢ = Σₖ memᵢₖ, rᵢ·pkᵢ, rᵢ·sigᵢ, the RLC
+    check. A real slot (slot_pad False) whose members sum to ∞ makes the
+    batch False (the reference's `forged`: an [P, −P] committee with an
+    ∞ signature); a padding slot's ∞ sum only masks its pairing, so it
+    stays neutral. No membership check, as the reference. Launches
+    `aggregate_rlc_scale` (its gather source the uploaded member rows,
+    each aggregate's live members first), `miller_loop_pairs` and
+    `rlc_finish` (whose ∞-aggregate flag is `agg_inf & ~slot_pad`)."""
+    m, k = mem_inf.shape
+    _expect("aggregate_fast_verify_kernel", (mem_x, (m, k, 12)),
+            (mem_y, (m, k, 12)), (slot_pad, (m,)), (sig_x, (m, 2, 12)),
+            (sig_y, (m, 2, 12)), (sig_inf, (m,)), (msg, (m, 2, 2, 12)),
+            (msg_inf, (m,)), (r01, (m, 2)))
+    dev = mem_inf.device
+    # each aggregate's live members first, in order, as `cnt` counts them
+    order = torch.argsort(mem_inf.to(torch.uint8), dim=1, stable=True)
+    idx = (order + torch.arange(m, device=dev).unsqueeze(1) * k).to(
+        torch.int32)
+    cnt = (~mem_inf).sum(1, dtype=torch.int32)
+    sx, sy, mask, ok, sub = _signature_operands(
+        sig_x.contiguous(), sig_y.contiguous(), sig_inf, 0)
+    rpk, agg_inf, rsig = aggregate_rlc_scale(
+        mem_x.reshape(m * k, 12), mem_y.reshape(m * k, 12), idx, cnt, sx,
+        sy, mask, r01.contiguous())
+    f = TP.miller_loop_pairs(rpk, msg.contiguous(), agg_inf | msg_inf)
+    return rlc_finish(f, rsig, agg_inf & ~slot_pad, ok, sub)
+
+
+def grouped_multi_verify_msm_packed_kernel(pk_x, pk_y, pk_inf, sig_words,
+                                           sig_inf, msg, msg_inf, r01,
+                                           check_subgroup: int = 0):
+    """`grouped_multi_verify_kernel` with the signature plane uploaded in
+    the packed transfer format, the counterpart of grandine_tpu/tpu/bls.py
+    grouped_multi_verify_msm_packed_kernel (:527): sig_words (M, K, 4, 13)
+    int32 — x.c0, x.c1, y.c0, y.c1 of each member's signature as 13
+    words read as uint32 (`limbs.pack_fp_words_host`), 52 bytes a
+    coordinate against 48 of canonical words here (104 of the reference's
+    limbs) — the rest as `grouped_multi_verify_kernel`. With
+    check_subgroup set, the signatures' G2 membership folds into the
+    verdict (∞ rows pass), as the reference's `_fused_subgroup_mask`. It
+    takes no MSM plan: the port sums the groups and the signature terms
+    with per-row ladders (`multi_rlc_scale`, `g1_group_sum`; the
+    reference's Pippenger plans `plan_msm` come with its bucket MSM, a
+    later slice); parity is in verdicts. Launches `unpack_words`, where
+    set `g2_subgroup_check`, then `multi_rlc_scale`, `g1_group_sum`,
+    `miller_loop_pairs` and `rlc_finish`."""
+    m, k = pk_inf.shape
+    _expect("grouped_multi_verify_msm_packed_kernel",
+            (sig_words, (m, k, 4, 13)))
+    coords = unpack_words(sig_words.reshape(m * k, 4, 13))
+    return _grouped_program("grouped_multi_verify_msm_packed_kernel", pk_x,
+                            pk_y, pk_inf, coords[:, 0:2].contiguous(),
+                            coords[:, 2:4].contiguous(), sig_inf, msg,
+                            msg_inf, r01, check_subgroup)
 
 
 # --- the sharded verify programs -----------------------------------------------
@@ -724,10 +1091,10 @@ def verify_grouped(src_x, src_y, idx, plane, offsets, msg, msg_inf, r01):
 # factories themselves.
 
 
-def _shard_plane(sx, sy, sinf, check_subgroup: int):
-    """A shard's signature operands as the scale kernel takes them:
-    (sig_x, sig_y, mask, decoded, in_subgroup), the ψ check on the
-    shard's device where fused."""
+def _signature_operands(sx, sy, sinf, check_subgroup: int):
+    """Uploaded affine signatures as the scale kernels take them: (sig_x,
+    sig_y, mask, decoded, in_subgroup), the ψ check on their device where
+    `check_subgroup` is set, every row a member of G2 where it is not."""
     if check_subgroup:
         return signature_plane(sx, sy, sinf)
     return sx, sy, sinf, torch.ones_like(sinf), torch.ones_like(sinf)
@@ -770,7 +1137,7 @@ def make_sharded_multi_verify(mesh, check_subgroup: int = 0):
                                     msg_inf, r01)]
                 + [np.arange(hi - lo, dtype=np.int32)], d)
             if hi > lo:
-                sx, sy, mask, ok, sub = _shard_plane(sx, sy, sinf,
+                sx, sy, mask, ok, sub = _signature_operands(sx, sy, sinf,
                                                      check_subgroup)
                 rpk, rsig = multi_rlc_scale(px, py, idx, sx, sy, mask, r)
                 f = TP.miller_loop_pairs(rpk, mg, minf)
@@ -827,7 +1194,7 @@ def make_sharded_multi_verify_msm(mesh, check_subgroup: int = 0):
                 [a[rows] for a in (pk_x, pk_y, sig_x, sig_y, sig_inf, r01)]
                 + [np.arange(rows.size, dtype=np.int32)], d)
             if rows.size:
-                sx, sy, mask, ok, sub = _shard_plane(sx, sy, sinf,
+                sx, sy, mask, ok, sub = _signature_operands(sx, sy, sinf,
                                                      check_subgroup)
                 rpk, rsig = multi_rlc_scale(px, py, idx, sx, sy, mask, r)
             else:  # no group reaches this shard's members
@@ -1725,5 +2092,9 @@ __all__ = [
     "SIGN_HALF_BITS", "sign_scalars_host", "batch_sign", "batch_sign_plain",
     "g2_group_sum", "g2_group_sum_plain", "g2_aggregate_groups",
     "g1_aggregate_groups", "g2_points_from_words", "g1_points_from_words",
-    "jacobian_rows", "launch_geometry",
+    "jacobian_rows", "launch_geometry", "batch_pubkey", "batch_pubkey_plain",
+    "g1_normalize", "g1_normalize_plain", "g2_normalize",
+    "g2_normalize_plain", "unpack_words", "unpack_words_plain",
+    "multi_verify_kernel", "grouped_multi_verify_kernel",
+    "aggregate_fast_verify_kernel", "grouped_multi_verify_msm_packed_kernel",
 ]

@@ -266,6 +266,25 @@ def select(cond, a, b):
     return torch.where(c, a, b)
 
 
+# --- packed transfer format (host) -----------------------------------------
+
+
+#: words of one coordinate in the packed transfer format: 12 little-endian
+#: uint32 words of the canonical value and a 13th, zero here
+PACKED_WORDS = 13
+
+
+def pack_fp_words_host(values) -> np.ndarray:
+    """Canonical ints → (N, 13) uint32 little-endian words, the 13th zero:
+    the JAX package's packed transfer format (grandine_tpu/tpu/limbs.py
+    pack_fp_words_host), which `gpu.bls.unpack_words` takes (as int32)."""
+    vals = [int(v) for v in values]
+    assert all(0 <= v < R_MONT for v in vals)
+    out = np.zeros((len(vals), PACKED_WORDS), np.uint32)
+    out[:, :NWORDS] = ints_to_words(vals).view(np.uint32)
+    return out
+
+
 def geq_const(a_canon, value: int) -> torch.Tensor:
     """value(a) ≥ value for normalized (canonical) limbs."""
     _, top = _carry(a_canon + _const("neg%x" % value, R_MONT - value,
@@ -279,4 +298,5 @@ __all__ = [
     "to_words", "const_fp", "one_fp", "add_mod", "double_mod",
     "neg_mod", "sub_mod", "montmul", "montsq", "to_mont", "from_mont",
     "pow_fixed", "inv_mod", "is_zero", "eq", "select", "geq_const",
+    "PACKED_WORDS", "pack_fp_words_host",
 ]

@@ -19,6 +19,7 @@ from grandine_tpu_torch.crypto.hash_to_curve import (
     hash_to_field_fq2, hash_to_g2, map_to_curve_g2)
 from grandine_tpu_torch.gpu import bls as B
 from grandine_tpu_torch.gpu import curve as C
+from grandine_tpu_torch.gpu import limbs as L
 from grandine_tpu_torch.gpu import pairing as TP
 from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
 from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
@@ -728,3 +729,151 @@ def test_slasher_on_the_card(cuda_device):
     kinds = sorted(h.kind for hits in outs[1][0] for h in hits)
     assert kinds == ["double_vote"] * 3 + ["surround_vote"]
     assert _dump(card.db) == _dump(host.db)
+
+
+# --- the reference-only programs and their kernels ------------------------------
+
+
+def test_batch_pubkey_matches_plain(cuda_device):
+    """Scalars 1, r − 1, r − 2 and seeded ones, both sign masks on each
+    half, 40 rows (two one-warp blocks)."""
+    host = random.Random(0xC0E1)
+    scalars = [1, R - 1, R - 2] + [host.randrange(1, R) for _ in range(37)]
+    k, neg = B.sign_scalars_host(scalars)
+    assert neg.any(0).all() and (~neg).any(0).all()
+    args = (torch.from_numpy(k).to(cuda_device),
+            torch.from_numpy(neg).to(cuda_device))
+    before = B.batch_pubkey.launches
+    got = B.batch_pubkey(*args)
+    _equal((got,), (B.batch_pubkey_plain(*args),))
+    assert B.batch_pubkey.launches == before + 1
+
+
+def _normalize_rows(k, dev):
+    """Jacobian rows with Z ≠ 1 (ladder outputs), an ∞ row, Z = 1 and
+    Z = −1 (X, −Y, −1) of one point."""
+    host = random.Random(0xC0E2 + k)
+    ks, neg = B.sign_scalars_host([host.randrange(1, R) for _ in range(37)])
+    if k == 1:
+        rows = B.batch_pubkey_plain(torch.from_numpy(ks),
+                                    torch.from_numpy(neg)).numpy()
+        x, y = G1.to_affine()
+        ints = [x.n, y.n, 1, x.n, (C.P - y.n) % C.P, C.P - 1]
+    else:
+        h = hash_to_g2(b"norm", DST_SIGNATURE)
+        msg = torch.from_numpy(np.stack([B.g2_affine_words(h)[0]] * 37))
+        rows = B.batch_sign_plain(msg, torch.zeros((37,), dtype=torch.bool),
+                                  torch.from_numpy(ks),
+                                  torch.from_numpy(neg)).numpy()
+        x, y = h.to_affine()
+        ints = [x.c0.n, x.c1.n, y.c0.n, y.c1.n, 1, 0,
+                x.c0.n, x.c1.n, (C.P - y.c0.n) % C.P, (C.P - y.c1.n) % C.P,
+                C.P - 1, 0]
+    edge = np.asarray(L.ints_to_words(ints)).reshape((2,) + rows.shape[1:])
+    rows = np.concatenate([rows, np.zeros((1,) + rows.shape[1:], np.int32),
+                           edge])
+    return torch.from_numpy(rows).to(dev)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_normalize_matches_plain(cuda_device, k):
+    """g1_normalize / g2_normalize on 40 rows: exact, the ∞ row zero
+    words under its mask, Z = 1 and Z = −1 the same affine point."""
+    rows = _normalize_rows(k, cuda_device)
+    fn, plain = ((B.g1_normalize, B.g1_normalize_plain) if k == 1
+                 else (B.g2_normalize, B.g2_normalize_plain))
+    before = fn.launches
+    xy, inf = fn(rows)
+    _equal((xy, inf), plain(rows))
+    assert fn.launches == before + 1
+    assert inf.tolist() == [False] * 37 + [True, False, False]
+    assert xy[37].abs().sum().item() == 0
+    assert torch.equal(xy[38], xy[39])
+
+
+def test_unpack_words_matches_plain(cuda_device):
+    """0, p − 1, p, 2³⁸⁴ − 1, 2³⁹⁰ − 1 and rows with bits above 390 set."""
+    values = [0, C.P - 1, C.P, (1 << 384) - 1, (1 << 390) - 1,
+              (1 << 416) - 1, ((1 << 26) - 1) << 390, (123 << 395) | 5]
+    w = np.array([[(v >> (32 * j)) & 0xFFFFFFFF for j in range(13)]
+                  for v in values], np.uint32).view(np.int32)
+    t = torch.from_numpy(w).to(cuda_device)
+    before = B.unpack_words.launches
+    got = B.unpack_words(t)
+    _equal((got,), (B.unpack_words_plain(t),))
+    assert B.unpack_words.launches == before + 1
+    assert L.words_to_ints(got) == [(v % (1 << 390)) % C.P for v in values]
+
+
+def test_pubkey_normalize_round_trip_on_the_card(cuda_device):
+    """512 keys: batch_pubkey, g1_normalize, compression — byte for byte
+    `SecretKey.public_key()`."""
+    from grandine_tpu_torch.crypto.curves import B1, Point
+    from grandine_tpu_torch.crypto.fields import Fq
+
+    host = random.Random(0xC0E3)
+    scalars = [host.randrange(1, R) for _ in range(512)]
+    k, neg = B.sign_scalars_host(scalars)
+    xy, inf = B.g1_normalize(B.batch_pubkey(
+        torch.from_numpy(k).to(cuda_device),
+        torch.from_numpy(neg).to(cuda_device)))
+    ints = L.words_to_ints(xy)
+    got = [A.g1_to_bytes(Point.from_affine(Fq(ints[2 * i]),
+                                           Fq(ints[2 * i + 1]), B1))
+           for i in range(512)]
+    assert not inf.any()
+    assert got == [A.SecretKey(s).public_key().to_bytes() for s in scalars]
+
+
+def test_reference_programs_on_the_card(cuda_device):
+    """entry() verifies; each program on a small batch: valid True, the
+    firehose's [P, −P] slot False when real and neutral as padding, the
+    packed program with check_subgroup False on a signature outside G2;
+    only the packed program with check_subgroup launches
+    g2_subgroup_check; dryrun_multichip(2) over virtual shards."""
+    from grandine_tpu_torch import entry as E
+
+    fn, args = E.entry()
+    before = C.g2_subgroup_check.launches
+    assert fn(*args).item() == 1
+    host = random.Random(0xC0E4)
+    sks = [A.SecretKey(host.randrange(1, R)) for _ in range(5)]
+    roots = [b"r0", b"r1"]
+    hs = [hash_to_g2(m, DST_SIGNATURE) for m in roots]
+    owner = [0, 0, 0, 1, 1]
+    sig = [sk.sign(roots[o]).point for sk, o in zip(sks, owner)]
+    pk = [sk.public_key().point for sk in sks]
+    pairs = [(host.getrandbits(32), host.getrandbits(32)) for _ in range(5)]
+    members = [[(pk[i], sig[i]) for i in range(3)],
+               [(pk[i], sig[i]) for i in range(3, 5)]]
+    grp = E.grouped_batch(members, hs, [pairs[:3], pairs[3:]], 2, 4)
+
+    def up(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                for a in arrays]
+
+    assert B.grouped_multi_verify_kernel(*up(grp)).item() == 1
+    agg = [A.Signature.aggregate([A.Signature(sig[i]) for i in range(3)]),
+           A.Signature.aggregate([A.Signature(sig[i]) for i in range(3, 5)])]
+    pair = [pk[0], -pk[0]]
+    fh = list(E.firehose_batch([pk[:3], pk[3:], pair],
+                               [a.point for a in agg] + [g2_infinity()],
+                               hs + [hs[0]], pairs[:3], 4, 4))
+    assert B.aggregate_fast_verify_kernel(*up(fh)).item() == 0
+    fh[3] = np.array([False, False, True, True])  # the pair's slot padding
+    assert B.aggregate_fast_verify_kernel(*up(fh)).item() == 1
+    assert C.g2_subgroup_check.launches == before
+    packed = list(grp)
+    packed[3:5] = [E.packed_signatures(grp[3], grp[4])]
+    assert B.grouped_multi_verify_msm_packed_kernel(
+        *up(packed), check_subgroup=1).item() == 1
+    assert C.g2_subgroup_check.launches == before + 1
+    nonsub = map_to_curve_g2(hash_to_field_fq2(b"ng-0", b"SGT", 1)[0])
+    bad = list(members)
+    bad[1] = [members[1][0], (pk[4], nonsub)]
+    bgrp = E.grouped_batch(bad, hs, [pairs[:3], pairs[3:]], 2, 4)
+    bpacked = list(bgrp)
+    bpacked[3:5] = [E.packed_signatures(bgrp[3], bgrp[4])]
+    assert B.grouped_multi_verify_msm_packed_kernel(
+        *up(bpacked), check_subgroup=1).item() == 0
+    E.dryrun_multichip(2)

@@ -49,8 +49,9 @@ def test_importing_every_module_loads_no_jax():
             "grandine_tpu_torch.spec_tests.snappy",
             "grandine_tpu_torch.native",
             "grandine_tpu_torch.testing.slasher",
-            "grandine_tpu_torch.gpu.mesh"} <= set(mods)
-    assert len(mods) >= 49
+            "grandine_tpu_torch.gpu.mesh",
+            "grandine_tpu_torch.entry"} <= set(mods)
+    assert len(mods) >= 50
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -152,6 +153,19 @@ def test_verify_mesh_defaults_to_cuda():
         assert sched.device.type == "cpu"
     finally:
         sched.stop()
+
+
+def test_graft_entry_counterparts_default_to_cuda():
+    from grandine_tpu_torch.entry import dryrun_multichip, entry
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    _fn, args = entry(device="cpu")
+    assert {a.device.type for a in args} == {"cpu"}
 
 
 def test_torch_verifier_defaults_to_cuda():
