@@ -38,10 +38,12 @@ Phases (any failure raises and exits non-zero):
      timed; the same for the 1,562-signer unaggregated slot (12 roots,
      bucket 2,048, ladder 8, 64, 512, 2,048) with 2 forged; the grouped
      route of multi_verify on a 512-signer sync-committee slot and on the
-     unaggregated slot (valid → True, forged or swapped → False, one
-     launch of g1_group_sum each), and both routes timed on the same
-     triples; the group-indexed rlc_finish and g1_group_sum against their
-     plain versions on edge rows (phase 4) and on every recorded pass;
+     unaggregated slot (valid → True, forged or swapped → False; the
+     bucket MSM's three kernels for the key and the signature plane, one
+     Miller launch, one finish, no ladder and no g1_group_sum), and both
+     routes timed on the same triples; the group-indexed rlc_finish and
+     g1_group_sum against their plain versions on edge rows (phase 4) and
+     rlc_finish on every recorded pass;
   7. the signing path on the operator's 50,000 keys: batch_sign and both
      group_sum instances against their plain versions on edge rows (∞
      messages, both sign masks, sk = 1, r − 1, r − 2; empty, all-∞ and
@@ -121,7 +123,8 @@ Phases (any failure raises and exits non-zero):
      D = 4; the 512-signer sync slot (grouped: bm = 4, bk = 512) at D = 2
      and 4 and the 1,562-signer unaggregated slot (bm = 16, bk = 256) at
      D = 4 through multi_verify — one rlc_partial launch a shard on each
-     sharded run; the gossip slot's 192 aggregates through
+     sharded run, on the grouped runs each shard's G1 and G2 bucket MSM
+     and one g1_group_sum reducing the shards' group sums; the gossip slot's 192 aggregates through
      dispatch_bls_compressed over the 50,000-key registry sharded over
      D = 4 (16,384 rows a shard, 4 g1_decompress launches, rows equal to
      the single registry's); the block through VerifyScheduler(mesh=)'s
@@ -144,16 +147,32 @@ Phases (any failure raises and exits non-zero):
      inversion; multi_verify_kernel on the block (bucket 256) and the
      window (2,048) — valid, forged, swapped and a signature outside G2
      (the algebra's verdict: no g2_subgroup_check launched);
-     grouped_multi_verify_kernel and, packed with check_subgroup, the
-     packed program on the unaggregated slot (bm = 16, bk = 256) and the
-     sync slot; aggregate_fast_verify_kernel on the gossip slot's 192
+     grouped_multi_verify_kernel (ladders), grouped_multi_verify_msm_kernel
+     and, packed with check_subgroup, the packed program (both on the
+     reference's MSM plans, entry.grouped_plans) on the unaggregated slot
+     (bm = 16, bk = 256) and the sync slot; aggregate_fast_verify_kernel on the gossip slot's 192
      aggregates with uploaded members (bm = bk = 256) and the [P, −P]
      committee in a real slot (False) and a padding slot (neutral) — every
      verdict the host anchor's and the ported route's, every run's
      launches counted; entry() and dryrun_multichip(2), (4) over virtual
      shards; every launch of the four new kernels against its plain
      version, exactly;
- 13. each kernel again against its plain version, exactly, on the
+ 13. the Pippenger bucket MSM (gpu/msm.py, csrc/msm.cu): msm_lane_scan,
+     msm_bucket_reduce and msm_horner against their plain versions, G1
+     and G2, on edge rows (∞ rows, a row masked on the card, P and −P
+     under one scalar, duplicates, zero halves, an empty group, 40 lanes,
+     256 digits a section), each sum the host anchor's; the grouped route
+     on the unaggregated and sync slots, valid, forged and swapped, every
+     MSM launch held against its plain version word for word and the
+     valid runs' key and signature sums equal to the host anchor's affine
+     points; gpu/autotune.py's window sweep at the route's four cells, ms
+     per window, its table printed beside the committed
+     grandine_tpu_torch/gpu/msm_tune.json (not rewritten); the G2 bucket
+     MSM beside the ladder plane
+     (multi_rlc_scale + g2_group_sum) on the same signature rows at the
+     gossip (192), block (131) and window (1,048) shapes, both timed, the
+     same sum, neither deciding a route;
+ 14. each kernel again against its plain version, exactly, on the
      main-path operands (65,536 registry rows, 192 aggregates of up to 130
      members; the block's 131 sets; the window's 1,048 sets; the
      partition passes; both grouped shapes; the full bucket and a lane
@@ -161,7 +180,8 @@ Phases (any failure raises and exits non-zero):
      and setup MSM; ed25519_verify at B = 8, 32, 128; span_update_grid at
      a window's 50,000 rows; the registry keys of batch_pubkey and
      g1_normalize, the signing readback of g2_normalize, a packed plane of
-     unpack_words), and its time there (CUDA events, after
+     unpack_words; the bucket MSM's kernels at the grouped route's G1 and
+     G2 shapes), and its time there (CUDA events, after
      warm-up) beside the plain version's, its bound and, where one stock
      PyTorch computation gives the same function, that one's;
      end-to-end p50 of the gossip batch, the block and the window with
@@ -179,6 +199,7 @@ import subprocess
 import sys
 import threading
 import time
+from functools import partial
 from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -206,6 +227,12 @@ MAX_BLOBS_PER_BLOCK, KZG_REPS = 6, 5
 SCHED_BLOCK_REPS = 3
 #: H100 HBM3 rate (NVIDIA data sheet, SXM part)
 HBM_BYTES_PER_S = 3.35e12
+#: the grouped route's launches: the bucket MSM's three kernels for the
+#: G1 key plane and the G2 signature plane, the fused subgroup check, M
+#: Miller loops in one launch, one finish — no ladder and no group sum
+GROUPED_LAUNCHES = {"msm_lane_scan": 2, "msm_bucket_reduce": 2,
+                    "msm_horner": 2, "g2_subgroup_check": 1,
+                    "miller_loop_pairs": 1, "rlc_finish": 1}
 #: 32-bit integer multiply / multiply-add results per clock per SM for
 #: compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 #: instruction throughput table)
@@ -424,6 +451,34 @@ class OpModel:
             6 + (2 + self.inv + 2) + 4 * self.fp2 + 4)
         return live * per
 
+    def msm_scan(self, k, entries, phis, flushes):
+        """msm_lane_scan at the data's work: a mixed addition (the point
+        loaded is affine) and the conversion of x, y into Montgomery form
+        for each live entry, the endomorphism's products for each r1
+        entry, the conversion out of each flushed sum (an Fp2 product is
+        three Fp products)."""
+        f = 1 if k == 1 else self.fp2
+        return entries * (self.madd1 * f + 2 * k) + phis * 2 * k + \
+            flushes * 3 * k
+
+    def msm_reduce(self, k, piece_adds, pieces, n_sec, digits):
+        """msm_bucket_reduce at the function's least work: each valid
+        piece's conversion, the additions that fold a digit's pieces
+        (pieces − 1 a digit that has any), then per section Σ_{d≥1} d·S_d
+        by the running sum over the B − 1 digits (2·(B − 2) additions)
+        and the total's conversion; the kernel's Hillis–Steele suffix and
+        tree (B·w additions) are not charged."""
+        f = 1 if k == 1 else self.fp2
+        return pieces * 3 * k + piece_adds * self.add1 * f + \
+            n_sec * (2 * max(0, digits - 2) * self.add1 * f + 3 * k)
+
+    def msm_horner(self, k, groups, windows, w):
+        """msm_horner: per group and window w doublings, one addition and
+        the window total's conversion, and the output's conversion."""
+        f = 1 if k == 1 else self.fp2
+        return groups * (windows * ((w * self.dbl1 + self.add1) * f + 3 * k)
+                         + 3 * k)
+
     @staticmethod
     def unpack(n):
         """unpack_words over n coordinates: three Montgomery products in
@@ -451,6 +506,50 @@ def finish_shape(record):
     nf, ns = int(fo[-1] - fo[0]), int(so[-1] - so[0])
     return groups, (nf * (576 + 1) + ns * (288 + 2) + 8 * len(groups)
                     + len(groups))
+
+
+def finish_plain_batched(B, torch, np, calls, padded_terms=8192):
+    """The plain rlc_finish verdicts of several calls (rlc_finish's
+    operands, offsets resolved or not), their groups side by side in a few
+    plain calls. A group's verdict is exact field arithmetic on its own
+    terms, whatever the call's thread count, so each equals its own call's
+    plain verdict; the plain final exponentiation runs once a batch
+    instead of once a call. The plain trees pad every group of a call to
+    its widest, so calls are taken in order of width and a batch holds at
+    most `padded_terms` padded terms. Returns one verdict tensor a call."""
+    calls = [finish_operands(*call) for call in calls]
+
+    def width(call):
+        fo, so = call[5], call[6]
+        return max(1, int(np.diff(fo).max(initial=0)),
+                   int(np.diff(so).max(initial=0)))
+
+    batches, cur, groups = [], [], 0
+    for i in sorted(range(len(calls)), key=lambda i: width(calls[i])):
+        g = len(calls[i][5]) - 1
+        if cur and (groups + g) * width(calls[i]) > padded_terms:
+            batches.append(cur)
+            cur, groups = [], 0
+        cur.append(i)
+        groups += g
+    if cur:
+        batches.append(cur)
+    out = [None] * len(calls)
+    for batch in batches:
+        parts, fo_all, so_all, sizes = [], [0], [0], []
+        for i in batch:
+            f, rsig, agg_inf, sig_ok, sig_sub, fo, so = calls[i]
+            f0, f1, s0, s1 = int(fo[0]), int(fo[-1]), int(so[0]), int(so[-1])
+            parts.append((f[f0:f1], rsig[s0:s1], agg_inf[f0:f1],
+                          sig_ok[s0:s1], sig_sub[s0:s1]))
+            fo_all += (np.asarray(fo[1:]) - f0 + fo_all[-1]).tolist()
+            so_all += (np.asarray(so[1:]) - s0 + so_all[-1]).tolist()
+            sizes.append(len(fo) - 1)
+        verdicts = B.rlc_finish_plain(*(torch.cat(c) for c in zip(*parts)),
+                                      np.array(fo_all), np.array(so_all))
+        for i, v in zip(batch, torch.split(verdicts, sizes)):
+            out[i] = v
+    return out
 
 
 def finish_operands(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
@@ -846,8 +945,11 @@ def signing_phase(c):
     if totals["device_batches"] != totals["batches"] or health != "closed":
         fail(f"operator slot: not every batch ran on the device ({totals}, "
              f"breaker {health})")
-    for name in ("batch_sign", "multi_rlc_scale", "miller_loop_pairs",
-                 "rlc_finish", "g2_subgroup_check"):
+    # the release gate's multi_verify of a lane batch (many signers over
+    # few roots) takes the grouped route: the bucket MSM, no ladder
+    for name in ("batch_sign", "msm_lane_scan", "msm_bucket_reduce",
+                 "msm_horner", "miller_loop_pairs", "rlc_finish",
+                 "g2_subgroup_check"):
         if plane_launches[name] < 1:
             fail(f"a kernel of the signing path was not launched: {name}")
     for r in records:
@@ -2174,16 +2276,20 @@ def mesh_phase(c):
         return anchors[key]
 
     def held(where, d, variant, got, single, host, launches, partials,
-             sums=None):
+             sums=None, msm_planes=0):
         log(f"mesh {where}, D = {d}, {variant}: sharded -> {got}, "
             f"single-device -> {single}, host anchor -> {host}; launches "
             f"rlc_partial {launches['rlc_partial']}, g1_group_sum "
-            f"{launches['g1_group_sum']}, rlc_finish "
-            f"{launches['rlc_finish']} {c.at}")
+            f"{launches['g1_group_sum']}, msm_lane_scan / bucket_reduce / "
+            f"horner {launches['msm_lane_scan']} / "
+            f"{launches['msm_bucket_reduce']} / {launches['msm_horner']}, "
+            f"rlc_finish {launches['rlc_finish']} {c.at}")
         if not (got is single is host is (variant == "valid")):
             fail(f"mesh {where}, D = {d}, {variant}: verdicts disagree")
         if launches["rlc_partial"] != partials or launches["rlc_finish"] < 1 \
-                or (sums is not None and launches["g1_group_sum"] != sums):
+                or (sums is not None and launches["g1_group_sum"] != sums) \
+                or any(launches[k] != msm_planes for k in (
+                    "msm_lane_scan", "msm_bucket_reduce", "msm_horner")):
             fail(f"mesh {where}, D = {d}, {variant}: launches {launches}")
 
     def set_item(sets, i):
@@ -2262,11 +2368,13 @@ def mesh_phase(c):
                 for variant, (s_l, changed) in variants.items():
                     got, launches = run(where, d,
                                         lambda: be.multi_verify(ml, s_l, kl))
+                    # each shard's G1 and G2 bucket MSM, one reduce of
+                    # the shards' group sums
                     held(f"{where} (grouped, bm = {bm}, bk = {bk})", d,
                          variant, got, singles[variant],
                          anchor((where, variant), [VerifyItem(
                              ml[i], s_l[i].to_bytes(), public_keys=[kl[i]])
-                             for i in changed]), launches, d, d + 1)
+                             for i in changed]), launches, d, 1, 2 * d)
         # the gossip slot over the registry sharded 4 ways
         reg4 = DevicePubkeyRegistry(mesh=meshes[4])
         c.count_reset()
@@ -2648,15 +2756,15 @@ def reference_phase(c):
                 f"{at}")
             if not (got is route is anchor is want):
                 fail(f"program {where}, {variant}: verdicts disagree")
-            if {k for k, v in launches.items() if v} != expect or any(
-                    v > 1 for v in launches.values()):
+            if {k: v for k, v in launches.items() if v} != expect:
                 fail(f"program {where}, {variant}: launches {launches}")
 
         def item_of(sets, i):
             root, mem, sig = sets[i]
             return VerifyItem(root, sig, public_keys=[c.keys[j] for j in mem])
 
-        flat_kernels = {"multi_rlc_scale", "miller_loop_pairs", "rlc_finish"}
+        flat_kernels = {"multi_rlc_scale": 1, "miller_loop_pairs": 1,
+                        "rlc_finish": 1}
         win_keys = [c.keys[mem[0]] if len(mem) == 1 else
                     A.PublicKey.aggregate([c.keys[i] for i in mem])
                     for _, mem, _ in c.window]
@@ -2712,9 +2820,12 @@ def reference_phase(c):
                   "algebra's verdict)", got, launches, route, anchor, False,
                   flat_kernels)
 
-        grouped_kernels = flat_kernels | {"g1_group_sum"}
-        packed_kernels = grouped_kernels | {"unpack_words",
-                                            "g2_subgroup_check"}
+        grouped_kernels = flat_kernels | {"g1_group_sum": 1}
+        msm_kernels = {"msm_lane_scan": 2, "msm_bucket_reduce": 2,
+                       "msm_horner": 2, "miller_loop_pairs": 1,
+                       "rlc_finish": 1}
+        packed_kernels = msm_kernels | {"unpack_words": 1,
+                                        "g2_subgroup_check": 1}
         for where, (ml, sl, kl) in (
                 (f"unaggregated slot, {len(c.unagg[0])} signers", c.unagg),
                 (f"sync slot, {len(c.sync[0])} signers", c.sync)):
@@ -2729,6 +2840,9 @@ def reference_phase(c):
                 [[pairs[i] for i in ix] for ix in groups.values()], bm, bk)
             slot = {i: (g, p) for g, ix in enumerate(groups.values())
                     for p, i in enumerate(ix)}
+            # the reference's MSM plans of the batch's pairs (k-major)
+            plans, plan_kw = E.grouped_plans(base)
+            plans = list(plans)
             other = next((i for i, m in enumerate(ml) if m != ml[3]), 4)
             variants = {"valid": ({}, [0, len(ml) - 1]),
                         "forged": ({7: 8}, [7]),
@@ -2748,11 +2862,16 @@ def reference_phase(c):
                 tag = f"grouped_multi_verify_kernel, {where} (bm = {bm}, bk = {bk})"
                 check(tag, variant, got, launches, route, anchor,
                       variant == "valid", grouped_kernels)
+                got_m, launches = run(where, B.grouped_multi_verify_msm_kernel,
+                                      list(arr[:8]) + plans, **plan_kw)
+                check(f"grouped_multi_verify_msm_kernel, {where}", variant,
+                      got_m, launches, route, anchor, variant == "valid",
+                      msm_kernels)
                 packed = arr[:3] + [E.packed_signatures(arr[3], arr[4])] + \
-                    arr[5:]
+                    arr[5:8] + plans
                 got_p, launches = run(where,
                                       B.grouped_multi_verify_msm_packed_kernel,
-                                      packed, check_subgroup=1)
+                                      packed, check_subgroup=1, **plan_kw)
                 notes["unpack_words"].append(
                     f"packed program, {where}, {variant}, "
                     f"{bm * bk * 4} coordinates")
@@ -2761,9 +2880,10 @@ def reference_phase(c):
                       anchor, variant == "valid", packed_kernels)
             arr = [a.copy() for a in base]
             arr[3][slot[5]], arr[4][slot[5]] = nonsub_x[0], nonsub_y[0]
-            packed = arr[:3] + [E.packed_signatures(arr[3], arr[4])] + arr[5:]
+            packed = arr[:3] + [E.packed_signatures(arr[3], arr[4])] + \
+                arr[5:8] + plans
             got_p, launches = run(where, B.grouped_multi_verify_msm_packed_kernel,
-                                  packed, check_subgroup=1)
+                                  packed, check_subgroup=1, **plan_kw)
             notes["unpack_words"].append(f"packed program, {where}, outside G2")
             v_sl = list(sl)
             v_sl[5] = A.Signature(nonsub_pt)
@@ -2792,7 +2912,8 @@ def reference_phase(c):
 
         where = f"aggregate_fast_verify_kernel, gossip slot, {m_aggs} " \
                 f"aggregates (bm = {bm}, bk = {bk})"
-        fh_kernels = {"aggregate_rlc_scale", "miller_loop_pairs", "rlc_finish"}
+        fh_kernels = {"aggregate_rlc_scale": 1, "miller_loop_pairs": 1,
+                      "rlc_finish": 1}
         for variant, take, changed in (("valid", {}, [0, m_aggs - 1]),
                                        ("forged", {0: 1}, [0]),
                                        ("swapped", {0: half, half: 0},
@@ -2823,8 +2944,8 @@ def reference_phase(c):
             got, launches = run(where, B.aggregate_fast_verify_kernel, arr)
             log(f"program {where}, [P, -P] with an ∞ signature in a "
                 f"{'padding' if pad else 'real'} slot: -> {got} {at}")
-            if got is not pad or {k for k, v in launches.items() if v} != \
-                    fh_kernels:
+            if got is not pad or {k: v for k, v in launches.items() if v} \
+                    != fh_kernels:
                 fail(f"the [P, -P] slot (padding {pad}): {got}, {launches}")
         if c.block_backend.fast_aggregate_verify(
                 c.msgs[0], A.Signature.empty(),
@@ -2896,6 +3017,359 @@ def reference_phase(c):
     ]
 
 
+#: the bucket MSM's edge rows: (field, points, groups, window bits, lanes)
+#: — a lane count not a multiple of 32, 256 digits a section (72 KiB of
+#: shared memory a G2 block), an empty last group
+MSM_EDGE = ((1, 37, 5, 4, 64), (1, 30, 3, 8, 40), (2, 17, 1, 5, 64),
+            (2, 40, 2, 8, 64))
+
+
+def msm_edge_case(c, k, n, n_groups, w, lanes, seed):
+    """Host points (four bases, so duplicates share buckets; an ∞ row; a
+    point and its negation under one scalar and group; a zero scalar and
+    a zero low half; the last group empty; one live row masked on the
+    device), its plan, the operands on the card and the host anchor's
+    affine sums Σ (r0 + r1·λ)·P per group."""
+    np, torch = c.np, c.torch
+    rng = random.Random(seed)
+    gen = c.G1 if k == 1 else c.G2
+    base = [gen.mul(rng.randrange(1, 1 << 64)) for _ in range(4)]
+    pts = [base[rng.randrange(4)] for _ in range(n)]
+    pts[1] = gen.mul(0)
+    pts[2] = -pts[4]
+    lo = [rng.randrange(0, 1 << 32) for _ in range(n)]
+    hi = [rng.randrange(0, 1 << 32) for _ in range(n)]
+    lo[2], hi[2] = lo[4], hi[4]
+    lo[5] = hi[5] = 0
+    lo[6] = 0
+    groups = [rng.randrange(0, max(1, n_groups - 1)) for _ in range(n)]
+    groups[2] = groups[4]
+    inf = np.array([p.is_infinity() for p in pts])
+    plan = c.M.plan_msm(lo, hi, inf, groups, n_groups, window_bits=w,
+                        lanes=lanes)
+    if k == 1:
+        x = np.zeros((n, 12), np.int32)
+        y = np.zeros((n, 12), np.int32)
+        x[~inf], y[~inf] = c.B.g1_affine_words([p for p in pts
+                                               if not p.is_infinity()])
+    else:
+        x, y, _ = c.B.g2_affine_words_many(pts)
+    live = ~inf
+    live[8] = False
+    sums = [gen.mul(0) for _ in range(n_groups)]
+    for p, a, b, g, lv in zip(pts, lo, hi, groups, live):
+        if lv:
+            sums[g] = sums[g] + p.mul((a + b * c.LAMBDA) % c.R)
+    ops = tuple(torch.from_numpy(a.copy()).to(c.dev) for a in (x, y, live))
+    return plan, ops, [host_affine(p, k) for p in sums]
+
+
+def host_affine(p, k):
+    """A host point's affine canonical ints (None: ∞)."""
+    a = p.to_affine()
+    if a is None:
+        return None
+    if k == 1:
+        return (a[0].n, a[1].n)
+    return ((a[0].c0.n, a[0].c1.n), (a[1].c0.n, a[1].c1.n))
+
+
+def words_affine(c, words, k):
+    """(G, 3, [2,] 12) Jacobian words on the card → affine canonical ints
+    per row (None: ∞), converted on the host."""
+    from grandine_tpu_torch.crypto.fields import Fq2
+
+    out = []
+    for row in words.cpu():
+        x, y, z = (c.L.words_to_ints(row[i].reshape(-1, 12)) for i in range(3))
+        if not any(z):
+            out.append(None)
+        elif k == 1:
+            zi = pow(z[0], -1, c.P)
+            out.append((x[0] * zi * zi % c.P, y[0] * zi ** 3 % c.P))
+        else:
+            X, Y, Z = (Fq2.from_ints(*v) for v in (x, y, z))
+            zi = Z.inv()
+            ax, ay = X * zi * zi, Y * zi * zi * zi
+            out.append(((ax.c0.n, ax.c1.n), (ay.c0.n, ay.c1.n)))
+    return out
+
+
+def host_msm(terms, infinity, phi):
+    """Σ (r0 + r1·λ)·P over host (point, (r0, r1)) terms: the 2N points P,
+    φ(P) with their 32-bit halves, 4-bit windows from the top, each window's
+    buckets summed by the running-sum trick — plain host arithmetic, no
+    device code and none of the port's plans."""
+    pts = [(q, s) for p, (r0, r1) in terms for q, s in ((p, r0), (phi(p), r1))]
+    acc = infinity
+    for win in range(7, -1, -1):
+        for _ in range(4):
+            acc = acc.double()
+        buckets = [infinity] * 16
+        for q, s in pts:
+            d = (s >> (4 * win)) & 15
+            if d:
+                buckets[d] = buckets[d] + q
+        run = total = infinity
+        for d in range(15, 0, -1):
+            run = run + buckets[d]
+            total = total + run
+        acc = acc + total
+    return acc
+
+
+def msm_phase(c):
+    """The Pippenger bucket MSM (gpu/msm.py, csrc/msm.cu) on the card. Its
+    three kernels against their plain versions, G1 and G2, on edge rows,
+    the composed sums equal to the host anchor's; the grouped route of
+    `TorchBlsBackend.multi_verify` on the unaggregated and sync slots,
+    valid, forged and swapped, every MSM launch held against its plain
+    version word for word and the valid runs' sums equal to the host
+    anchor's; the window sweep of gpu/autotune.py at the route's cells,
+    its table compared with the port's committed msm_tune.json; the G2
+    bucket MSM beside the ladder plane (multi_rlc_scale + g2_group_sum)
+    on the same signature rows at the gossip, block and window shapes,
+    timed and compared, deciding no route. Returns the timed rows of the three
+    kernels at the route's shapes."""
+    torch, np, A, B, M = c.torch, c.np, c.A, c.B, c.M
+    from grandine_tpu_torch.crypto.curves import endo_constants
+    from grandine_tpu_torch.crypto.fields import Fq, Fq2
+    from grandine_tpu_torch.gpu import autotune
+
+    t_phase = time.perf_counter()
+    at, dev = c.at, c.dev
+    names = ("msm_lane_scan", "msm_bucket_reduce", "msm_horner")
+
+    # -- edge rows ------------------------------------------------------------
+    for k, n, g, w, lanes in MSM_EDGE:
+        plan, (x, y, live), want = msm_edge_case(c, k, n, g, w, lanes,
+                                                 0x3C00 + n)
+        arr = M.upload_plan(plan, dev).arrays
+        where = (f"edge rows, G{k}, {n} points in {g} groups, w = {w}, "
+                 f"{plan.point_idx.shape[1]} lanes")
+        emit = M.msm_lane_scan(x, y, live, *arr[:3])
+        c.same("msm_lane_scan", emit,
+               M.msm_lane_scan_plain(x, y, live, *arr[:3]), where)
+        totals = M.msm_bucket_reduce(emit, *arr[3:])
+        c.same("msm_bucket_reduce", totals,
+               M.msm_bucket_reduce_plain(emit, *arr[3:]), where)
+        out = M.msm_horner(totals, g, w)
+        c.same("msm_horner", out, M.msm_horner_plain(totals, g, w), where)
+        if words_affine(c, out, k) != want:
+            fail(f"msm edge rows ({where}): sums differ from the host anchor")
+    log(f"msm edge rows: {len(MSM_EDGE)} cases (∞ rows, a masked row, P and "
+        f"−P, duplicates, zero halves, an empty group), every sum the host "
+        f"anchor's {at}")
+
+    # -- the grouped route, every launch recorded -------------------------------
+    (bx, by), (wx, wy) = (endo_constants()[g] for g in ("g1", "g2"))
+
+    def phi(p, k):
+        a = p.to_affine()
+        if a is None:
+            return p
+        if k == 1:
+            return c.Point.from_affine(a[0] * Fq(bx), a[1] * Fq(by), c.B1)
+        return c.Point.from_affine(a[0] * Fq2.from_ints(wx, 0),
+                                   a[1] * Fq2.from_ints(wy, 0), c.B2)
+
+    recs = {name: Recorder(M, name, lambda *a: a) for name in names}
+    route_ops = {}  # (shape, field) -> the valid run's operands a kernel
+    route_launches = {}  # (shape, field) -> the valid run's launches a kernel
+    anchor_s = 0.0
+    for rec in recs.values():
+        rec.__enter__()
+    try:
+        for where, (ml, sl, kl) in c.shapes.items():
+            groups = B.message_groups(ml)
+            forged = list(sl)
+            forged[7] = sl[8]
+            other = next((i for i, m in enumerate(ml) if m != ml[3]), 4)
+            swapped = list(sl)
+            swapped[3], swapped[other] = sl[other], sl[3]
+            for variant, s_l in (("valid", sl), ("forged", forged),
+                                 ("swapped", swapped)):
+                seed = 0x5EED + len(ml) + len(route_ops)
+                first = {n_: len(r.calls) for n_, r in recs.items()}
+                c.count_reset()
+                v = c.backend.multi_verify(ml, s_l, kl, rng=SimpleNamespace(
+                    randbits=random.Random(seed).getrandbits))
+                torch.cuda.synchronize()
+                launches = {k_: n_ for k_, n_ in c.count_read().items() if n_}
+                log(f"msm grouped route, {where}, {variant}: -> {v}; "
+                    f"launches {json.dumps(launches)}")
+                if v is not (variant == "valid") or \
+                        launches != GROUPED_LAUNCHES:
+                    fail(f"msm grouped route, {where}, {variant}: verdict or "
+                         f"launches")
+                if variant != "valid":
+                    continue
+                for k in (1, 2):  # G1 then G2: each kernel's k-th call
+                    route_ops[(where, k)] = {
+                        n_: recs[n_].calls[first[n_] + k - 1] for n_ in names}
+                    # this run's launches of each instance (the wrappers
+                    # count G1 and G2 together): Jacobian words out are
+                    # (…, 3, 12) in G1, (…, 3, 2, 12) in G2
+                    route_launches[(where, k)] = {
+                        n_: sum(out.dim() - 2 == k
+                                for _, out in recs[n_].calls[first[n_]:])
+                        for n_ in names}
+                    if set(route_launches[(where, k)].values()) != {1}:
+                        fail(f"msm grouped route, {where}: G{k} launches "
+                             f"{route_launches[(where, k)]}, one a kernel "
+                             f"expected")
+                # the host anchor: the route's pairs (its draw replayed),
+                # in message order
+                t0 = time.perf_counter()
+                draw = SimpleNamespace(
+                    randbits=random.Random(seed).getrandbits)
+                pairs = {i: B.TorchBlsBackend._rlc_pair(draw)
+                         for ix in groups.values() for i in ix}
+                g1 = [host_msm([(kl[i].point, pairs[i]) for i in ix],
+                               c.G1.mul(0), lambda p: phi(p, 1))
+                      for ix in groups.values()]
+                g2 = host_msm([(sl[i].point, pairs[i]) for i in pairs],
+                              c.G2.mul(0), lambda p: phi(p, 2))
+                anchor_s += time.perf_counter() - t0
+                got1 = words_affine(c, route_ops[(where, 1)]["msm_horner"][1],
+                                    1)
+                got2 = words_affine(c, route_ops[(where, 2)]["msm_horner"][1],
+                                    2)
+                if got1 != [host_affine(p, 1) for p in g1] or \
+                        got2 != [host_affine(g2, 2)]:
+                    fail(f"msm grouped route, {where}: the sums differ from "
+                         f"the host anchor's")
+                log(f"msm grouped route, {where}: {len(groups)} key sums and "
+                    f"the signature sum equal the host anchor's affine points "
+                    f"{at}")
+    finally:
+        for rec in recs.values():
+            rec.__exit__()
+    worst = {}
+    for name, rec in recs.items():
+        plain = getattr(M, name + "_plain")
+        err = 0
+        for args, out in rec.calls:
+            err = max(err, c.same(name, out, plain(*args),
+                                  "every launch of the grouped route"))
+        worst[name] = (err, len(rec.calls))
+    log(f"msm: every grouped-route launch held against its plain version "
+        f"({json.dumps(worst)} (max |kernel - plain|, launches)); host "
+        f"anchor sums {anchor_s:.1f} s (host) {at}")
+
+    # -- the window sweep ----------------------------------------------------------
+    t0 = time.perf_counter()
+    times = {}
+    table = autotune.sweep(repeats=3, verbose=None, times=times, device=dev)
+    for (key, field, w), ms in sorted(times.items()):
+        log(f"msm sweep {key} G{field} w={w}: {ms:.3f} ms (plan upload and "
+            f"the three kernels, CUDA events, best of 3) {at}")
+    # the committed table is left as it is: a sweep that disagrees is
+    # reported, and `python -m grandine_tpu_torch.gpu.autotune` run by
+    # hand is what rewrites it
+    path = B.msm_tune_path()
+    committed = B.load_msm_tuning(path) or {}
+    log(f"msm window sweep ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(dict(sorted(table.items())))}; the committed table "
+        f"{os.path.relpath(path, HERE)}: "
+        f"{json.dumps(dict(sorted(committed.items())))} — "
+        f"{'the same' if committed == table else 'they differ'} {at}")
+
+    # -- the G2 bucket MSM beside the ladders ---------------------------------
+    def cuda_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    for where, scale in c.ladder_shapes.items():
+        src_x, src_y, idx, sx, sy, mask, r01 = scale
+        n = idx.shape[0]
+        r = r01.cpu().numpy().view(np.uint32).astype(np.uint64)
+        t0 = time.perf_counter()
+        plan = M.plan_msm(r[:, 0], r[:, 1], mask.cpu().numpy(), None, 1,
+                          window_bits=B.pick_msm_window(n, 1))
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        on_card = M.upload_plan(plan, dev)
+        live = ~mask
+
+        def ladder():
+            return B.g2_group_sum(
+                B.multi_rlc_scale(src_x, src_y, idx, sx, sy, mask, r01)[1],
+                [0, n])
+
+        ladder_ms = cuda_ms(ladder)
+        msm_ms = cuda_ms(lambda: M.msm_bucket_sum(sx, sy, live, plan))
+        kern_ms = cuda_ms(lambda: M.msm_bucket_sum(sx, sy, live, on_card))
+        a_l = words_affine(c, ladder(), 2)
+        a_m = words_affine(c, M.msm_bucket_sum(sx, sy, live, on_card), 2)
+        if a_l != a_m:
+            fail(f"msm beside the ladders, {where}: the G2 sums differ")
+        log(f"msm beside ladders, {where}, {n} signature rows: G2 bucket MSM "
+            f"(w = {plan.window_bits}, S×T = {plan.point_idx.shape[0]}×"
+            f"{plan.point_idx.shape[1]}, J = {plan.gather_idx.shape[0]}) "
+            f"{kern_ms:.3f} ms for its three kernels, {msm_ms:.3f} ms with "
+            f"the plan's upload (host plan {plan_ms:.1f} ms before it); "
+            f"multi_rlc_scale (G1 and G2 ladders) + g2_group_sum "
+            f"{ladder_ms:.3f} ms; same sum; MSM / ladders "
+            f"{kern_ms / ladder_ms:.3f} — measured, deciding no route {at}")
+
+    # -- the timed rows: each kernel at the route's shapes -----------------------
+    rows = []
+    for (where, k), ops_k in route_ops.items():
+        tag = f"grouped route, {where}, G{k}"
+        px, py, live, pidx, valid, flush = ops_k["msm_lane_scan"][0]
+        emit, gidx, gvalid = ops_k["msm_bucket_reduce"][0]
+        totals, n_groups, wbits = ops_k["msm_horner"][0]
+        n = px.shape[0]
+        pidx_h, valid_h, flush_h = (t.cpu().numpy() for t in (pidx, valid,
+                                                              flush))
+        live_h = live.cpu().numpy()
+        e = pidx_h[valid_h]
+        entries = int((live_h[np.where(e < n, e, e - n)]).sum())
+        phis = int((live_h[np.where(e < n, e, e - n)] & (e >= n)).sum())
+        flushes = int(flush_h.sum())
+        J, n_sec, n_dig = gidx.shape
+        gvalid_h = gvalid.cpu().numpy()
+        pieces = int(gvalid_h.sum())
+        piece_adds = pieces - int(gvalid_h.any(axis=0).sum())
+        n_l = route_launches[(where, k)]
+        pt = 144 * k
+        suffix = "" if k == 1 else "/g2"
+        rows += [
+            ("msm_lane_scan", tag,
+             lambda a=ops_k["msm_lane_scan"][0]: M.msm_lane_scan(*a),
+             lambda a=ops_k["msm_lane_scan"][0]: M.msm_lane_scan_plain(*a), 5,
+             c.ops.msm_scan(k, entries, phis, flushes),
+             n * (2 * 48 * k + 1) + pidx_h.size * 6 + flushes * pt,
+             "grandine_tpu/tpu/msm.py:244", n_l["msm_lane_scan"],
+             "msm_lane_scan" + suffix),
+            ("msm_bucket_reduce", tag,
+             lambda a=ops_k["msm_bucket_reduce"][0]: M.msm_bucket_reduce(*a),
+             lambda a=ops_k["msm_bucket_reduce"][0]:
+             M.msm_bucket_reduce_plain(*a), 5,
+             c.ops.msm_reduce(k, piece_adds, pieces, n_sec, n_dig),
+             J * n_sec * n_dig * 5 + pieces * pt + n_sec * pt,
+             "grandine_tpu/tpu/msm.py:244", n_l["msm_bucket_reduce"],
+             "msm_bucket_reduce" + suffix),
+            ("msm_horner", tag,
+             lambda a=ops_k["msm_horner"][0]: M.msm_horner(*a),
+             lambda a=ops_k["msm_horner"][0]: M.msm_horner_plain(*a), 5,
+             c.ops.msm_horner(k, n_groups, n_sec // n_groups, wbits),
+             n_sec * pt + n_groups * pt,
+             "grandine_tpu/tpu/msm.py:244", n_l["msm_horner"],
+             "msm_horner" + suffix),
+        ]
+    log(f"msm phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> None:
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "grandine_tpu_torch", "csrc")):
@@ -2920,12 +3394,14 @@ def main() -> None:
     from grandine_tpu_torch.gpu import ed25519 as GE
     from grandine_tpu_torch.gpu import kzg as GK
     from grandine_tpu_torch.gpu import limbs as L
+    from grandine_tpu_torch.gpu import msm as M
     from grandine_tpu_torch.gpu import pairing as TP
     from grandine_tpu_torch.gpu import spans as GS
     from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
     from grandine_tpu_torch.consensus.verifier import (
         SignatureInvalid, TorchVerifier)
-    from grandine_tpu_torch.crypto.curves import B1, Point, g2_infinity
+    from grandine_tpu_torch.crypto.curves import (
+        B1, B2, G2, LAMBDA, Point, g2_infinity)
     from grandine_tpu_torch.crypto.fields import Fq
     from grandine_tpu_torch.gpu.schemes import (
         dispatch_bls_compressed, dispatch_bls_host_decompress)
@@ -2965,6 +3441,9 @@ def main() -> None:
         "g1_normalize": B.g1_normalize,
         "g2_normalize": B.g2_normalize,
         "unpack_words": B.unpack_words,
+        "msm_lane_scan": M.msm_lane_scan,
+        "msm_bucket_reduce": M.msm_bucket_reduce,
+        "msm_horner": M.msm_horner,
     }
 
     # 1. build ---------------------------------------------------------------
@@ -3529,18 +4008,14 @@ def main() -> None:
                                len(ml)):
             fail(f"{where}: the JAX package's rule does not group it")
         count_reset()
-        with recording_finish() as fin_rec, Recorder(
-                B, "g1_group_sum",
-                lambda rows, offsets: (rows, np.asarray(offsets))) as sum_rec:
+        with recording_finish() as fin_rec:
             v = backend.multi_verify(ml, sl, kl)
             torch.cuda.synchronize()
-        grouped_records[where] = (fin_rec.calls[0], sum_rec.calls[0],
-                                  count_read())
+        grouped_records[where] = (fin_rec.calls[0], count_read())
         log(f"grouped route, {where}: valid -> {v}; launches "
-            f"{json.dumps(grouped_records[where][2])}")
-        if v is not True or any(grouped_records[where][2][k] != 1 for k in (
-                "g1_group_sum", "multi_rlc_scale", "miller_loop_pairs",
-                "rlc_finish", "g2_subgroup_check")):
+            f"{json.dumps(grouped_records[where][1])}")
+        if v is not True or {k: n for k, n in grouped_records[where][1].items()
+                             if n} != GROUPED_LAUNCHES:
             fail(f"{where}: the valid batch or its launches")
         forged = list(sl)
         forged[7] = sl[8]
@@ -3668,7 +4143,8 @@ def main() -> None:
         full_sign=sign_ctx.full_sign, count_reset=count_reset,
         count_read=count_read))
 
-    # 13. timings -------------------------------------------------------------
+    # 14. timings: the main-path operands of every kernel (phase 13 takes
+    # the gossip, block and window signature planes from here too) --------
     def cuda_ms(fn, reps):
         out = fn()  # warm-up; its result is held against the plain version
         torch.cuda.synchronize()
@@ -3747,6 +4223,20 @@ def main() -> None:
 
     blk = flat_operands(block, block_backend)
     win = flat_operands(window, window_backend)
+
+    # 13. the Pippenger bucket MSM: edge rows, the grouped route's launches,
+    # the window sweep, the G2 plane beside the ladders ------------------------
+    first_member = torch.tensor([mm[0] for mm in members], dtype=torch.int32,
+                                device=dev)
+    msm_rows = msm_phase(SimpleNamespace(
+        torch=torch, np=np, A=A, B=B, M=M, L=L, P=P, R=R, G1=G1, G2=G2,
+        Point=Point, B1=B1, B2=B2, LAMBDA=LAMBDA, dev=dev, at=at, same=same,
+        ops=ops, backend=backend, shapes=shapes, count_reset=count_reset,
+        count_read=count_read, ladder_shapes={
+            f"gossip batch, M = {m_aggs}": (
+                rx, ry, first_member, dec[0], dec[1], dec[2] | ~dec[3], r01),
+            f"block, N = {n_sets}": blk[1],
+            f"window, N = {len(window)}": win[1]}))
     gossip = f"gossip batch, M = {m_aggs}"
     timed = [
         ("g1_decompress", lambda: C.g1_decompress(raw_t),
@@ -3796,7 +4286,7 @@ def main() -> None:
                  ops.miller * n, n * (144 + 96 + 1 + 576),
                  "grandine_tpu/tpu/pairing.py:208"),
                 ("rlc_finish", where, lambda a=fin_f: B.rlc_finish(*a),
-                 lambda a=fin_f: B.rlc_finish_plain(*a), 5,
+                 partial(B.rlc_finish_plain, *fin_f), 5,
                  ops.finish([(n, n)]), n * (576 + 288 + 3) + 1,
                  "grandine_tpu/tpu/bls.py:162"),
             ]
@@ -3814,49 +4304,44 @@ def main() -> None:
         timed.append((
             "rlc_finish", f"{where}, partition G = {g_n}",
             lambda a=record[0]: B.rlc_finish(*a),
-            lambda a=record[0]: B.rlc_finish_plain(*a), 3,
+            partial(B.rlc_finish_plain, *record[0]), 3,
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:177",
             loc_launches["wide" if where == wide_where else
                          where.split(", ", 1)[1]]["rlc_finish"],
             "rlc_finish/partition" if wide else "rlc_finish"))
     for where in reversed(list(shapes)):
-        fin_rec, sum_rec, path_launches = grouped_records[where]
-        (rows_g, off_g), _ = sum_rec
-        counts = np.diff(off_g).tolist()
-        timed.append((
-            "g1_group_sum", f"grouped route, {where}",
-            lambda a=(rows_g, off_g): B.g1_group_sum(*a),
-            lambda a=(rows_g, off_g): B.g1_group_sum_plain(*a), 5,
-            ops.group_sum(counts), rows_g.shape[0] * 144
-            + len(counts) * (144 + 4) + 4, "grandine_tpu/tpu/bls.py:483",
-            path_launches["g1_group_sum"], "g1_group_sum"))
+        fin_rec, path_launches = grouped_records[where]
         groups, nbytes = finish_shape(fin_rec)
         timed.append((
             "rlc_finish", f"grouped route, {where}",
             lambda a=fin_rec[0]: B.rlc_finish(*a),
-            lambda a=fin_rec[0]: B.rlc_finish_plain(*a), 3,
+            partial(B.rlc_finish_plain, *fin_rec[0]), 3,
             ops.finish(groups), nbytes,
             "grandine_tpu/tpu/bls.py:483", path_launches["rlc_finish"],
             "rlc_finish"))
     timed += (sign_rows + kzg_rows + sched_rows + slasher_rows + mesh_rows
-              + reference_rows)
-    for where, (ops_r, verdict_r) in finish_records:
-        if where in timed_finish:
-            continue
-        same("rlc_finish", verdict_r, B.rlc_finish_plain(*ops_r),
-             f"main-path operands, {where}, partition G = "
-             f"{len(ops_r[5]) - 1}")
+              + reference_rows + msm_rows)
+    # rlc_finish calls checked in batched plain calls after the table
+    # (finish_plain_batched): every other recorded partition pass, and
+    # the timed rows of a kernels-line entry already timed at its first
+    # shape, whose plain time is not taken again
+    finish_checks = [
+        (f"main-path operands, {where}, partition G = {len(ops_r[5]) - 1}",
+         ops_r, verdict_r)
+        for where, (ops_r, verdict_r) in finish_records
+        if where not in timed_finish]
 
     report = []
     sources = {name: src for src, names in _build.LIBRARIES.items()
                for name in names}
+    sources.update({name: "msm.cu" for name in ("msm_lane_scan",
+                                                "msm_bucket_reduce",
+                                                "msm_horner")})
     for row in timed:
         name, where, kern, plain, reps, fp_muls, nbytes, replaces = row[:8]
         source = sources[name]
         ms, got = cuda_ms(kern, reps)
-        p_ms, ref = plain_ms(plain)
-        err = same(name, got, ref, f"main-path operands, {where}")
         b_ms, b_by = bound_ms(fp_muls, nbytes, sms, clock_hz,
                               *row[10:11])
         # launches: on the gossip path for its kernels, on the block path
@@ -3864,6 +4349,16 @@ def main() -> None:
         n_l = row[8] if len(row) > 8 else (
             launches if where == gossip else block_launches)[name]
         entry = row[9] if len(row) > 9 else name
+        if name == "rlc_finish" and entry in errs:
+            finish_checks.append((f"main-path operands, {where}",
+                                  plain.args, got))
+            log(f"time {name} ({where}): kernel {ms:.3f} ms, plain in the "
+                f"batched check below, bound {b_ms:.4f} ms ({b_by}; "
+                f"{fp_muls} field products, {nbytes} B), library none, "
+                f"launches on its path {n_l} {at}")
+            continue
+        p_ms, ref = plain_ms(plain)
+        err = same(name, got, ref, f"main-path operands, {where}")
         # the library column: stock PyTorch computing the same function,
         # where it can (the span grid's plain torch.where / minimum /
         # maximum expression), by CUDA events after warm-up
@@ -3885,6 +4380,14 @@ def main() -> None:
             "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
+    t0 = time.perf_counter()
+    refs = finish_plain_batched(B, torch, np, [ops for _, ops, _ in
+                                               finish_checks])
+    for (where, _, got), ref in zip(finish_checks, refs, strict=True):
+        same("rlc_finish", got, ref, where)
+    log(f"rlc_finish: {len(finish_checks)} calls held against batched "
+        f"plain calls over their {sum(r.shape[0] for r in refs)} groups in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # end to end: host prep apart from device time --------------------------
     # "warm": the same batch again, its 12 signing roots' hash-to-G2 points

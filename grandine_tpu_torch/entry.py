@@ -14,7 +14,9 @@
 The host layouts the reference-only programs take (`flat_batch`,
 `grouped_batch`, `firehose_batch`, `packed_signatures`) build their
 operands from host points: canonical words, ∞ rows as zero words under a
-True mask, padding rows and slots all-∞, as the JAX package pads them.
+True mask, padding rows and slots all-∞, as the JAX package pads them;
+`grouped_plans` builds the MSM programs' plans from a grouped batch's
+pairs.
 """
 
 from __future__ import annotations
@@ -108,6 +110,27 @@ def grouped_batch(members, messages, pairs, bm=None, bk=None):
             r01.reshape(bm, bk, 2))
 
 
+def grouped_plans(grouped, g1_bits=None, g2_bits=None, lanes=None):
+    """The reference's MSM plans of a `grouped_batch` (its numpy arrays),
+    the operands `gpu.bls.grouped_multi_verify_msm_kernel` and the packed
+    program take after the first eight arrays of the batch: the RLC pairs
+    and ∞ masks in the k-major point order (point f = k·M + m is member
+    (m, k), its group f mod M), windows `pick_msm_window(n, M)` and
+    `pick_msm_window(n, 1)` over the n slots not all-∞ unless given →
+    (the ten plan arrays, {g1_windows, g1_wbits, g2_windows, g2_wbits})."""
+    pk_inf, sig_inf, r01 = grouped[2], grouped[5], grouped[8]
+    m, k = pk_inf.shape
+    n = max(1, int((~(pk_inf & sig_inf)).sum()))
+    g1, g2 = B.grouped_plans(
+        np.asarray(r01).transpose(1, 0, 2).reshape(-1, 2),
+        np.asarray(pk_inf).T.reshape(-1), np.asarray(sig_inf).T.reshape(-1),
+        np.arange(m * k) % m, m, g1_bits or B.pick_msm_window(n, m),
+        g2_bits or B.pick_msm_window(n, 1), lanes)
+    return g1.arrays + g2.arrays, {
+        "g1_windows": g1.windows, "g1_wbits": g1.window_bits,
+        "g2_windows": g2.windows, "g2_wbits": g2.window_bits}
+
+
 def firehose_batch(member_keys, signatures, messages, pairs, bm=None,
                    bk=None):
     """Operands of `gpu.bls.aggregate_fast_verify_kernel` as numpy arrays:
@@ -137,7 +160,9 @@ def packed_signatures(sig_x, sig_y) -> np.ndarray:
     """(…, 2, 12) affine signature words → (…, 4, 13) int32 in the packed
     transfer format (x.c0, x.c1, y.c0, y.c1; `limbs.pack_fp_words_host`
     row by row), the signature plane of
-    `gpu.bls.grouped_multi_verify_msm_packed_kernel`."""
+    `gpu.bls.grouped_multi_verify_msm_packed_kernel` (which takes
+    `grouped_batch`'s arrays with this in place of sig_x, sig_y, then the
+    plans of `grouped_plans`)."""
     coords = np.concatenate([np.asarray(sig_x), np.asarray(sig_y)], -2)
     return np.concatenate(
         [coords, np.zeros(coords.shape[:-1] + (1,), np.int32)], -1)
@@ -197,9 +222,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     by message as the reference regroups it (member k of group m is row
     k·m' + m of the flat batch, m' = n) through
     `make_sharded_multi_verify_msm` with buckets (m, k) and RLC pairs from
-    numpy's default_rng(3), the reference's draw. The reference's grouped
-    pass takes Pippenger plans (`sharded_msm_plans`); the port's sums with
-    per-row ladders and takes none.
+    numpy's default_rng(3), the reference's draw; the callable builds the
+    reference's Pippenger plans (`sharded_msm_plans`) from those pairs.
 
     The reference's last check concerns XLA's compile cache: its factory
     returns the same cached executable and a re-dispatch runs warm. The
@@ -252,5 +276,5 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
 
 
 __all__ = ["entry", "example_batch", "dryrun_multichip", "flat_batch",
-           "grouped_batch", "firehose_batch", "packed_signatures",
-           "PAD_PAIR"]
+           "grouped_batch", "grouped_plans", "firehose_batch",
+           "packed_signatures", "PAD_PAIR"]

@@ -48,6 +48,9 @@ LIBRARIES = {
     "kzg.cu": ("g1_scalar_mul",),
     "ed25519.cu": ("ed25519_verify",),
     "spans.cu": ("span_update_grid",),
+    "msm.cu": ("g1_msm_lane_scan", "g2_msm_lane_scan",
+               "g1_msm_bucket_reduce", "g2_msm_bucket_reduce",
+               "g1_msm_horner", "g2_msm_horner"),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
 #: the deepest kernel's need (ptxas "cumulative stack size") rounded up to
@@ -88,6 +91,11 @@ SIGNATURES = {
     "g1_normalize": [_vp, _i, _vp, _vp],
     "g2_normalize": [_vp, _i, _vp, _vp],
     "unpack_words": [_vp, _i, _vp],
+    **{f"g{k}_msm_lane_scan": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _i, _vp]
+       for k in (1, 2)},
+    **{f"g{k}_msm_bucket_reduce": [_vp, _vp, _vp, _i, _i, _i, _vp]
+       for k in (1, 2)},
+    **{f"g{k}_msm_horner": [_vp, _i, _i, _i, _vp] for k in (1, 2)},
 }
 
 _lock = threading.Lock()

@@ -19,9 +19,10 @@ kinds of batches run on the same kernels:
   multi_verify_msm{,_idx,_comp};
 
   message-grouped (N sets over M ≤ N/2 messages — a sync-committee slot,
-  unaggregated attestations): multi_rlc_scale, g1_group_sum (this module:
-  Σᵢ∈ⱼ rᵢ·pkᵢ per message), M Miller loops, rlc_finish over M message
-  terms and N signature terms — replacing grouped_multi_verify_msm;
+  unaggregated attestations): the Pippenger bucket MSM (gpu/msm.py, over
+  plans the host builds from the RLC pairs) for Σᵢ∈ⱼ rᵢ·pkᵢ per message
+  and for Σᵢ rᵢ·sigᵢ, M Miller loops, rlc_finish over M message terms and
+  one signature term — replacing grouped_multi_verify_msm;
 
   RLC partition (the fault localizer's passes): the flat kernels with
   rlc_finish giving one verdict per contiguous group of sets —
@@ -47,8 +48,9 @@ and g1_aggregate_kernel.
 The JAX package's reference-only programs (no runtime caller there;
 `__graft_entry__.entry` runs the flagship one) have their counterparts here
 on the same kernels: `multi_verify_kernel`, `grouped_multi_verify_kernel`,
-`aggregate_fast_verify_kernel` and `grouped_multi_verify_msm_packed_kernel`
-(with `unpack_words` for its packed signature plane), beside
+`aggregate_fast_verify_kernel`, `grouped_multi_verify_msm_kernel` and
+`grouped_multi_verify_msm_packed_kernel` (both on the reference's MSM
+plans; `unpack_words` for the packed signature plane), beside
 `batch_pubkey` (the G1 twin of `batch_sign`) and `g1_normalize` /
 `g2_normalize` (Jacobian → affine on the card).
 
@@ -61,6 +63,8 @@ the card's behalf.
 from __future__ import annotations
 
 import ctypes
+import json
+import os
 import secrets
 import threading
 from collections import OrderedDict
@@ -279,10 +283,11 @@ def g1_group_sum(rows, offsets):
     G1 instance of `group_sum<F>`) on CUDA tensors, the plain version on
     CPU tensors.
 
-    Replaces, in grandine_tpu/tpu/bls.py grouped_multi_verify_msm_kernel
-    (:483), the per-message key MSM Σᵢ∈ⱼ rᵢ·pkᵢ of `_grouped_msm_verify_tail`
-    (:461-466), given the rᵢ·pkᵢ that `multi_rlc_scale` computes per set
-    (the bucket MSM is queued as a perf item); and g1_aggregate_kernel
+    Replaces, in grandine_tpu/tpu/bls.py grouped_multi_verify_kernel
+    (:322), the per-message sum of the rᵢ·pkᵢ that `multi_rlc_scale`
+    computes per set (curve.py sum_points_grouped); in
+    make_sharded_multi_verify_msm (:1258) the reduce of the shards' group
+    sums (reduce_over_devices, :1286-1305); and g1_aggregate_kernel
     (:1010, curve.py sum_points_contiguous) behind `g1_aggregate_groups`.
     One block of 128 threads per group: a strided loop of complete
     additions, then the shared-memory tree. Bound: operations — one
@@ -912,22 +917,41 @@ def verify_sets(src_x, src_y, idx, plane, msg, pair_inf, r01, offsets=None):
                       offsets)
 
 
-def verify_grouped(src_x, src_y, idx, plane, offsets, msg, msg_inf, r01,
-                   pk_inf=None):
-    """One message-grouped RLC verification: N sets ordered by message,
-    message j owning sets offsets[j] … offsets[j+1] − 1 (host ints), M
-    messages. Σᵢ∈ⱼ rᵢ·pkᵢ per message (`g1_group_sum` over the rᵢ·pkᵢ of
-    `multi_rlc_scale`; a set whose `pk_inf` is set adds ∞), M Miller
-    loops, one finish over M message terms and N signature terms. Returns
-    the (1,) uint8 verdict tensor without waiting for it."""
+def verify_grouped(pk_x, pk_y, plane, msg, msg_inf, g1_plan, g2_plan,
+                   pk_live=None):
+    """One message-grouped RLC verification of N sets in any row order:
+    pk_x, pk_y (N, 12) affine key words with pk_live (N,) (None: every
+    key live), the signature plane of the same N rows, msg (M, 2, 2, 12)
+    with msg_inf (M,); g1_plan an `msm.MsmPlan` over the N keys in M
+    groups (set i in its message's group) and g2_plan a one-group plan over
+    the N signatures, both from the sets' RLC pairs (host arrays, or
+    tensors on the device). Σᵢ∈ⱼ rᵢ·pkᵢ per message and Σᵢ rᵢ·sigᵢ by the
+    bucket MSM (a key not live and a masked signature row add ∞), M Miller
+    loops with pair_inf = (Σ ∞) | msg_inf, one finish over M message terms
+    and one signature term, the rows' decode and subgroup flags folded to
+    one. Returns the (1,) uint8 verdict tensor without waiting for it."""
     sx, sy, mask, ok, sub = plane
-    rpk, rsig = multi_rlc_scale(src_x, src_y, idx, sx, sy, mask, r01)
-    if pk_inf is not None:  # Z = 0: the group sum takes the row as ∞
-        rpk[:, 2].masked_fill_(pk_inf.unsqueeze(-1), 0)
-    gpk = g1_group_sum(rpk, offsets)
+    if pk_live is None:
+        pk_live = torch.ones((pk_x.shape[0],), dtype=torch.bool,
+                             device=pk_x.device)
+    gpk = msm.msm_bucket_sum(pk_x, pk_y, pk_live, g1_plan)
+    ssum = msm.msm_bucket_sum(sx, sy, ~mask, g2_plan)
     gpk_inf = (gpk[:, 2] == 0).all(-1)
     f = TP.miller_loop_pairs(gpk, msg, gpk_inf | msg_inf)
-    return rlc_finish(f, rsig, torch.zeros_like(msg_inf), ok, sub)
+    return rlc_finish(f, ssum, torch.zeros_like(msg_inf), ok.all().reshape(1),
+                      sub.all().reshape(1))
+
+
+def grouped_plans(r01, pk_inf, sig_inf, group_of_set, n_groups: int,
+                  g1_bits: int, g2_bits: int, lanes: "int | None" = None):
+    """The two `msm.MsmPlan`s of `verify_grouped` from host arrays: r01
+    (N, 2) RLC halves (int32 words read as uint32), pk_inf and sig_inf (N,)
+    ∞ rows (dropped by the plans), group_of_set (N,) in [0, n_groups)."""
+    r = np.asarray(r01).view(np.uint32).astype(np.uint64).reshape(-1, 2)
+    return (msm.plan_msm(r[:, 0], r[:, 1], pk_inf, group_of_set, n_groups,
+                         window_bits=g1_bits, lanes=lanes),
+            msm.plan_msm(r[:, 0], r[:, 1], sig_inf, None, 1,
+                         window_bits=g2_bits, lanes=lanes))
 
 
 # --- the reference-only programs ---------------------------------------------
@@ -977,21 +1001,59 @@ def multi_verify_kernel(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf, msg,
 
 
 def _grouped_program(name, pk_x, pk_y, pk_inf, sx, sy, sig_inf, msg,
-                     msg_inf, r01, check_subgroup: int):
-    """The grouped programs' common tail: (M, K) member slots taken
-    row-major (slot (m, k) is set m·K + k with its own r01[m, k], the row
-    the reference's k-major flattening `_flat_km` also gives member (m,
-    k)), `verify_grouped` over groups of K with the ∞ members masked."""
+                     msg_inf, r01):
+    """`grouped_multi_verify_kernel`'s tail on the ladders: (M, K) member
+    slots taken row-major (slot (m, k) is set m·K + k with its own
+    r01[m, k], the row the reference's k-major flattening `_flat_km` also
+    gives member (m, k)), rᵢ·pkᵢ and rᵢ·sigᵢ by `multi_rlc_scale`, the ∞
+    members' Z set to 0, Σ a group by `g1_group_sum`, M Miller loops, one
+    finish over M message terms and M·K signature terms."""
     m, k = pk_inf.shape
     _expect(name, (pk_x, (m, k, 12)), (pk_y, (m, k, 12)), (sig_inf, (m, k)),
             (msg, (m, 2, 2, 12)), (msg_inf, (m,)), (r01, (m, k, 2)))
     n = m * k
-    plane = _signature_operands(sx.reshape(n, 2, 12), sy.reshape(n, 2, 12),
-                                sig_inf.reshape(n), check_subgroup)
+    sx, sy, mask, ok, sub = _signature_operands(
+        sx.reshape(n, 2, 12), sy.reshape(n, 2, 12), sig_inf.reshape(n), 0)
     idx = torch.arange(n, dtype=torch.int32, device=pk_inf.device)
-    return verify_grouped(pk_x.reshape(n, 12), pk_y.reshape(n, 12), idx,
-                          plane, range(0, n + 1, k), msg.contiguous(),
-                          msg_inf, r01.reshape(n, 2), pk_inf.reshape(n))
+    rpk, rsig = multi_rlc_scale(pk_x.reshape(n, 12), pk_y.reshape(n, 12), idx,
+                                sx, sy, mask, r01.reshape(n, 2))
+    rpk[:, 2].masked_fill_(pk_inf.reshape(n, 1), 0)  # Z = 0: the sum takes ∞
+    gpk = g1_group_sum(rpk, range(0, n + 1, k))
+    gpk_inf = (gpk[:, 2] == 0).all(-1)
+    f = TP.miller_loop_pairs(gpk, msg.contiguous(), gpk_inf | msg_inf)
+    return rlc_finish(f, rsig, torch.zeros_like(msg_inf), ok, sub)
+
+
+def _k_major(t):
+    """(M, K, …) member slots → (K·M, …) rows, member (m, k) at row k·M + m:
+    the reference's `_flat_km`, the point order of its MSM plans."""
+    return t.transpose(0, 1).reshape((-1,) + tuple(t.shape[2:])).contiguous()
+
+
+def _grouped_msm_program(name, pk_x, pk_y, pk_inf, sx, sy, sig_inf, msg,
+                         msg_inf, plans, g1_windows, g1_wbits, g2_windows,
+                         g2_wbits, check_subgroup: int):
+    """The MSM programs' common tail (the reference's
+    `_grouped_msm_verify_tail`, tpu/bls.py:450-480): the (M, K) slots in
+    the plans' k-major order, the signature plane with the ψ check where
+    asked, `verify_grouped` over the reference's ten plan arrays (an ∞ key
+    not live, an ∞ signature masked)."""
+    m, k = pk_inf.shape
+    _expect(name, (pk_x, (m, k, 12)), (pk_y, (m, k, 12)), (sx, (m, k, 2, 12)),
+            (sy, (m, k, 2, 12)), (sig_inf, (m, k)), (msg, (m, 2, 2, 12)),
+            (msg_inf, (m,)))
+    if len(plans) != 10:
+        raise ValueError(f"{name}: expected the ten plan arrays, got "
+                         f"{len(plans)}")
+    plane = _signature_operands(_k_major(sx), _k_major(sy), _k_major(sig_inf),
+                                check_subgroup)
+    g1 = msm.MsmPlan(*plans[:5], n_groups=m, windows=g1_windows,
+                     window_bits=g1_wbits)
+    g2 = msm.MsmPlan(*plans[5:], n_groups=1, windows=g2_windows,
+                     window_bits=g2_wbits)
+    return verify_grouped(_k_major(pk_x), _k_major(pk_y), plane,
+                          msg.contiguous(), msg_inf, g1, g2,
+                          ~_k_major(pk_inf))
 
 
 def grouped_multi_verify_kernel(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf,
@@ -1010,8 +1072,7 @@ def grouped_multi_verify_kernel(pk_x, pk_y, pk_inf, sig_x, sig_y, sig_inf,
     _expect("grouped_multi_verify_kernel", (sig_x, (m, k, 2, 12)),
             (sig_y, (m, k, 2, 12)))
     return _grouped_program("grouped_multi_verify_kernel", pk_x, pk_y,
-                            pk_inf, sig_x, sig_y, sig_inf, msg, msg_inf, r01,
-                            0)
+                            pk_inf, sig_x, sig_y, sig_inf, msg, msg_inf, r01)
 
 
 def aggregate_fast_verify_kernel(mem_x, mem_y, mem_inf, slot_pad, sig_x,
@@ -1049,32 +1110,53 @@ def aggregate_fast_verify_kernel(mem_x, mem_y, mem_inf, slot_pad, sig_x,
     return rlc_finish(f, rsig, agg_inf & ~slot_pad, ok, sub)
 
 
+def grouped_multi_verify_msm_kernel(pk_x, pk_y, pk_inf, sig_x, sig_y,
+                                    sig_inf, msg, msg_inf, *plans,
+                                    g1_windows: int, g1_wbits: int,
+                                    g2_windows: int, g2_wbits: int,
+                                    check_subgroup: int = 0):
+    """Message-grouped RLC verify with both scalar planes as bucket MSMs,
+    the counterpart of grandine_tpu/tpu/bls.py
+    grouped_multi_verify_msm_kernel (:483): the slots as
+    `grouped_multi_verify_kernel`'s (no r01: the RLC scalars travel in
+    the plans), then the reference's ten plan arrays — g1_pidx, g1_valid,
+    g1_flush, g1_gidx, g1_gvalid of the M-group key MSM and the same five
+    of the one-group signature MSM, over the k-major point order (point
+    f = k·M + m is member (m, k), its group f mod M; `entry.grouped_plans`)
+    — with each plan's windows and window bits. With check_subgroup set,
+    the signatures' G2 membership folds into the verdict (∞ rows pass).
+    Launches `msm_lane_scan`, `msm_bucket_reduce` and `msm_horner` for
+    each plane, `miller_loop_pairs` and `rlc_finish` (and where set
+    `g2_subgroup_check`)."""
+    return _grouped_msm_program(
+        "grouped_multi_verify_msm_kernel", pk_x, pk_y, pk_inf, sig_x, sig_y,
+        sig_inf, msg, msg_inf, plans, g1_windows, g1_wbits, g2_windows,
+        g2_wbits, check_subgroup)
+
+
 def grouped_multi_verify_msm_packed_kernel(pk_x, pk_y, pk_inf, sig_words,
-                                           sig_inf, msg, msg_inf, r01,
+                                           sig_inf, msg, msg_inf, *plans,
+                                           g1_windows: int, g1_wbits: int,
+                                           g2_windows: int, g2_wbits: int,
                                            check_subgroup: int = 0):
-    """`grouped_multi_verify_kernel` with the signature plane uploaded in
-    the packed transfer format, the counterpart of grandine_tpu/tpu/bls.py
-    grouped_multi_verify_msm_packed_kernel (:527): sig_words (M, K, 4, 13)
-    int32 — x.c0, x.c1, y.c0, y.c1 of each member's signature as 13
-    words read as uint32 (`limbs.pack_fp_words_host`), 52 bytes a
+    """`grouped_multi_verify_msm_kernel` with the signature plane uploaded
+    in the packed transfer format, the counterpart of grandine_tpu/tpu/
+    bls.py grouped_multi_verify_msm_packed_kernel (:527): sig_words (M, K,
+    4, 13) int32 — x.c0, x.c1, y.c0, y.c1 of each member's signature as
+    13 words read as uint32 (`limbs.pack_fp_words_host`), 52 bytes a
     coordinate against 48 of canonical words here (104 of the reference's
-    limbs) — the rest as `grouped_multi_verify_kernel`. With
-    check_subgroup set, the signatures' G2 membership folds into the
-    verdict (∞ rows pass), as the reference's `_fused_subgroup_mask`. It
-    takes no MSM plan: the port sums the groups and the signature terms
-    with per-row ladders (`multi_rlc_scale`, `g1_group_sum`; the
-    reference's Pippenger plans `plan_msm` come with its bucket MSM, a
-    later slice); parity is in verdicts. Launches `unpack_words`, where
-    set `g2_subgroup_check`, then `multi_rlc_scale`, `g1_group_sum`,
-    `miller_loop_pairs` and `rlc_finish`."""
+    limbs) — the rest, the ten plan arrays included, as
+    `grouped_multi_verify_msm_kernel`. Launches `unpack_words`, then that
+    program's kernels."""
     m, k = pk_inf.shape
     _expect("grouped_multi_verify_msm_packed_kernel",
             (sig_words, (m, k, 4, 13)))
-    coords = unpack_words(sig_words.reshape(m * k, 4, 13))
-    return _grouped_program("grouped_multi_verify_msm_packed_kernel", pk_x,
-                            pk_y, pk_inf, coords[:, 0:2].contiguous(),
-                            coords[:, 2:4].contiguous(), sig_inf, msg,
-                            msg_inf, r01, check_subgroup)
+    coords = unpack_words(sig_words.reshape(m * k, 4, 13)).reshape(
+        m, k, 4, 12)
+    return _grouped_msm_program(
+        "grouped_multi_verify_msm_packed_kernel", pk_x, pk_y, pk_inf,
+        coords[:, :, 0:2], coords[:, :, 2:4], sig_inf, msg, msg_inf, plans,
+        g1_windows, g1_wbits, g2_windows, g2_wbits, check_subgroup)
 
 
 # --- the sharded verify programs -----------------------------------------------
@@ -1154,6 +1236,50 @@ def make_sharded_multi_verify(mesh, check_subgroup: int = 0):
     return sharded_multi_verify_fn
 
 
+def sharded_msm_plans(r_lo, r_hi, pk_inf, sig_inf, n_dev: int):
+    """Per-shard MsmPlans of the sharded grouped verify, the port's copy of
+    grandine_tpu/tpu/bls.py sharded_msm_plans (:1207): the (M, K) batch is
+    sharded over K, so shard d's scalars are the k-major rows kk ∈
+    [d·K/D, (d+1)·K/D) (r_lo, r_hi (K·M,) in that order; pk_inf, sig_inf
+    (M, K)). Every shard shares one (windows, window_bits, S, T, J) shape,
+    J padded to the fleet's largest. Returns (g1_arrays, g2_arrays,
+    g1_plan0, g2_plan0), *_arrays the MsmPlan.arrays stacked on a leading
+    shard axis."""
+    m, k = pk_inf.shape
+    if k % n_dev:
+        raise ValueError("K must divide over the mesh")
+    k_loc = k // n_dev
+    r_lo = np.asarray(r_lo, np.uint64).reshape(k, m)
+    r_hi = np.asarray(r_hi, np.uint64).reshape(k, m)
+    pk_inf_km = np.asarray(pk_inf, bool).T  # (K, M)
+    sig_inf_km = np.asarray(sig_inf, bool).T
+    groups_loc = np.arange(k_loc * m) % m
+    g1_w = pick_msm_window(k_loc * m, m)
+    g2_w = pick_msm_window(k_loc * m, 1)
+    g1_plans, g2_plans = [], []
+    for d in range(n_dev):
+        sl = slice(d * k_loc, (d + 1) * k_loc)
+        lo = r_lo[sl].reshape(-1)
+        hi = r_hi[sl].reshape(-1)
+        g1_plans.append(msm.plan_msm(lo, hi, pk_inf_km[sl].reshape(-1),
+                                     groups_loc, m, window_bits=g1_w))
+        g2_plans.append(msm.plan_msm(lo, hi, sig_inf_km[sl].reshape(-1), None,
+                                     1, window_bits=g2_w))
+
+    def stack(plans):
+        j_max = max(p.gather_idx.shape[0] for p in plans)
+
+        def pad_j(a):
+            pad = np.zeros((j_max - a.shape[0],) + a.shape[1:], a.dtype)
+            return np.concatenate([a, pad], axis=0)
+
+        cols = list(zip(*(p.arrays for p in plans)))
+        return tuple(np.stack([pad_j(a) if i >= 3 else a for a in col])
+                     for i, col in enumerate(cols))
+
+    return stack(g1_plans), stack(g2_plans), g1_plans[0], g2_plans[0]
+
+
 def make_sharded_multi_verify_msm(mesh, check_subgroup: int = 0):
     """The message-grouped RLC verify sharded over `mesh`
     (grandine_tpu/tpu/bls.py make_sharded_multi_verify_msm :1258). The
@@ -1161,17 +1287,19 @@ def make_sharded_multi_verify_msm(mesh, check_subgroup: int = 0):
     sig_x, sig_y, sig_inf, r01 as the flat callable's), the M + 1 message
     offsets, msg (M, 2, 2, 12) with msg_inf (M,), and the JAX package's
     buckets bm ≥ M and bk ≥ the widest group, both divided by the mesh.
-    Shard d owns members `member_range(bk, d)` of every group: its
-    `multi_rlc_scale`, `g1_group_sum` (M partial group sums, ∞ for a
-    group with no member there) and `g2_group_sum` (one G2 partial). The
-    M·D G1 partials reduce on the first device with `g1_group_sum`, D rows
-    a group (the reference's reduce_over_devices, :1286-1305). The Miller
-    plane is sharded by message (:1353-1367): shard d pairs groups [d·bm/D,
-    (d+1)·bm/D) ∩ [0, M) with their sums, then `rlc_partial` over those
-    terms and its own members' signature flags. Then the gather and one
-    `rlc_finish`. The group sums come from per-row ladders, not the
-    reference's Pippenger scan: parity is in points and verdicts. Returns
-    the (1,) uint8 verdict tensor without waiting."""
+    It lays the sets out as the reference's (bm, bk) member slots (∞
+    padding) and builds the reference's plans from the pairs
+    (`sharded_msm_plans`). Shard d owns members `member_range(bk, d)` of
+    every group, k-major: its G1 MSM with bm groups and its one-group G2
+    MSM (the bucket MSM's three kernels each; :1328-1345), and where it
+    holds a real member its signature plane. The bm·D G1 partials reduce
+    on the first device with `g1_group_sum`, D rows a group, for the M
+    real groups (the reference's reduce_over_devices, :1286-1305). The
+    Miller plane is sharded by message (:1353-1367): shard d pairs groups
+    [d·bm/D, (d+1)·bm/D) ∩ [0, M) with their sums, then `rlc_partial`
+    over those terms and its own members' signature flags. Then the
+    gather and one `rlc_finish` over D terms of each kind. Returns the
+    (1,) uint8 verdict tensor without waiting."""
     d_count = mesh.device_count
 
     def sharded_multi_verify_msm_fn(pk_x, pk_y, sig_x, sig_y, sig_inf,
@@ -1183,31 +1311,48 @@ def make_sharded_multi_verify_msm(mesh, check_subgroup: int = 0):
         if m > bm or counts.max() > bk:  # members past bk go unverified
             raise ValueError(f"{m} groups of up to {counts.max()} do not fit "
                              f"buckets ({bm}, {bk})")
+        if not (mesh.divides(bm) and mesh.divides(bk)):
+            raise ValueError(f"buckets ({bm}, {bk}) do not shard over "
+                             f"{d_count} devices")
+        # the reference's (bm, bk) slots: member kk of group j is set
+        # starts[j] + kk where kk < counts[j], padding (∞) elsewhere
+        kk = np.arange(bk)
+        real = np.zeros((bm, bk), bool)
+        real[:m] = kk[None, :] < counts[:, None]
+        row_of = np.zeros((bm, bk), np.int64)
+        row_of[:m] = starts[:, None] + kk[None, :]
+        row_of[~real] = 0
+        r = np.asarray(r01).view(np.uint32).astype(np.uint64).reshape(-1, 2)
+        r_km = np.where(real[..., None], r[row_of], 0).transpose(1, 0, 2)
+        sig_pad = ~real | np.asarray(sig_inf, bool)[row_of]
+        g1_arrays, g2_arrays, g1_0, g2_0 = sharded_msm_plans(
+            r_km[..., 0].reshape(-1), r_km[..., 1].reshape(-1), ~real,
+            sig_pad, d_count)
         g1_parts, s_parts, member_flags = [], [], []
         for d in range(d_count):
             klo, khi = mesh.member_range(bk, d)
-            take = np.clip(counts, klo, khi) - klo  # members here a group
-            rows = np.concatenate([np.arange(s + klo, s + klo + t)
-                                   for s, t in zip(starts, take)]).astype(
-                                       np.int64)
-            px, py, sx, sy, sinf, r, idx = mesh.put(
-                [a[rows] for a in (pk_x, pk_y, sig_x, sig_y, sig_inf, r01)]
-                + [np.arange(rows.size, dtype=np.int32)], d)
-            if rows.size:
-                sx, sy, mask, ok, sub = _signature_operands(sx, sy, sinf,
-                                                     check_subgroup)
-                rpk, rsig = multi_rlc_scale(px, py, idx, sx, sy, mask, r)
-            else:  # no group reaches this shard's members
-                ok = sub = sinf
-                rpk = px.new_zeros((0, 3, 12))
-                rsig = px.new_zeros((0, 3, 2, 12))
-            g1_parts.append(g1_group_sum(rpk, np.concatenate(
-                [[0], np.cumsum(take)])))
-            s_parts.append(g2_group_sum(rsig, [0, rows.size]))
+            rows = row_of[:, klo:khi].T.reshape(-1)  # k-major: kk·bm + j
+            live = real[:, klo:khi].T.reshape(-1)
+            zero = ~live[:, None]
+            put = mesh.put(
+                [np.where(zero, np.int32(0), a[rows]) for a in (pk_x, pk_y)]
+                + [np.where(zero[..., None], np.int32(0), a[rows])
+                   for a in (sig_x, sig_y)]
+                + [sig_pad[:, klo:khi].T.reshape(-1), live]
+                + [a[d] for a in g1_arrays + g2_arrays], d)
+            px, py, sx, sy, sinf, plive = put[:6]
+            sx, sy, mask, ok, sub = _signature_operands(
+                sx, sy, sinf, check_subgroup if live.any() else 0)
+            g1 = msm.MsmPlan(*put[6:11], n_groups=bm, windows=g1_0.windows,
+                             window_bits=g1_0.window_bits)
+            g2 = msm.MsmPlan(*put[11:], n_groups=1, windows=g2_0.windows,
+                             window_bits=g2_0.window_bits)
+            g1_parts.append(msm.msm_bucket_sum(px, py, plive, g1))
+            s_parts.append(msm.msm_bucket_sum(sx, sy, ~mask, g2))
             member_flags.append((ok, sub))
-        # D partials a group, group-major: offsets every D
-        rows = mesh.gather(g1_parts).view(d_count, m, 3, 12).transpose(0, 1)
-        gpk = g1_group_sum(rows.reshape(m * d_count, 3, 12),
+        # D partials a real group, group-major: offsets every D
+        rows = mesh.gather(g1_parts).view(d_count, bm, 3, 12)[:, :m]
+        gpk = g1_group_sum(rows.transpose(0, 1).reshape(m * d_count, 3, 12),
                            range(0, m * d_count + 1, d_count))
         f_parts, flag_parts = [], []
         for d, (ok, sub) in enumerate(member_flags):
@@ -1244,6 +1389,83 @@ def _bucket(n: int, lo: int = 4, hi: int = MAX_BUCKET) -> int:
     if b > hi:
         raise ValueError(f"batch of {n} exceeds max bucket {hi}")
     return b
+
+
+# --- the MSM window table -----------------------------------------------------
+#
+# The port's counterpart of grandine_tpu/tpu/bls.py:356-447: a measured
+# sweep (gpu/autotune.py, on the card) persists its winning window widths
+# as {"windows": {"<n_points>:<n_groups>": w}} in the port's own table,
+# gpu/msm_tune.json beside this module; pick_msm_window consults it first
+# (keys quantised to the pow-2 buckets of `_bucket`) and otherwise the op
+# model decides. The JAX package's tools/shapes/msm_tune.json holds TPU
+# windows and is never read.
+
+_MSM_TUNE: "dict | None" = None
+_MSM_TUNE_LOCK = threading.Lock()
+
+
+def msm_tune_path() -> str:
+    """The port's window table: gpu/msm_tune.json beside this module."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "msm_tune.json")
+
+
+def load_msm_tuning(path: "str | None" = None) -> "dict | None":
+    """The {"<n>:<g>": w} table (cached for the default path), or None
+    when the file is absent or unreadable — the op model then stands
+    alone. Entries outside 4–8 or not integers are dropped one by one."""
+    global _MSM_TUNE
+    with _MSM_TUNE_LOCK:
+        if _MSM_TUNE is not None and path is None:
+            return _MSM_TUNE or None
+        try:
+            with open(path or msm_tune_path(), encoding="utf-8") as fh:
+                raw = json.load(fh)
+            table = {}
+            for k, v in dict(raw.get("windows", {})).items():
+                try:
+                    w = int(v)
+                except (ValueError, TypeError):
+                    continue
+                if 4 <= w <= 8:
+                    table[str(k)] = w
+        except (OSError, ValueError, TypeError, AttributeError):
+            table = {}
+        if path is None:
+            _MSM_TUNE = table
+        return table or None
+
+
+def set_msm_tuning(table: "dict | None") -> None:
+    """Install a window table ({"<n>:<g>": w}; {} for none), or None to
+    drop the cache so that the next lookup reads the file again."""
+    global _MSM_TUNE
+    with _MSM_TUNE_LOCK:
+        _MSM_TUNE = None if table is None else {
+            str(k): int(v) for k, v in table.items()
+        }
+
+
+def pick_msm_window(n_points: int, n_groups: int = 1) -> int:
+    """The window width of an MSM over n_points in n_groups: the table's
+    entry for ("%d:%d" % (_bucket(n_points), _bucket(n_groups, lo=1)))
+    where it has one, else the width in 4–8 that minimises the op model
+    W·2N + 2w·G·W·2^w (scan work plus suffix and reduce work), as
+    grandine_tpu/tpu/bls.py pick_msm_window."""
+    table = load_msm_tuning()
+    if table:
+        key = "%d:%d" % (_bucket(n_points), _bucket(max(1, n_groups), lo=1))
+        w = table.get(key)
+        if w is not None:
+            return w
+    best, best_cost = 4, None
+    for w in range(4, 9):
+        W = (32 + w - 1) // w
+        cost = W * 2 * n_points + 2 * w * n_groups * W * (1 << w)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = w, cost
+    return best
 
 
 def message_groups(messages) -> "dict[bytes, list[int]]":
@@ -1775,30 +1997,35 @@ class TorchBlsBackend:
         `_grouped_multi_verify_async`, tpu/bls.py:2069): the sets in
         message order, one RLC pair each drawn in that order, set i's key
         row i of the host key words (fx, fy). Over the mesh where D divides
-        both buckets (tpu/bls.py:2102-2112), else on one device."""
+        both buckets (tpu/bls.py:2102-2112), else on one device: the G1
+        and G2 plans built here on the host from the pairs, with the
+        reference's windows pick_msm_window(n, bm) and pick_msm_window(n,
+        1) (tpu/bls.py:2112-2122), then `verify_grouped`."""
         order = np.fromiter((i for ix in groups.values() for i in ix),
                             np.int32, count=len(signatures))
         offsets = np.cumsum([0] + [len(ix) for ix in groups.values()])
         bm = _bucket(len(groups))
         bk = _bucket(int(np.diff(offsets).max()))
+        n = len(order)
+        sx, sy, sinf = g2_affine_words_many([signatures[i].point
+                                             for i in order])
+        msg, msg_inf = self._message_words(list(groups), dst)
+        pairs = rlc_pairs_words([self._rlc_pair(rng) for _ in range(n)])
         mesh = self.mesh
         if (mesh is not None and bm % mesh.device_count == 0
                 and bk % mesh.device_count == 0):
-            sx, sy, sinf = g2_affine_words_many(
-                [signatures[i].point for i in order])
-            msg, msg_inf = self._message_words(list(groups), dst)
-            pairs = [self._rlc_pair(rng) for _ in range(len(order))]
             fn = sharded_multi_verify_msm(
                 mesh, check_subgroup=int(self.fuse_subgroup))
             return self._settle(fn(fx[order], fy[order], sx, sy, sinf,
-                                   offsets, msg, msg_inf,
-                                   rlc_pairs_words(pairs), bm, bk))
-        plane = self._sig_plane([signatures[i] for i in order], False)
-        msg, msg_inf = self._messages(list(groups), dst)
-        pairs = [self._rlc_pair(rng) for _ in range(len(order))]
+                                   offsets, msg, msg_inf, pairs, bm, bk))
+        g1_plan, g2_plan = grouped_plans(
+            pairs, np.zeros((n,), bool), sinf,
+            np.repeat(np.arange(len(groups)), np.diff(offsets)), len(groups),
+            pick_msm_window(n, bm), pick_msm_window(n, 1))
+        plane = signature_plane(self._up(sx), self._up(sy), self._up(sinf))
         return self._settle(verify_grouped(
-            self._up(fx), self._up(fy), self._up(order), plane, offsets, msg,
-            msg_inf, self._up(rlc_pairs_words(pairs))))
+            self._up(fx[order]), self._up(fy[order]), plane, self._up(msg),
+            self._up(msg_inf), g1_plan, g2_plan))
 
     # -- flat seams ------------------------------------------------------------
 
@@ -2096,5 +2323,8 @@ __all__ = [
     "g1_normalize", "g1_normalize_plain", "g2_normalize",
     "g2_normalize_plain", "unpack_words", "unpack_words_plain",
     "multi_verify_kernel", "grouped_multi_verify_kernel",
-    "aggregate_fast_verify_kernel", "grouped_multi_verify_msm_packed_kernel",
+    "aggregate_fast_verify_kernel", "grouped_multi_verify_msm_kernel",
+    "grouped_multi_verify_msm_packed_kernel", "grouped_plans",
+    "sharded_msm_plans", "msm_tune_path", "load_msm_tuning",
+    "set_msm_tuning", "pick_msm_window",
 ]

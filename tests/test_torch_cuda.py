@@ -20,6 +20,7 @@ from grandine_tpu_torch.crypto.hash_to_curve import (
 from grandine_tpu_torch.gpu import bls as B
 from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.gpu import msm as M
 from grandine_tpu_torch.gpu import pairing as TP
 from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
 from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
@@ -331,11 +332,15 @@ def test_grouped_and_partition_on_the_card(signer_sets, cuda_device):
 
     msgs, sigs, pks = signer_sets
     be = B.TorchBlsBackend(device=cuda_device)
-    before = B.g1_group_sum.launches
+    wrappers = (M.msm_lane_scan, M.msm_bucket_reduce, M.msm_horner,
+                B.g1_group_sum, B.multi_rlc_scale)
+    before = [fn.launches for fn in wrappers]
     assert be.multi_verify(msgs, sigs, pks) is True
     swapped = [sigs[1], sigs[0]] + sigs[2:]
     assert be.multi_verify(msgs, swapped, pks) is False
-    assert B.g1_group_sum.launches == before + 2
+    # the bucket MSM once a plane and verify, no ladder and no group sum
+    assert [fn.launches - b for fn, b in zip(wrappers, before)] == [
+        4, 4, 4, 0, 0]
     keys = [[k] for k in pks]
     keys[6] = []
     for groups in (4, 8):
@@ -863,17 +868,86 @@ def test_reference_programs_on_the_card(cuda_device):
     fh[3] = np.array([False, False, True, True])  # the pair's slot padding
     assert B.aggregate_fast_verify_kernel(*up(fh)).item() == 1
     assert C.g2_subgroup_check.launches == before
-    packed = list(grp)
+    plans, kw = E.grouped_plans(grp)
+    assert B.grouped_multi_verify_msm_kernel(
+        *up(list(grp[:8]) + list(plans)), **kw).item() == 1
+    packed = list(grp[:8])
     packed[3:5] = [E.packed_signatures(grp[3], grp[4])]
     assert B.grouped_multi_verify_msm_packed_kernel(
-        *up(packed), check_subgroup=1).item() == 1
+        *up(packed + list(plans)), **kw, check_subgroup=1).item() == 1
     assert C.g2_subgroup_check.launches == before + 1
     nonsub = map_to_curve_g2(hash_to_field_fq2(b"ng-0", b"SGT", 1)[0])
     bad = list(members)
     bad[1] = [members[1][0], (pk[4], nonsub)]
     bgrp = E.grouped_batch(bad, hs, [pairs[:3], pairs[3:]], 2, 4)
-    bpacked = list(bgrp)
+    bpacked = list(bgrp[:8])
     bpacked[3:5] = [E.packed_signatures(bgrp[3], bgrp[4])]
+    bplans, bkw = E.grouped_plans(bgrp)
     assert B.grouped_multi_verify_msm_packed_kernel(
-        *up(bpacked), check_subgroup=1).item() == 0
+        *up(bpacked + list(bplans)), **bkw, check_subgroup=1).item() == 0
     E.dryrun_multichip(2)
+
+
+# --- the bucket MSM ----------------------------------------------------------
+
+
+def _msm_case(k, n, n_groups, w, seed, lanes):
+    """Points (four distinct bases, so duplicates share buckets), one ∞, a
+    point and its negation under the same scalar and group, a zero scalar
+    and a zero low half, the last group empty, one live row masked off on
+    the device; the plan of their scalars. Numpy arrays and the plan."""
+    from grandine_tpu_torch.crypto.curves import G2, g1_infinity
+
+    rng = random.Random(seed)
+    gen = G1 if k == 1 else G2
+    base = [gen.mul(rng.randrange(1, 1 << 64)) for _ in range(4)]
+    pts = [base[rng.randrange(4)] for _ in range(n)]
+    pts[1] = g1_infinity() if k == 1 else g2_infinity()
+    pts[2] = -pts[4]
+    lo = [rng.randrange(0, 1 << 32) for _ in range(n)]
+    hi = [rng.randrange(0, 1 << 32) for _ in range(n)]
+    lo[2], hi[2] = lo[4], hi[4]
+    lo[5] = hi[5] = 0
+    lo[6] = 0
+    groups = [rng.randrange(0, max(1, n_groups - 1)) for _ in range(n)]
+    groups[2] = groups[4]
+    inf = np.array([p.is_infinity() for p in pts])
+    plan = M.plan_msm(lo, hi, inf, groups, n_groups, window_bits=w,
+                      lanes=lanes)
+    if k == 1:
+        x = np.zeros((n, 12), np.int32)
+        y = np.zeros((n, 12), np.int32)
+        x[~inf], y[~inf] = B.g1_affine_words([p for p in pts
+                                             if not p.is_infinity()])
+    else:
+        x, y, _ = B.g2_affine_words_many(pts)
+    live = ~inf
+    live[8] = False
+    return x, y, live, plan
+
+
+@pytest.mark.parametrize("k,n,groups,w,lanes", [
+    (1, 37, 5, 4, 64), (1, 30, 3, 8, 40), (2, 17, 1, 5, 64),
+    (2, 40, 2, 8, 64), (1, 1562, 16, 4, None), (2, 1562, 1, 6, None),
+    (2, 512, 1, 8, None)])
+def test_msm_kernels_match_plain(cuda_device, k, n, groups, w, lanes):
+    """msm_lane_scan, msm_bucket_reduce and msm_horner, G1 (k = 1) and G2,
+    each against its plain version on the same operands, word for word: a
+    lane count not a multiple of 32, B = 256 digits (72 KiB of shared
+    memory a G2 block), the grouped route's shapes; one launch each."""
+    x, y, live, plan = _msm_case(k, n, groups, w, 0xC0F0 + n, lanes)
+    px, py, lv = (torch.from_numpy(a.copy()).to(cuda_device)
+                  for a in (x, y, live))
+    a = M.upload_plan(plan, cuda_device).arrays
+    before = [fn.launches for fn in (M.msm_lane_scan, M.msm_bucket_reduce,
+                                     M.msm_horner)]
+    emit = M.msm_lane_scan(px, py, lv, *a[:3])
+    _equal((emit,), (M.msm_lane_scan_plain(px, py, lv, *a[:3]),))
+    totals = M.msm_bucket_reduce(emit, *a[3:])
+    _equal((totals,), (M.msm_bucket_reduce_plain(emit, *a[3:]),))
+    out = M.msm_horner(totals, groups, w)
+    _equal((out,), (M.msm_horner_plain(totals, groups, w),))
+    assert [fn.launches for fn in (M.msm_lane_scan, M.msm_bucket_reduce,
+                                   M.msm_horner)] == [b + 1 for b in before]
+    if groups > 1:  # the last group holds no point: ∞
+        assert out[-1, 2].abs().sum().item() == 0

@@ -19,7 +19,8 @@ from grandine_tpu.crypto import bls as JA
 from grandine_tpu.crypto.constants import DST_SIGNATURE, P, R
 from grandine_tpu.crypto.curves import G1, G2
 from grandine_tpu.crypto.fields import Fq2
-from grandine_tpu.crypto.hash_to_curve import hash_to_g2
+from grandine_tpu.crypto.hash_to_curve import (
+    hash_to_field_fq2, hash_to_g2, map_to_curve_g2)
 from grandine_tpu.tpu import field as JF
 from grandine_tpu.tpu import limbs as JL
 from grandine_tpu.tpu import pairing as JP
@@ -172,15 +173,17 @@ def sets():
     return msgs, sig_bytes, pkb
 
 
-def _port(sets_, sig_bytes=None):
+def _port(sets_, sig_bytes=None, subgroup_check=True):
     msgs, sb, pkb = sets_
-    return (msgs, [PA.Signature.from_bytes(s) for s in (sig_bytes or sb)],
+    return (msgs, [PA.Signature(PA.g2_from_bytes(s, subgroup_check))
+                   for s in (sig_bytes or sb)],
             [PA.PublicKey.from_bytes(k) for k in pkb])
 
 
 def _jax(sets_, sig_bytes=None):
     msgs, sb, pkb = sets_
-    return (msgs, [JA.Signature.from_bytes(s) for s in (sig_bytes or sb)],
+    return (msgs, [JA.Signature(JA.g2_from_bytes(s, subgroup_check=False))
+                   for s in (sig_bytes or sb)],
             [JA.PublicKey.from_bytes(k) for k in pkb])
 
 
@@ -231,25 +234,95 @@ def test_finish_threads_follow_the_span():
 # --- the grouped route end to end -----------------------------------------------
 
 
-@pytest.mark.parametrize("variant", ["valid", "forged", "cross_group_swap"])
+_NONSUB = JA.g2_to_bytes(map_to_curve_g2(
+    hash_to_field_fq2(b"grouped-ng", b"SGT", 1)[0]))
+
+
+@pytest.mark.parametrize("variant", ["valid", "forged", "cross_group_swap",
+                                     "inf_key", "outside_g2"])
 def test_grouped_verdicts_match_jax_host(sets, variant):
     """multi_verify on 8 sets over 2 messages takes the grouped route and
     gives the JAX host multi_verify's verdict: valid True, a signature
     forged within its message group False, two signatures swapped across
-    the groups False."""
+    the groups False, a signature outside G2 False (the route's fused
+    subgroup check); an ∞ key is refused by both before any route."""
     msgs, sb, pkb = sets
     sig_bytes = list(sb)
     if variant == "forged":
         sig_bytes[2] = sb[4]
     elif variant == "cross_group_swap":
         sig_bytes[0], sig_bytes[1] = sb[1], sb[0]
+    elif variant == "outside_g2":
+        sig_bytes[5] = _NONSUB
+    port = _port(sets, sig_bytes, subgroup_check=False)
+    jax_ = _jax(sets, sig_bytes)
+    if variant == "inf_key":
+        port[2][3] = PA.PublicKey(PA.PublicKey.aggregate([]).point)
+        jax_[2][3] = JA.PublicKey(G1.mul(0))
     be = B.TorchBlsBackend(device="cpu")
     taken = []
     grouped = be._grouped_multi_verify_async
     be._grouped_multi_verify_async = lambda *a: taken.append(1) or grouped(*a)
-    got = be.multi_verify(*_port(sets, sig_bytes), rng=_bits(6))
-    want = JA.multi_verify(*_jax(sets, sig_bytes), rng=_bits(7))
-    assert taken and got is want is (variant == "valid")
+    got = be.multi_verify(*port, rng=_bits(6))
+    want = JA.multi_verify(*jax_, rng=_bits(7))
+    assert bool(taken) is (variant != "inf_key")
+    assert got is want is (variant == "valid")
+
+
+def test_grouped_route_runs_the_bucket_msm(sets, monkeypatch):
+    """The route's launches, kernels stood in by shape-only stubs: the
+    bucket MSM once a plane — the keys in message order with their
+    message as group, the signatures in one group — on the plans of the
+    drawn pairs at the reference's windows (pick_msm_window(n, bm) and
+    pick_msm_window(n, 1)), then M Miller loops and one finish over M
+    message terms and one signature term with the rows' flags folded; no
+    ladder and no group sum."""
+    calls = {}
+
+    def rec(name, out):
+        def fn(*args):
+            calls.setdefault(name, []).append(args)
+            return out(*args)
+        return fn
+
+    monkeypatch.setattr(msm, "msm_bucket_sum", rec(
+        "msm_bucket_sum", lambda px, py, live, plan: torch.ones(
+            (plan.n_groups, 3) + tuple(px.shape[1:]), dtype=torch.int32)))
+    monkeypatch.setattr(TP, "miller_loop_pairs", rec(
+        "miller_loop_pairs", lambda g, m, i: torch.zeros(
+            (g.shape[0], 2, 3, 2, 12), dtype=torch.int32)))
+    monkeypatch.setattr(B, "rlc_finish", rec(
+        "rlc_finish", lambda *a: torch.ones((1,), dtype=torch.uint8)))
+    for name in ("multi_rlc_scale", "g1_group_sum", "g2_group_sum"):
+        monkeypatch.setattr(B, name, rec(name, None))
+    msgs, sigs, pks = _port(sets)
+    assert B.TorchBlsBackend(device="cpu").multi_verify(
+        msgs, sigs, pks, rng=_bits(8)) is True
+    order = [i for i in range(N_KEYS) if msgs[i] == msgs[0]] + [
+        i for i in range(N_KEYS) if msgs[i] != msgs[0]]
+    draw = _bits(8)
+    pairs = [B.TorchBlsBackend._rlc_pair(draw) for _ in order]
+    lo, hi = (np.array(c, np.uint64) for c in zip(*pairs))
+    n, bm = N_KEYS, B._bucket(2)
+    (g1x, _, g1_live, g1), (g2x, _, _, g2) = calls["msm_bucket_sum"]
+    want = (msm.plan_msm(lo, hi, np.zeros(n, bool), [0] * 4 + [1] * 4, 2,
+                         window_bits=B.pick_msm_window(n, bm)),
+            msm.plan_msm(lo, hi, np.zeros(n, bool), None, 1,
+                         window_bits=B.pick_msm_window(n, 1)))
+    for got_p, want_p in zip((g1, g2), want):
+        assert (got_p.n_groups, got_p.window_bits) == (want_p.n_groups,
+                                                       want_p.window_bits)
+        for a, b in zip(got_p.arrays, want_p.arrays, strict=True):
+            assert np.array_equal(a, b)
+    fx, _ = B.g1_affine_words([pks[i].point for i in order])
+    assert np.array_equal(g1x.numpy(), fx) and g1_live.all()
+    assert g2x.shape == (n, 2, 12)
+    (gpk, _, _), = calls["miller_loop_pairs"]
+    assert gpk.shape == (2, 3, 12)
+    (_f, ssum, _ai, ok, sub), = calls["rlc_finish"]
+    assert ssum.shape == (1, 3, 2, 12) and ok.shape == sub.shape == (1,)
+    assert set(calls) == {"msm_bucket_sum", "miller_loop_pairs",
+                          "rlc_finish"}
 
 
 class _Route(Exception):

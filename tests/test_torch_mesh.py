@@ -22,6 +22,7 @@ from grandine_tpu.tpu.registry import DevicePubkeyRegistry as JaxRegistry
 from grandine_tpu_torch.crypto import bls as PA
 from grandine_tpu_torch.gpu import bls as B
 from grandine_tpu_torch.gpu import curve as C
+from grandine_tpu_torch.gpu import msm as M
 from grandine_tpu_torch.gpu import pairing as TP
 from grandine_tpu_torch.gpu import schemes
 from grandine_tpu_torch.gpu.mesh import (
@@ -405,6 +406,12 @@ def test_every_shard_operand_sits_on_its_shard(route, monkeypatch):
                            torch.int32)], B)
     stub("g2_group_sum", [(lambda n, a: (1, 3, 2, 12), torch.int32)], B)
     stub("rlc_finish", [(lambda n, a: (1,), torch.uint8)], B)
+    stub("msm_lane_scan", [(lambda n, a: (a[3].numel(), 3)
+                            + tuple(a[0].shape[1:]), torch.int32)], M)
+    stub("msm_bucket_reduce", [(lambda n, a: (a[1].shape[1], 3)
+                                + tuple(a[0].shape[2:]), torch.int32)], M)
+    stub("msm_horner", [(lambda n, a: (a[1], 3) + tuple(a[0].shape[2:]),
+                         torch.int32)], M)
     widths = [1] * 5 if route == "flat" else [5, 2, 1]
     sks = [rng.randrange(1, R) for _ in range(sum(widths))]
     msgs = [b"place-%d" % j + bytes(24)
@@ -428,6 +435,9 @@ def test_every_shard_operand_sits_on_its_shard(route, monkeypatch):
             assert by[name] == [0, 1, 2], name
         assert by["g2_group_sum"] == [0, 1, 2, 3]
     else:  # bk = 8: members 0-1, 2-3, 4 and none; bm = 4: groups 0, 1, 2
-        assert by["multi_rlc_scale"] == [0, 1, 2]
-        assert by["g1_group_sum"] == [0, 1, 2, 3, 0]  # then the reduction
+        assert by["g2_subgroup_check"] == [0, 1, 2]
+        for name in ("msm_lane_scan", "msm_bucket_reduce", "msm_horner"):
+            assert by[name] == [0, 0, 1, 1, 2, 2, 3, 3], name  # G1, G2
+        assert by["g1_group_sum"] == [0]  # the reduction only
+        assert "multi_rlc_scale" not in by and "g2_group_sum" not in by
         assert by["miller_loop_pairs"] == [0, 1, 2]

@@ -45,6 +45,7 @@ from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
 from grandine_tpu_torch.gpu import bls as B
 from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.gpu import msm as M
 from grandine_tpu_torch.gpu import pairing as TP
 
 rng = random.Random(0x4EF0)
@@ -92,8 +93,18 @@ def _t(arrays):
 
 
 def _packed(grouped):
+    """The packed program's operands and keywords: the batch with its
+    signatures packed, then the reference's plans (entry.grouped_plans)."""
     g = list(grouped)
-    return g[:3] + [E.packed_signatures(g[3], g[4])] + g[5:]
+    plans, kw = E.grouped_plans(g)
+    return (g[:3] + [E.packed_signatures(g[3], g[4])] + g[5:8] + list(plans),
+            kw)
+
+
+def _msm_program(grouped):
+    """`grouped_multi_verify_msm_kernel`'s operands and keywords."""
+    plans, kw = E.grouped_plans(grouped)
+    return list(grouped[:8]) + list(plans), kw
 
 
 def _firehose(w, pair_slot_pad: bool, bm=4):
@@ -114,7 +125,9 @@ class _Counts:
 
     WRAPPERS = ((B, "multi_rlc_scale"), (B, "aggregate_rlc_scale"),
                 (B, "g1_group_sum"), (B, "rlc_finish"), (B, "unpack_words"),
-                (TP, "miller_loop_pairs"), (C, "g2_subgroup_check"))
+                (TP, "miller_loop_pairs"), (C, "g2_subgroup_check"),
+                (M, "msm_lane_scan"), (M, "msm_bucket_reduce"),
+                (M, "msm_horner"))
 
     def __init__(self, monkeypatch):
         self.n = {name: 0 for _, name in self.WRAPPERS}
@@ -151,7 +164,8 @@ def test_multi_verify_kernel_matches_anchor(world, monkeypatch):
     assert counts.n == {"multi_rlc_scale": 1, "aggregate_rlc_scale": 0,
                         "g1_group_sum": 0, "rlc_finish": 1,
                         "unpack_words": 0, "miller_loop_pairs": 1,
-                        "g2_subgroup_check": 0}
+                        "g2_subgroup_check": 0, "msm_lane_scan": 0,
+                        "msm_bucket_reduce": 0, "msm_horner": 0}
 
 
 def test_grouped_multi_verify_kernel_matches_anchor(world, monkeypatch):
@@ -188,17 +202,136 @@ def test_firehose_real_identity_slot_fails(world):
 
 
 def test_packed_program_matches_anchor(world, monkeypatch):
-    """The grouped batch with its signatures in the packed transfer format
-    and check_subgroup on: True, as the anchor; unpack_words and
-    g2_subgroup_check once each beside the grouped kernels."""
+    """The grouped batch with its signatures in the packed transfer format,
+    the reference's plans and check_subgroup on: True, as the anchor;
+    unpack_words and g2_subgroup_check once each, the bucket MSM's three
+    kernels once a plane (G1 and G2), one Miller pass and one finish."""
     counts = _Counts(monkeypatch)
-    got = B.grouped_multi_verify_msm_packed_kernel(*_t(_packed(world.grouped)),
+    args, kw = _packed(world.grouped)
+    got = B.grouped_multi_verify_msm_packed_kernel(*_t(args), **kw,
                                                    check_subgroup=1)
     assert bool(got.item()) is _anchor_sets(world) is True
-    assert counts.launched() == {"unpack_words", "g2_subgroup_check",
-                                 "multi_rlc_scale", "g1_group_sum",
-                                 "miller_loop_pairs", "rlc_finish"}
-    assert set(counts.n.values()) == {0, 1}
+    assert counts.n == {"multi_rlc_scale": 0, "aggregate_rlc_scale": 0,
+                        "g1_group_sum": 0, "rlc_finish": 1,
+                        "unpack_words": 1, "miller_loop_pairs": 1,
+                        "g2_subgroup_check": 1, "msm_lane_scan": 2,
+                        "msm_bucket_reduce": 2, "msm_horner": 2}
+
+
+def test_grouped_msm_program_matches_anchor(world, monkeypatch):
+    """grouped_multi_verify_msm_kernel on the batch and the port's plans
+    of its pairs: True, as the anchor; the bucket MSM's three kernels once
+    a plane, one Miller pass, one finish, no ladder and no group sum."""
+    counts = _Counts(monkeypatch)
+    args, kw = _msm_program(world.grouped)
+    got = B.grouped_multi_verify_msm_kernel(*_t(args), **kw)
+    assert bool(got.item()) is _anchor_sets(world) is True
+    assert counts.n == {"multi_rlc_scale": 0, "aggregate_rlc_scale": 0,
+                        "g1_group_sum": 0, "rlc_finish": 1,
+                        "unpack_words": 0, "miller_loop_pairs": 1,
+                        "g2_subgroup_check": 0, "msm_lane_scan": 2,
+                        "msm_bucket_reduce": 2, "msm_horner": 2}
+
+
+# --- the MSM programs on the JAX package's own plans -----------------------------
+
+
+class _Deferred:
+    """Stands in for `miller_loop_pairs` and `rlc_finish` while programs
+    run: each call's operands are kept, a placeholder returned (a finish
+    returns its case's index), and `verdicts()` evaluates them all at once
+    — one plain Miller pass over every pair, one plain finish with one
+    group a finish call. The Miller loop is per pair and the finish per
+    group, so each case's verdict is its own call's; the cases share one
+    batch instead of one final exponentiation each."""
+
+    def __init__(self, monkeypatch):
+        self.millers, self.finishes = {}, []
+
+        def miller(gpk, msg, pair_inf):
+            out = torch.zeros((gpk.shape[0], 2, 3, 2, 12), dtype=torch.int32)
+            self.millers[id(out)] = (out, (gpk, msg, pair_inf))
+            return out
+
+        def finish(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
+            assert f_off is None and s_off is None
+            self.finishes.append((self.millers[id(f)][1], rsig, agg_inf,
+                                  sig_ok, sig_sub))
+            return torch.tensor([len(self.finishes) - 1])
+
+        monkeypatch.setattr(TP, "miller_loop_pairs", miller)
+        monkeypatch.setattr(B, "rlc_finish", finish)
+
+    def verdicts(self):
+        pairs = [p for p, *_ in self.finishes]
+        f = TP.miller_loop_pairs_plain(*(torch.cat(c) for c in zip(*pairs)))
+        f_off = np.cumsum([0] + [p[0].shape[0] for p in pairs])
+        s_off = np.cumsum([0] + [r.shape[0] for _, r, *_ in self.finishes])
+        rest = [torch.cat(c) for c in zip(*(x[1:] for x in self.finishes))]
+        return [bool(v) for v in B.rlc_finish_plain(f, *rest, f_off, s_off)]
+
+
+#: the batch's variants: set 1 forged with set 2's signature; sets 0 and 3
+#: swapped across the roots; key 1 at ∞; signature 4 outside G2
+_VARIANTS = ("valid", "forged", "swapped", "inf_key", "outside_g2")
+
+
+def _variant_points(w, variant):
+    """(keys, signatures) as host points of the port, and the JAX anchor's
+    (keys, signatures) objects, for one variant."""
+    from grandine_tpu.crypto.curves import g1_infinity
+
+    pk, sig = list(w.pk), list(w.sig)
+    jpk, jsig = list(w.jpk), list(w.jsig)
+    if variant == "forged":
+        sig[1], jsig[1] = sig[2], jsig[2]
+    elif variant == "swapped":
+        sig[0], sig[3], jsig[0], jsig[3] = sig[3], sig[0], jsig[3], jsig[0]
+    elif variant == "inf_key":
+        pk[1] = PA.PublicKey.aggregate([]).point
+        jpk[1] = JA.PublicKey(g1_infinity())
+    elif variant == "outside_g2":
+        sig[4] = w.nonsub
+        jsig[4] = JA.Signature(JA.g2_from_bytes(
+            PA.g2_to_bytes(w.nonsub), subgroup_check=False))
+    return pk, sig, jpk, jsig
+
+
+@pytest.mark.parametrize("variant", _VARIANTS)
+def test_msm_programs_on_the_reference_plans_match_jax(world, monkeypatch,
+                                                        variant):
+    """grouped_multi_verify_msm_kernel and the packed program fed the plans
+    of the JAX package's own planner (grandine_tpu.tpu.msm.plan_msm over
+    the k-major pairs and ∞ masks, w = 4; check_subgroup set for the
+    signature outside G2) give the JAX host anchor's verdict: True only
+    for the valid batch (an ∞ key drops out of the key MSM while its
+    signature stays in the signature MSM; the signature outside G2 fails
+    the fused check). Both programs' Miller loops and finishes run as one
+    deferred batch."""
+    deferred = _Deferred(monkeypatch)
+    pk, sig, jpk, jsig = _variant_points(world, variant)
+    members = [[(pk[i], sig[i]) for i in range(3)],
+               [(pk[i], sig[i]) for i in range(3, 5)]]
+    grp = E.grouped_batch(members, world.hs, world.gpairs, 2, 4)
+    m, k = grp[2].shape
+    r = np.asarray(grp[8]).view(np.uint32).astype(np.uint64)
+    r = r.transpose(1, 0, 2).reshape(-1, 2)  # k-major
+    g1 = JM.plan_msm(r[:, 0], r[:, 1], grp[2].T.reshape(-1),
+                     np.arange(m * k) % m, m, window_bits=4, lanes=64)
+    g2 = JM.plan_msm(r[:, 0], r[:, 1], grp[5].T.reshape(-1), None, 1,
+                     window_bits=4, lanes=64)
+    plans = list(g1.arrays) + list(g2.arrays)
+    kw = {"g1_windows": g1.windows, "g1_wbits": g1.window_bits,
+          "g2_windows": g2.windows, "g2_wbits": g2.window_bits,
+          "check_subgroup": int(variant == "outside_g2")}
+    cases = [B.grouped_multi_verify_msm_kernel(
+                 *_t(list(grp[:8]) + plans), **kw).item(),
+             B.grouped_multi_verify_msm_packed_kernel(
+                 *_t(_packed(grp)[0][:7] + plans), **kw).item()]
+    verdicts = deferred.verdicts()
+    anchor = JA.multi_verify([ROOTS[o] for o in OWNER], jsig, jpk)
+    assert [verdicts[i] for i in cases] == [anchor] * 2
+    assert anchor is (variant == "valid")
 
 
 # --- what each program must do, pinned with shape-only kernels ----------------
@@ -206,7 +339,8 @@ def test_packed_program_matches_anchor(world, monkeypatch):
 
 class _Shapes:
     """Shape-only stand-ins for the heavy kernels (verdict 1), recording
-    each call's operands; `g2_subgroup_check` stays the real one, counted."""
+    each call's operands; `g2_subgroup_check` stays the real one, counted,
+    its masks kept in `sub_masks`."""
 
     def __init__(self, monkeypatch, rpk_z=1):
         self.calls = {}
@@ -234,9 +368,14 @@ class _Shapes:
                 (rpk.shape[0], 2, 3, 2, 12), dtype=torch.int32)))
         monkeypatch.setattr(B, "rlc_finish", rec(
             "rlc_finish", lambda *a: torch.ones((1,), dtype=torch.uint8)))
+        monkeypatch.setattr(M, "msm_bucket_sum", rec(
+            "msm_bucket_sum", lambda px, py, live, plan: torch.ones(
+                (plan.n_groups, 3) + tuple(px.shape[1:]), dtype=torch.int32)))
         sub = C.g2_subgroup_check
+        self.sub_masks = []
         monkeypatch.setattr(C, "g2_subgroup_check", rec(
-            "g2_subgroup_check", sub))
+            "g2_subgroup_check",
+            lambda *a: self.sub_masks.append(sub(*a)) or self.sub_masks[-1]))
 
     def finish(self):
         (args,), = [self.calls["rlc_finish"]]
@@ -250,8 +389,10 @@ def test_membership_check_only_where_the_reference_runs_it(
     """A signature outside G2 (set 4): the first three programs and the
     packed one without check_subgroup launch no g2_subgroup_check and hand
     the finish every row as a member of G2 — their verdict is the
-    algebra's; the packed program with check_subgroup runs it once and the
-    finish sees exactly that row outside G2."""
+    algebra's; the packed program with check_subgroup runs it once, its
+    mask flags exactly that row (member (1, 1), row 1·M + 1 of the plans'
+    k-major order) and the finish sees the one folded signature row
+    False."""
     shapes = _Shapes(monkeypatch)
     w = world
     sig = list(w.sig)
@@ -274,14 +415,17 @@ def test_membership_check_only_where_the_reference_runs_it(
         if program == "grouped":
             B.grouped_multi_verify_kernel(*_t(grp))
         else:
+            bad_row = 1 * 2 + 1  # k-major
+            args, kw = _packed(grp)
             B.grouped_multi_verify_msm_packed_kernel(
-                *_t(_packed(grp)),
+                *_t(args), **kw,
                 check_subgroup=int(program == "packed_checked"))
     f, rsig, agg_inf, sig_ok, sig_sub = shapes.finish()[:5]
     assert sig_ok.all()
     if program == "packed_checked":
-        assert len(shapes.calls["g2_subgroup_check"]) == 1
-        assert (~sig_sub).nonzero().flatten().tolist() == [bad_row]
+        (mask,) = shapes.sub_masks
+        assert (~mask).nonzero().flatten().tolist() == [bad_row]
+        assert sig_sub.tolist() == [False]
     else:
         assert "g2_subgroup_check" not in shapes.calls
         assert sig_sub.all()
@@ -344,10 +488,13 @@ def test_programs_reject_wrong_shapes(world):
     grp = _t(world.grouped)
     with pytest.raises(ValueError, match="grouped_multi_verify_kernel"):
         B.grouped_multi_verify_kernel(*grp[:6], grp[6][:1], *grp[7:])
-    pk = _t(_packed(world.grouped))
+    args, kw = _packed(world.grouped)
+    pk = _t(args)
     with pytest.raises(ValueError, match="packed"):
         B.grouped_multi_verify_msm_packed_kernel(*pk[:3], pk[3][..., :12],
-                                                 *pk[4:])
+                                                 *pk[4:], **kw)
+    with pytest.raises(ValueError, match="ten plan arrays"):
+        B.grouped_multi_verify_msm_packed_kernel(*pk[:-1], **kw)
 
 
 # --- forged and swapped, against the anchor (slow) -----------------------------
@@ -373,9 +520,12 @@ def test_bad_batches_match_anchor(world, program, variant):
         members = [[(w.pk[i], sig[i]) for i in range(3)],
                    [(w.pk[i], sig[i]) for i in range(3, 5)]]
         grp = E.grouped_batch(members, w.hs, w.gpairs, 2, 4)
-        got = (B.grouped_multi_verify_kernel(*_t(grp)) if program == "grouped"
-               else B.grouped_multi_verify_msm_packed_kernel(
-                   *_t(_packed(grp)), check_subgroup=1))
+        if program == "grouped":
+            got = B.grouped_multi_verify_kernel(*_t(grp))
+        else:
+            args, kw = _packed(grp)
+            got = B.grouped_multi_verify_msm_packed_kernel(
+                *_t(args), **kw, check_subgroup=1)
     assert bool(got.item()) is _anchor_sets(w, jsig) is False
 
 
@@ -460,7 +610,7 @@ def test_packed_program_matches_jax_kernel(world):
     """grouped_multi_verify_msm_packed_kernel jitted with check_subgroup
     and its MSM plans over the same RLC pairs (k-major: point f = k·M + m
     is member (m, k)), valid and with a signature outside G2; the port's
-    packed program on the same words."""
+    packed program on the same words and the same plan arrays."""
     import functools
 
     w = world
@@ -488,6 +638,9 @@ def test_packed_program_matches_jax_kernel(world):
             check_subgroup=1))
         want = bool(fn(*jg[:3], words, jg[5], *jg[6:], *g1.arrays,
                        *g2.arrays))
+        args = _packed(grp)[0][:7] + list(g1.arrays) + list(g2.arrays)
         got = bool(B.grouped_multi_verify_msm_packed_kernel(
-            *_t(_packed(grp)), check_subgroup=1).item())
+            *_t(args), g1_windows=g1.windows, g1_wbits=g1.window_bits,
+            g2_windows=g2.windows, g2_wbits=g2.window_bits,
+            check_subgroup=1).item())
         assert got is want is (not outside)

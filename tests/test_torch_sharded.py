@@ -165,6 +165,7 @@ def _jax(msgs, sigs, pks):
     ("flat", 4, "valid"), ("flat", 2, "forged"), ("flat", 4, "swapped"),
     ("flat", 2, "outside_g2"), ("grouped", 4, "valid"),
     ("grouped", 2, "forged"), ("grouped", 4, "swapped"),
+    ("grouped", 2, "outside_g2"),
 ])
 def test_sharded_verdict_matches_single_and_jax_host(worlds, route, d,
                                                      variant):
@@ -197,6 +198,20 @@ def test_sharded_verdict_matches_single_and_jax_host(worlds, route, d,
         *_port(msgs, sigs, pks), rng=_bits(11))
     host = JA.multi_verify(*_jax(msgs, sigs, pks), rng=_bits(12))
     assert got is single is host is (variant == "valid")
+
+
+def test_sharded_grouped_refuses_an_infinite_key(worlds, monkeypatch):
+    """An ∞ key in a grouped batch over the mesh: False from both packages'
+    screening, before any launch (the sharded callable takes no ∞ key)."""
+    msgs, sigs, pks = _port(*_variant(worlds["grouped"], "valid"))
+    pks[2] = PA.PublicKey(PA.PublicKey.aggregate([]).point)
+    _, jsigs, jpks = _jax(*_variant(worlds["grouped"], "valid"))
+    jpks[2] = JA.PublicKey(G1.mul(0))
+    monkeypatch.setattr(B, "sharded_multi_verify_msm", _raise("launched"))
+    be = B.TorchBlsBackend(device="cpu",
+                           mesh=VerifyMesh.build(2, platform="cpu"))
+    assert be.multi_verify(msgs, sigs, pks, rng=_bits(11)) is False
+    assert JA.multi_verify(msgs, jsigs, jpks, rng=_bits(12)) is False
 
 
 # --- the route each batch takes --------------------------------------------------
