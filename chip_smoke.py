@@ -9,7 +9,12 @@ Phases (any failure raises and exits non-zero):
   2. each of the first five kernels against its plain version on the
      card, on edge rows at a reduced size (2,048 registry rows with
      infinity and bad rows, 8 aggregates with a bad and a non-G2
-     signature, ∞ pairs): exact equality;
+     signature, ∞ pairs): exact equality; rlc_finish's edge groups (f
+     terms only, signature terms only, an ∞ signature sum, spans 1, 8,
+     9, 128 and 129, the 2,048-group per-item rung), each launched
+     FINISH_REPEATS times with the same verdicts and held against the
+     plain version with phase 14's batched checks; ptxas' stack need of
+     the pairing kernels and the tail's depth in warp rounds;
   3. the main path at real size: a 50,000-validator registry ingested on
      the card, then one slot of gossip aggregates (12 committees × 16
      aggregators = 192 aggregates of 87–130 members) through
@@ -194,6 +199,7 @@ its last line {"ok": true, "device": {...}}.
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -217,6 +223,9 @@ WINDOW_BLOCKS = 8
 BLOCK_REPS_WARM, BLOCK_REPS_COLD, WINDOW_REPS_WARM = 5, 3, 3
 #: rounds of (flat, grouped, grouped, flat) when both routes are timed
 ROUTE_ROUNDS = 2
+#: launches of each rlc_finish edge call, which must all give the same
+#: verdicts (a missing warp synchronisation shows as a verdict that moves)
+FINISH_REPEATS = 20
 #: timed rounds of the operator slot through the signing plane (after one
 #: warm round), and the signers of its chaos round
 SIGN_ROUNDS, CHAOS_SIGNERS = 3, 32
@@ -326,14 +335,19 @@ def make_block(rng, n, sks, R, sign):
 
 
 class OpModel:
-    """Fp-product counts of the kernels as csrc/ runs them."""
+    """Fp-product counts of the kernels at the function's least work."""
 
     def __init__(self, P, abs_x):
+        from grandine_tpu_torch.gpu import finish_programs as FPG
+
         def pw(e):
             return e.bit_length() - 1 + bin(e).count("1") - 1
         self.sqrt = pw((P + 1) // 4) + 1
         self.inv = pw(P - 2)
         self.fp2, self.fp6, self.fp12 = 3, 18, 54
+        # the Fp12 square (fp12_sq_fast), the sparse line product, the
+        # cyclotomic square (Granger–Scott)
+        self.sq12, self.line, self.cyc = 36, 42, 18
         self.dbl1, self.madd1, self.add1 = 7, 11, 16
         self.fq2_sqrt = 2 + 3 * self.sqrt + 2 + 2 * (self.sqrt + self.inv + 4)
         psi = (64 * self.dbl1 + (bin(abs_x).count("1") - 1) * self.madd1
@@ -341,15 +355,25 @@ class OpModel:
         self.psi = psi
         self.g1_row = 6 + self.sqrt
         self.g2_row = 2 + 6 + self.fq2_sqrt + 2 + psi + 4
-        fp2_inv = 4 + self.inv
-        fp6_inv = 12 * 3 + fp2_inv
-        fp12_inv = 4 * self.fp6 + fp6_inv
-        expx = 63 * self.fp12 + (bin(abs_x).count("1") - 1) * self.fp12
-        self.final_exp = (fp12_inv + 5 * expx + 10 * self.fp12 + 5 * 21)
-        dbl_step, add_step = 16 * 3 + 4, 23 * 3 + 4
-        self.miller = (7 + 3 + 63 * (2 * self.fp12 + dbl_step)
-                       + (bin(abs_x).count("1") - 1) * (add_step + self.fp12)
-                       + 12)
+        adds = bin(abs_x).count("1") - 1
+        # the Miller loop of a general (P, Q) pair: the doubling step 49
+        # Fp products, the addition step 71, each line product sparse, each
+        # square the 36-product one; P and Q in (7), P's constants (3), f
+        # out (12)
+        dbl_step, add_step = 49, 71
+        self.miller = (7 + 3 + 63 * (self.sq12 + self.line + dbl_step)
+                       + adds * (add_step + self.line) + 12)
+        # rlc_finish's tail, from its warp programs' products
+        # (gpu/finish_programs.py): the Miller loop of (−g1, Σ) with P's
+        # constants folded, its product with the f terms; the final
+        # exponentiation with the Fp12 inverse through its norms and a
+        # Euclid inversion (no multiplies; 2 products back into Montgomery
+        # form) and cyclotomic squares in the hard part
+        # (finish_programs.tail_runs)
+        n = {k: v[0] for k, v in FPG.stats().items()}
+        runs = [n[k] * c for k, c in FPG.tail_runs()]
+        self.miller_rlc = sum(runs[:4])
+        self.final_exp = sum(runs[4:]) + 2
 
     def aggregate(self, counts, r01):
         total = 0
@@ -387,15 +411,15 @@ class OpModel:
         each, at the least work the function needs, whatever the launch:
         each term's conversion, nf − 1 Fp12 products and ns − 1 complete
         additions, the Miller loop of (−g1, Σ) with its conversion and its
-        product with the f terms, the final exponentiation. A dead group
-        costs nothing."""
+        product with the f terms (none without f terms), the final
+        exponentiation. A dead group costs nothing."""
         total = 0
         for nf, ns in groups:
             if not (nf or ns):
                 continue
             total += (nf * 12 + ns * 6 + max(0, nf - 1) * self.fp12
                       + self.add1 * 3 * max(0, ns - 1)
-                      + ((9 + self.miller + (self.fp12 if nf else 0))
+                      + ((self.miller_rlc - (0 if nf else self.fp12))
                          if ns else 0)
                       + self.final_exp)
         return total
@@ -550,6 +574,51 @@ def finish_plain_batched(B, torch, np, calls, padded_terms=8192):
         for i, v in zip(batch, torch.split(verdicts, sizes)):
             out[i] = v
     return out
+
+
+def finish_edge_calls(torch, np, L, P, fin):
+    """rlc_finish edge calls from one call's operands `fin` (f, rsig,
+    agg_inf, sig_ok, sig_sub; rows tiled as needed): f terms only (the KZG
+    shape), signature terms only, an ∞ signature sum (a row and its
+    negation), spans 1, 8, 9, 128 and 129 (one warp a group, four warps,
+    a second f term a thread) and the 2,048-group per-item rung. Returns
+    [(where, operands with offsets)]."""
+    f, rsig, agg_inf, ok, sub = fin
+    n = f.shape[0]
+    dev = f.device
+
+    def tiled(nf, ns, groups=1):
+        fi = torch.arange(nf * groups, device=dev) % n
+        si = torch.arange(ns * groups, device=dev) % n
+        return (f[fi], rsig[si], agg_inf[fi], ok[si], sub[si],
+                np.arange(groups + 1) * nf, np.arange(groups + 1) * ns)
+
+    neg = rsig[:2].clone()
+    neg[1] = rsig[0]
+    y = L.words_to_ints(rsig[0, 1].cpu().numpy())
+    neg[1, 1] = torch.from_numpy(
+        L.ints_to_words([(P - v) % P for v in y]).astype(np.int32)).to(dev)
+    inf_sum = (f[:3], neg, agg_inf[:3], ok[:2], sub[:2], [0, 3], [0, 2])
+    calls = [("f terms only (4)", tiled(4, 0)),
+             ("signature terms only (5)", tiled(0, 5)),
+             ("an ∞ signature sum", inf_sum)]
+    calls += [(f"span {k}", tiled(k, k)) for k in (1, 8, 9, 128, 129)]
+    calls.append(("the per-item rung, 2,048 groups of 1", tiled(1, 1, 2048)))
+    return calls
+
+
+def kernel_stack(log, name):
+    """ptxas' cumulative stack size (bytes) of the entry whose name holds
+    `name`, from a build log."""
+    entry, sizes = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes cumulative stack size", line)
+        if m and entry:
+            sizes[entry] = int(m.group(1))
+    return max((v for k, v in sizes.items() if name in k), default=None)
 
 
 def finish_operands(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
@@ -3392,6 +3461,7 @@ def main() -> None:
     from grandine_tpu_torch.gpu import bls as B
     from grandine_tpu_torch.gpu import curve as C
     from grandine_tpu_torch.gpu import ed25519 as GE
+    from grandine_tpu_torch.gpu import finish_programs as FPG
     from grandine_tpu_torch.gpu import kzg as GK
     from grandine_tpu_torch.gpu import limbs as L
     from grandine_tpu_torch.gpu import msm as M
@@ -3466,6 +3536,15 @@ def main() -> None:
         f"rounded up to {_build.STACK_GRANULE} B); loading the kernels and "
         f"setting it took {taken / 2**20:.1f} MiB of device memory, "
         f"{taken_24k / 2**20:.1f} MiB with a 24576 B limit {at}")
+    with open(os.path.join(_build.BUILD_DIR, "libpairing.so.log")) as fh:
+        plog = fh.read()
+    needs = {k: kernel_stack(plog, k) for k in (
+        "rlc_finish_kernel", "rlc_partial_kernel", "miller_loop_pairs_kernel")}
+    log("ptxas stack: " + ", ".join(f"{k} {v} B" for k, v in needs.items())
+        + f"; the card-wide limit {limit} B")
+    rounds, stages = FPG.tail_depth()
+    log(f"rlc_finish tail: {rounds} rounds of one Fp product a lane and "
+        f"{stages} output stages a live group, one Euclid inversion")
 
     # host prep: registry keys, committees, aggregates ------------------------
     rng = random.Random(20261017)
@@ -3561,6 +3640,19 @@ def main() -> None:
                                                            pair_inf), edge)
     fin = (f, agg[2], agg[1], dec[3], dec[7])
     same("rlc_finish", B.rlc_finish(*fin), B.rlc_finish_plain(*fin), edge)
+    # rlc_finish's edge groups, each launched FINISH_REPEATS times with
+    # identical verdicts; held against the plain version with the other
+    # recorded finish calls, in the batched plain calls after the timings
+    finish_edge = []
+    for where, ops in finish_edge_calls(torch, np, L, P, fin):
+        first = B.rlc_finish(*ops)
+        for _ in range(FINISH_REPEATS - 1):
+            if not torch.equal(B.rlc_finish(*ops), first):
+                fail(f"rlc_finish: verdicts moved between repeats ({where})")
+        finish_edge.append((f"edge group: {where}, {FINISH_REPEATS} "
+                            f"launches alike", ops, first))
+    log(f"rlc_finish edge groups: {len(finish_edge)} calls, each launched "
+        f"{FINISH_REPEATS} times with the same verdicts")
 
     # 3. the main path at real size -------------------------------------------
     backend = B.TorchBlsBackend()
@@ -4326,7 +4418,7 @@ def main() -> None:
     # (finish_plain_batched): every other recorded partition pass, and
     # the timed rows of a kernels-line entry already timed at its first
     # shape, whose plain time is not taken again
-    finish_checks = [
+    finish_checks = finish_edge + [
         (f"main-path operands, {where}, partition G = {len(ops_r[5]) - 1}",
          ops_r, verdict_r)
         for where, (ops_r, verdict_r) in finish_records

@@ -7,12 +7,13 @@
 // same R over 24 x 16-bit limbs). Tower Fp2 = Fp[u]/(u^2 + 1),
 // Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v), xi = 1 + u. Curve
 // formulas (dbl-2009-l, madd-2007-bl, add-2007-bl with its doubling and
-// infinity cases), the Miller loop steps and the final-exponentiation
-// chain are those of grandine_tpu_torch/gpu/{curve,pairing}.py, which are
-// those of the JAX package (grandine_tpu/tpu/{curve,pairing}.py).
+// infinity cases) and the Miller loop steps are those of
+// grandine_tpu_torch/gpu/{curve,pairing}.py, which are those of the JAX
+// package (grandine_tpu/tpu/{curve,pairing}.py); rlc_finish's final
+// exponentiation is csrc/finish_tail.cuh's.
 //
 // Constants that derive from the curve (Montgomery one, R^2, b, 1/2, the
-// GLV, psi and Frobenius constants, -g1) reach every kernel as one table
+// GLV and psi constants, -g1) reach every kernel as one table
 // of canonical-or-Montgomery words built by grandine_tpu_torch/gpu/_build.py
 // from the host derivations in crypto/; only p, -p^-1 mod 2^32 and |x|
 // are written here.
@@ -54,8 +55,6 @@ enum ConstIdx {
   K_G1_BX, K_G1_BY,            // G1 endomorphism (Montgomery)
   K_G2_WX, K_G2_WY,            // G2 endomorphism, Fp scalars (Montgomery)
   K_PSI_CX0, K_PSI_CX1, K_PSI_CY0, K_PSI_CY1,  // psi constants
-  K_FROB6_G1_0, K_FROB6_G1_1, K_FROB6_G2_0, K_FROB6_G2_1,
-  K_FROB12_GW_0, K_FROB12_GW_1,
   K_NEG_G1_X, K_NEG_G1_Y,      // -g1 affine (Montgomery)
   K_COUNT
 };
@@ -292,19 +291,9 @@ BLS_NI fp6 fp6_mul(const fp6& a, const fp6& b) {
   return r;
 }
 
-BLS_NI fp6 fp6_inv(const fp6& a, const uint32_t* K) {
-  fp2 A = fp2_sub(fp2_sq(a.c0), fp2_mul_by_xi(fp2_mul(a.c1, a.c2)));
-  fp2 B = fp2_sub(fp2_mul_by_xi(fp2_sq(a.c2)), fp2_mul(a.c0, a.c1));
-  fp2 C = fp2_sub(fp2_sq(a.c1), fp2_mul(a.c0, a.c2));
-  fp2 F = fp2_add(fp2_mul(a.c0, A),
-                  fp2_mul_by_xi(fp2_add(fp2_mul(a.c2, B), fp2_mul(a.c1, C))));
-  fp2 fi = fp2_inv(F, K);
-  return {fp2_mul(A, fi), fp2_mul(B, fi), fp2_mul(C, fi)};
-}
-
 // The Fp12 operations write through `r`, which may alias an operand: an
 // Fp12 is 576 bytes, and each one returned by value would take a slot of
-// its own in the caller's stack frame (see final_exponentiation).
+// its own in the caller's stack frame.
 
 // r = a * b
 BLS_NI void fp12_mul_to(fp12& r, const fp12& a, const fp12& b) {
@@ -316,15 +305,6 @@ BLS_NI void fp12_mul_to(fp12& r, const fp12& a, const fp12& b) {
 }
 
 BLS_HD void fp12_conj_ip(fp12& a) { a.c1 = fp6_neg(a.c1); }
-
-// r = a^-1
-BLS_NI void fp12_inv_to(fp12& r, const fp12& a, const uint32_t* K) {
-  fp6 d = fp6_inv(fp6_sub(fp6_mul(a.c0, a.c0),
-                          fp6_mul_by_v(fp6_mul(a.c1, a.c1))), K);
-  fp6 c1 = fp6_neg(fp6_mul(a.c1, d));
-  r.c0 = fp6_mul(a.c0, d);
-  r.c1 = c1;
-}
 
 BLS_HD fp2 kfp2(const uint32_t* K, int i0, int i1) {
   return {fp_load(K + 12 * i0), fp_load(K + 12 * i1)};
@@ -348,19 +328,6 @@ BLS_HD bool fp12_is_one(const fp12& a, const uint32_t* K) {
   return fp2_eq(a.c0.c0, one) && fp2_is_zero(a.c0.c1) &&
          fp2_is_zero(a.c0.c2) && fp2_is_zero(a.c1.c0) &&
          fp2_is_zero(a.c1.c1) && fp2_is_zero(a.c1.c2);
-}
-
-// r = a^p (each coefficient of r depends on the same coefficient of a)
-BLS_NI void fp12_frobenius_to(fp12& r, const fp12& a, const uint32_t* K) {
-  fp2 g1 = kfp2(K, K_FROB6_G1_0, K_FROB6_G1_1);
-  fp2 g2 = kfp2(K, K_FROB6_G2_0, K_FROB6_G2_1);
-  fp2 gw = kfp2(K, K_FROB12_GW_0, K_FROB12_GW_1);
-  r.c0.c0 = fp2_conj(a.c0.c0);
-  r.c0.c1 = fp2_mul(fp2_conj(a.c0.c1), g1);
-  r.c0.c2 = fp2_mul(fp2_conj(a.c0.c2), g2);
-  r.c1.c0 = fp2_mul(fp2_conj(a.c1.c0), gw);
-  r.c1.c1 = fp2_mul(fp2_mul(fp2_conj(a.c1.c1), g1), gw);
-  r.c1.c2 = fp2_mul(fp2_mul(fp2_conj(a.c1.c2), g2), gw);
 }
 
 // --- field-generic helpers for the curve formulas ----------------------------
@@ -752,50 +719,6 @@ BLS_NI void miller_loop(fp12& f, const jac<fp>& P, const jac<fp2>& Q,
     }
   }
   fp12_conj_ip(f);
-}
-
-// r = m^|x| (r must not alias m)
-BLS_NI void expx_abs_to(fp12& r, const fp12& m) {
-  r = m;
-  for (int i = 62; i >= 0; i--) {
-    fp12_mul_to(r, r, r);
-    if ((BLS_ABS_X >> i) & 1) fp12_mul_to(r, r, m);
-  }
-}
-
-// f <- f^(3(p^12-1)/r): the easy part, then the x-chain hard part of
-// gpu/pairing.py (FE(f)^3), in three Fp12 locals besides f: the deepest
-// kernel's stack sets the limit that every thread of the card reserves.
-BLS_NI void final_exponentiation(fp12& f, const uint32_t* K) {
-  fp12 m, t, u;
-  fp12_inv_to(t, f, K);
-  fp12_conj_ip(f);
-  fp12_mul_to(t, f, t);  // t = conj(f) / f
-  fp12_frobenius_to(m, t, K);
-  fp12_frobenius_to(m, m, K);
-  fp12_mul_to(m, m, t);  // m = t^(p^2 + 1)
-  expx_abs_to(t, m);
-  fp12_mul_to(t, t, m);
-  fp12_conj_ip(t);  // t1 = conj(m^|x| m)
-  expx_abs_to(u, t);
-  fp12_mul_to(u, u, t);
-  fp12_conj_ip(u);  // t2 = conj(t1^|x| t1)
-  expx_abs_to(t, u);
-  fp12_conj_ip(t);
-  fp12_frobenius_to(u, u, K);
-  fp12_mul_to(t, t, u);  // t3 = conj(t2^|x|) t2^p
-  expx_abs_to(u, t);
-  fp12_conj_ip(u);
-  expx_abs_to(f, u);
-  fp12_conj_ip(f);  // t4 = conj(conj(t3^|x|)^|x|)
-  fp12_frobenius_to(u, t, K);
-  fp12_frobenius_to(u, u, K);
-  fp12_mul_to(f, f, u);  // t4 t3^(p^2)
-  fp12_conj_ip(t);
-  fp12_mul_to(f, f, t);  // ... conj(t3)
-  fp12_mul_to(u, m, m);
-  fp12_mul_to(u, u, m);
-  fp12_mul_to(f, f, u);  // ... m^3
 }
 
 // --- canonical-word I/O ------------------------------------------------------

@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 
 #include "bls12_381.cuh"
+#include "finish_tail.cuh"
 
 using namespace bls;
 
@@ -39,29 +40,50 @@ __global__ void miller_loop_pairs_kernel(const uint32_t* rpk,
   fp12_out(f + 144 * (size_t)i, out);
 }
 
-// --- rlc_finish: one block, or one thread, per live group --------------------
+// --- rlc_finish: one block a live group, its tail across warp 0 ---------
 //
 // Group g owns the Fp12 terms f[f_off[g] .. f_off[g+1]) and the signature
 // terms rsig[s_off[g] .. s_off[g+1]). Its verdict: the product of its f
 // terms times the Miller loop of (-g1, the sum of its signature terms),
 // after the final exponentiation, is one; none of its aggregates summed to
 // infinity; each of its signature rows decoded and lies in G2. Only the
-// live groups (`live`, group ids) are launched; the wrapper writes the
-// others' verdict (1: an empty product and an infinite sum).
+// live groups (`live`, group ids) are launched, one block each of
+// blockDim = 32, 64, 96 or 128 threads (a warp for a group of span <= 32);
+// the wrapper writes the others' verdict (1: an empty product and an
+// infinite sum). csrc/finish_tail.cuh `finish_group` is the block's
+// work: strided products and sums, the sums' tree, the products folded
+// warp-wide, then warp 0's tail (the Miller loop, the final
+// exponentiation) as warp programs over shared memory.
+
+__global__ void __launch_bounds__(BLS_TREE, 4)
+rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
+                  const bool* agg_inf, const bool* sig_ok,
+                  const bool* sig_sub, const int32_t* f_off,
+                  const int32_t* s_off, const int32_t* live, int nf_max,
+                  int ns_max, uint8_t* verdict, const uint32_t* K) {
+  extern __shared__ uint4 dyn_smem[];
+  int g = live[blockIdx.x];
+  int T = blockDim.x;
+  tail::finish_group(reinterpret_cast<uint32_t*>(dyn_smem), T,
+                     nf_max < T ? nf_max : T, ns_max < T ? ns_max : T,
+                     nf_max > T, f, rsig, agg_inf, sig_ok, sig_sub, f_off[g],
+                     f_off[g + 1], s_off[g], s_off[g + 1], K, verdict + g);
+}
+
+// --- rlc_partial: one block, or one thread, per group ------------------------
 //
-// per_thread == 0: one block per live group; thread t of the blockDim
-// threads takes terms t, t + blockDim, ... (a strided loop), then the
-// partial products fold in a tree over dynamic shared memory (blockDim
-// Fp12 values) and the partial sums in a tree over the same buffer, past
-// the product's slot; thread 0 runs the tail.
-// per_thread == 1: one thread per live group (groups of a few terms: its
-// strided loop runs them in turn, no tree), no shared memory.
+// Group g owns the Fp12 terms f[f_off[g] .. f_off[g+1]) with their agg_inf
+// flags and the signature rows [s_off[g] .. s_off[g+1]) with sig_ok and
+// sig_sub. It writes the product of its f terms (canonical words; one for
+// an empty group) to out[g] and one flag byte: bit 0 any agg_inf of its
+// terms, bit 1 every signature row decoded and in G2. No Miller loop of
+// the signature sum and no final exponentiation: that is the finish's,
+// once, over every shard's partial. Every group launches (an empty one
+// writes one): per_thread == 1 runs one group a thread, else one block of
+// blockDim threads a group with the product tree over dynamic shared
+// memory (gpu/bls.py partial_threads).
 
-static_assert(2 * sizeof(jac<fp2>) <= sizeof(fp12),
-              "the partial sums share the product tree's buffer");
-
-// The product half that rlc_finish and rlc_partial share. Thread t of T
-// multiplies the Fp12 terms f[i], i = f0 + t, f0 + t + T, ... < f1, into
+// Thread t of T multiplies the Fp12 terms f[i], i = f0 + t, f0 + t + T, ... < f1, into
 // `prod` and ORs their agg_inf flags into `inf`.
 __device__ __forceinline__ void fp12_strided_product(
     fp12& prod, bool& inf, const uint32_t* f, const bool* agg_inf, int f0,
@@ -90,77 +112,6 @@ __device__ bool fp12_tree_product(fp12* fpart, const fp12& prod, bool flag,
   }
   return flag;
 }
-
-__global__ void __launch_bounds__(BLS_TREE)
-rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
-                  const bool* agg_inf, const bool* sig_ok,
-                  const bool* sig_sub, const int32_t* f_off,
-                  const int32_t* s_off, const int32_t* live, int n_live,
-                  int per_thread, uint8_t* verdict, const uint32_t* K) {
-  extern __shared__ uint4 dyn_smem[];
-  int t = 0, T = 1, j;
-  if (per_thread) {
-    j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n_live) return;
-  } else {
-    j = blockIdx.x;
-    t = threadIdx.x;
-    T = blockDim.x;
-  }
-  int g = live[j];
-  int f0 = f_off[g], f1 = f_off[g + 1], s0 = s_off[g], s1 = s_off[g + 1];
-  jac<fp2> acc = jac_inf<fp2>(K);
-  bool bad = false;
-  fp12 prod = fp12_one(K), fi;
-  for (int i = s0 + t; i < s1; i += T) {
-    jac<fp2> q;
-    q.x = mont_in2(rsig + 72 * (size_t)i, K);
-    q.y = mont_in2(rsig + 72 * (size_t)i + 24, K);
-    q.z = mont_in2(rsig + 72 * (size_t)i + 48, K);
-    acc = point_add_complete(acc, q, K);
-    bad = bad || !sig_ok[i] || !sig_sub[i];
-  }
-  fp12_strided_product(prod, bad, f, agg_inf, f0, f1, t, T, K);
-  if (!per_thread) {
-    fp12* fpart = reinterpret_cast<fp12*>(dyn_smem);
-    bad = fp12_tree_product(fpart, prod, bad, t, T);
-    // the product stays in fpart[0]; the T partial sums (half an Fp12
-    // each) fit in the T - 1 slots after it
-    jac<fp2>* part = reinterpret_cast<jac<fp2>*>(fpart + 1);
-    block_tree_sum_n(part, acc, T, K);
-    if (t != 0) return;
-    acc = part[0];
-    prod = fpart[0];
-  }
-  fi = fp12_one(K);
-  if (!fp2_is_zero(acc.z)) {
-    jac<fp2> h;  // Jacobian -> homogeneous (XZ, Y, Z^3)
-    h.x = fp2_mul(acc.x, acc.z);
-    h.y = acc.y;
-    h.z = fp2_mul(fp2_mul(acc.z, acc.z), acc.z);
-    jac<fp> ng;
-    ng.x = fp_load(K + 12 * K_NEG_G1_X);
-    ng.y = fp_load(K + 12 * K_NEG_G1_Y);
-    ng.z = fp_load(K + 12 * K_ONE);
-    miller_loop(fi, ng, h, K);
-  }
-  fp12_mul_to(prod, prod, fi);
-  final_exponentiation(prod, K);
-  verdict[g] = (fp12_is_one(prod, K) && !bad) ? 1 : 0;
-}
-
-// --- rlc_partial: one block, or one thread, per group ------------------------
-//
-// Group g owns the Fp12 terms f[f_off[g] .. f_off[g+1]) with their agg_inf
-// flags and the signature rows [s_off[g] .. s_off[g+1]) with sig_ok and
-// sig_sub. It writes the product of its f terms (canonical words; one for
-// an empty group) to out[g] and one flag byte: bit 0 any agg_inf of its
-// terms, bit 1 every signature row decoded and in G2. No Miller loop of
-// the signature sum and no final exponentiation: that is the finish's,
-// once, over every shard's partial. Every group launches (an empty one
-// writes one), with rlc_finish's geometry: per_thread == 1 runs one group
-// a thread, else one block of blockDim threads a group with the product
-// tree over dynamic shared memory.
 
 __global__ void __launch_bounds__(BLS_TREE)
 rlc_partial_kernel(const uint32_t* f, const bool* agg_inf,
@@ -207,38 +158,47 @@ int bls_miller_loop_pairs(const uint32_t* rpk, const uint32_t* msg,
   return (int)cudaGetLastError();
 }
 
-// The launch over n_live groups at `threads` a group (1: one thread a
-// group, 32 to a block, no shared memory; else one block a group with its
-// product tree in dynamic shared memory): blocks, threads a block, bytes.
-static void finish_geometry(int n_live, int threads, int* blocks,
-                            int* block, size_t* smem) {
+// The launch of rlc_partial over n groups at `threads` a group (1: one
+// thread a group, 32 to a block, no shared memory; else one block a group
+// with its product tree in dynamic shared memory): blocks, threads a
+// block, bytes.
+static void partial_geometry(int n, int threads, int* blocks, int* block,
+                             size_t* smem) {
   int per_thread = threads <= 1;
   *block = per_thread ? 32 : threads;
-  *blocks = per_thread ? (n_live + 31) / 32 : n_live;
+  *blocks = per_thread ? (n + 31) / 32 : n;
   *smem = per_thread ? 0 : (size_t)threads * sizeof(fp12);
+}
+
+// dynamic shared memory of an rlc_finish block: `threads` threads, the
+// widest group's f and signature terms
+static size_t finish_smem(int threads, int nf_max, int ns_max) {
+  return 4 * (size_t)tail::finish_layout(
+                 threads, nf_max < threads ? nf_max : threads,
+                 ns_max < threads ? ns_max : threads, nf_max > threads)
+                 .words;
 }
 
 static cudaError_t finish_allow_smem() {
   return cudaFuncSetAttribute(rlc_finish_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(BLS_TREE * sizeof(fp12)));
+                              (int)finish_smem(BLS_TREE, BLS_TREE + 1,
+                                               BLS_TREE));
 }
 
 int bls_rlc_finish(const uint32_t* f, const uint32_t* rsig,
                    const bool* agg_inf, const bool* sig_ok,
                    const bool* sig_sub, const int32_t* f_off,
                    const int32_t* s_off, const int32_t* live, int n_live,
-                   int threads, uint8_t* verdict, const uint32_t* K,
-                   cudaStream_t stream) {
-  int blocks, block;
-  size_t smem;
-  finish_geometry(n_live, threads, &blocks, &block, &smem);
+                   int threads, int nf_max, int ns_max, uint8_t* verdict,
+                   const uint32_t* K, cudaStream_t stream) {
   cudaError_t err = finish_allow_smem();
   if (err != cudaSuccess) return (int)err;
-  if (blocks > 0)
-    rlc_finish_kernel<<<blocks, block, smem, stream>>>(
-        f, rsig, agg_inf, sig_ok, sig_sub, f_off, s_off, live, n_live,
-        threads <= 1, verdict, K);
+  if (n_live > 0)
+    rlc_finish_kernel<<<n_live, threads,
+                        finish_smem(threads, nf_max, ns_max), stream>>>(
+        f, rsig, agg_inf, sig_ok, sig_sub, f_off, s_off, live, nf_max,
+        ns_max, verdict, K);
   return (int)cudaGetLastError();
 }
 
@@ -255,7 +215,7 @@ int bls_rlc_partial(const uint32_t* f, const bool* agg_inf,
                     const uint32_t* K, cudaStream_t stream) {
   int blocks, block;
   size_t smem;
-  finish_geometry(n_groups, threads, &blocks, &block, &smem);
+  partial_geometry(n_groups, threads, &blocks, &block, &smem);
   cudaError_t err = partial_allow_smem();
   if (err != cudaSuccess) return (int)err;
   if (blocks > 0)
@@ -268,17 +228,17 @@ int bls_rlc_partial(const uint32_t* f, const bool* agg_inf,
 // geometry (host memory) of the launch bls_rlc_finish makes: blocks,
 // threads a block, dynamic shared memory bytes, and the most blocks of
 // this shape one SM holds at once. Launches nothing.
-int bls_rlc_finish_geometry(int n_live, int threads, int32_t* geometry,
-                            const uint32_t* K, cudaStream_t stream) {
-  int blocks, block, per_sm = 0;
-  size_t smem;
-  finish_geometry(n_live, threads, &blocks, &block, &smem);
+int bls_rlc_finish_geometry(int n_live, int threads, int nf_max, int ns_max,
+                            int32_t* geometry, const uint32_t* K,
+                            cudaStream_t stream) {
+  int per_sm = 0;
+  size_t smem = finish_smem(threads, nf_max, ns_max);
   cudaError_t err = finish_allow_smem();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rlc_finish_kernel, block, smem);
-  geometry[0] = blocks;
-  geometry[1] = block;
+        &per_sm, rlc_finish_kernel, threads, smem);
+  geometry[0] = n_live;
+  geometry[1] = threads;
   geometry[2] = (int)smem;
   geometry[3] = per_sm;
   return (int)err;

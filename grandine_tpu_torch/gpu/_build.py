@@ -27,13 +27,15 @@ import threading
 
 import torch
 
-from grandine_tpu_torch.crypto import curves, fields
+from grandine_tpu_torch.crypto import curves
 from grandine_tpu_torch.crypto.curves import G1
 from grandine_tpu_torch.gpu import limbs as L
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-HEADER = "bls12_381.cuh"
+#: the headers every source may include (csrc/*.cuh): part of each
+#: library's hash
+HEADERS = ("bls12_381.cuh", "finish_tail.cuh", "finish_programs.cuh")
 #: source → the C entries it exports (each `bls_<name>`)
 LIBRARIES = {
     "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
@@ -84,8 +86,9 @@ SIGNATURES = {
     "ed25519_verify": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp],
     "span_update_grid": [_vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
     "group_sum_geometry": [_i, _i, _vp],
-    "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp],
-    "rlc_finish_geometry": [_i, _i, _vp],
+    "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                   _vp],
+    "rlc_finish_geometry": [_i, _i, _i, _i, _vp],
     "rlc_partial": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
     "batch_pubkey": [_vp, _vp, _i, _vp],
     "g1_normalize": [_vp, _i, _vp, _vp],
@@ -119,7 +122,7 @@ def _nvcc() -> str:
 
 def source_hash(source: str) -> str:
     h = hashlib.sha256()
-    for name in (source, HEADER):
+    for name in (source, *HEADERS):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -231,7 +234,6 @@ def constant_table_ints() -> "list[int]":
 
     endo = curves.endo_constants()
     (cx0, cx1), (cy0, cy1) = curves.psi_constants_ints()
-    frob = fields.frobenius_coefficients()
     neg = (-G1).to_affine()
     return [
         L.R2, R % P, mont(4), mont((P + 1) // 2), (P + 1) // 2,
@@ -239,9 +241,6 @@ def constant_table_ints() -> "list[int]":
         mont(endo["g1"][0]), mont(endo["g1"][1]),
         mont(endo["g2"][0]), mont(endo["g2"][1]),
         mont(cx0), mont(cx1), mont(cy0), mont(cy1),
-        mont(frob["fq6_g1"][0]), mont(frob["fq6_g1"][1]),
-        mont(frob["fq6_g2"][0]), mont(frob["fq6_g2"][1]),
-        mont(frob["fq12_gw"][0]), mont(frob["fq12_gw"][1]),
         mont(neg[0].n), mont(neg[1].n),
     ]
 

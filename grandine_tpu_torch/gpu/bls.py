@@ -641,21 +641,26 @@ unpack_words.launches = 0
 # --- rlc_finish -----------------------------------------------------------------
 
 
-#: the widest span that `rlc_finish` runs one thread a group: a slot (an
-#: Fp12 term and a signature term) costs that thread ~120 Fp products in
-#: its strided loop, so 8 slots are ~3 % of the ~30,000 of its Miller loop
-#: and final exponentiation, about what a 32-thread block's tree (5
-#: levels) would cost instead — and 32 groups share a warp where a block
-#: would leave 31 lanes idle through the tail
+def finish_threads(spans) -> int:
+    """Threads a block `rlc_finish` gives each live group of one launch,
+    from the groups' spans (terms of the more numerous kind): one warp up
+    to a span of 32, else ⌈widest/32⌉ warps, at most one 128-thread block.
+    Warp 0 of the block runs the group's tail whatever the span."""
+    widest = max(spans, default=0)
+    return min(msm.TREE, 32 * max(1, -(-widest // 32)))
+
+
+#: the widest span that `rlc_partial` runs one thread a group: a slot
+#: costs that thread ~66 Fp products in its strided loop, where a block
+#: would fold a tree of 5 levels of 54
 PER_THREAD_SPAN = 8
 
 
-def finish_threads(spans) -> int:
-    """Threads `rlc_finish` gives each live group of one launch, from the
-    groups' spans (terms of the more numerous kind): 1 when no group
-    spans more than PER_THREAD_SPAN (one thread a group, its strided loop
-    sequential, no tree), else ⌈widest/32⌉ warps, at most one 128-thread
-    block."""
+def partial_threads(spans) -> int:
+    """Threads `rlc_partial` gives each group of one launch: 1 when no
+    group spans more than PER_THREAD_SPAN (one thread a group, its
+    strided loop sequential, no tree), else ⌈widest/32⌉ warps, at most
+    one 128-thread block."""
     widest = max(spans, default=0)
     if widest <= PER_THREAD_SPAN:
         return 1
@@ -674,6 +679,21 @@ def finish_groups(f, rsig, f_off=None, s_off=None):
     span = np.maximum(np.diff(fo), np.diff(so))
     live = np.nonzero(span > 0)[0]
     return fo, so, live, finish_threads(span[live].tolist())
+
+
+def partial_groups(f, sig_ok, f_off=None, s_off=None):
+    """(f_off, s_off, threads) of an `rlc_partial` call."""
+    fo, so, live, _ = finish_groups(f, sig_ok, f_off, s_off)
+    span = np.maximum(np.diff(fo), np.diff(so))
+    return fo, so, partial_threads(span[live].tolist())
+
+
+def finish_widths(fo, so, live):
+    """(widest f span, widest signature span) over the live groups: with
+    the thread count they size an `rlc_finish` block's shared memory."""
+    if live.size == 0:
+        return 0, 0
+    return (int(np.diff(fo)[live].max()), int(np.diff(so)[live].max()))
 
 
 def rlc_sig_miller_plain(rsig, offsets=None, tree: int = msm.TREE):
@@ -704,18 +724,24 @@ def _segment_any(flags, lo, hi):
 def rlc_finish_plain(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
                      s_off=None):
     """Plain version of `rlc_finish`: (G,) uint8 verdicts; each live
-    group's product and sum in the kernel's order at the launch's thread
-    count, the groups batched; dead groups 1."""
+    group's product and sum in a strided tree at the launch's thread
+    count (no wider than the widest group: a group's verdict does not
+    depend on the order), the groups batched; dead groups 1."""
     fo, so, live, threads = finish_groups(f, rsig, f_off, s_off)
+    nf_max, ns_max = finish_widths(fo, so, live)
     out = torch.ones((fo.size - 1,), dtype=torch.uint8, device=f.device)
     if live.size == 0:
         return out
     # dead groups hold no terms, so the live ones tile the same ranges
     lf = np.append(fo[live], fo[-1])
     ls = np.append(so[live], so[-1])
-    prod = TP.fp12_product_tree_grouped(L.from_words(f), lf, threads)
-    one = F.fp12_is_one(TP.final_exponentiation(
-        F.fp12_mul(prod, rlc_sig_miller_plain(rsig, ls, threads))))
+    terms = L.from_words(f)
+    if f.shape[0] == 0:  # signature terms only: give the gather a row
+        terms = F.fp12_one((1,), f.device)
+    prod = TP.fp12_product_tree_grouped(terms, lf,
+                                        max(1, min(threads, nf_max)))
+    one = F.fp12_is_one(TP.final_exponentiation(F.fp12_mul(
+        prod, rlc_sig_miller_plain(rsig, ls, max(1, min(threads, ns_max))))))
     bad = (_segment_any(agg_inf, lf[:-1], lf[1:])
            | _segment_any(~(sig_ok & sig_sub), ls[:-1], ls[1:]))
     out[torch.from_numpy(live).to(f.device)] = (one & ~bad).to(torch.uint8)
@@ -745,16 +771,25 @@ def rlc_finish(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
     bls.py:703-724 and :857-865 (fast-aggregate), `_flat_msm_verify_tail`
     (flat sets) and rlc_partition_verify_kernel's fused subgroup check.
     Only live groups launch (a group with no term is 1: an empty product
-    and an ∞ sum, written here without work). Threads follow the span
-    (`finish_threads`): a group of span s gets ⌈s/32⌉ warps, one block a
-    group, with a strided loop and trees over threads × 576 B of dynamic
-    shared memory (the partial sums share the product tree's buffer);
-    groups of span ≤ PER_THREAD_SPAN run one a thread, 32 to a block, no
-    shared memory.
-    Bound: operations — ~66 Fp products a term plus ~30,000 a live group
-    for its Miller loop and final exponentiation, which stay sequential
-    on one thread, so the kernel is latency-bound on them: its time is
-    one group's tail times the waves its groups take
+    and an ∞ sum, written here without work), one block each: threads
+    follow the span (`finish_threads`), a warp up to 32 terms, at most
+    four. The block's threads sum their signature terms and multiply their
+    f terms in strided loops (one thread a term), the sums and products
+    fold in trees (a thread an operation on the wide levels, a warp an
+    operation on the upper ones); then warp 0 runs the tail — the Miller
+    loop of (−g1, Σ), the product, the final exponentiation — as warp
+    programs (gpu/finish_programs.py, csrc/finish_tail.cuh): rounds of at
+    most 32 independent Fp products, one a lane, over Fp12 values in
+    shared memory, with the 36-product square and the 42-product sparse
+    line product in the loop, the 18-product cyclotomic square in the
+    hard part and a binary extended Euclid for the one Fp inversion.
+    Bound: operations — ~66 Fp products a term plus ~16,100 a live group
+    for its Miller loop (8,492) and final exponentiation (7,652) at their
+    least work (chip_smoke.py `OpModel.finish`). The tail's dependent
+    depth is 738 rounds of one Fp product a lane and 394 output stages
+    (`finish_programs.tail_depth`) plus one Euclid inversion on one lane,
+    where the one-thread tail chained ~30,500 Fp products; a group is
+    latency-bound on those stages, and a launch on its groups' waves
     (`rlc_finish_geometry`)."""
     if f.device.type == "cpu":
         return rlc_finish_plain(f, rsig, agg_inf, sig_ok, sig_sub, f_off,
@@ -772,6 +807,7 @@ def _rlc_finish_cuda(f, rsig, agg_inf, sig_ok, sig_sub, f_off, s_off):
         raise ValueError("rlc_finish: f (M, 2, 3, 2, 12), rsig (N, 3, 2, "
                          "12), agg_inf (M,), sig_ok and sig_sub (N,)")
     fo, so, live, threads = finish_groups(f, rsig, f_off, s_off)
+    nf_max, ns_max = finish_widths(fo, so, live)
     dev = f.device
     verdict = torch.ones((fo.size - 1,), dtype=torch.uint8, device=dev)
     if live.size:
@@ -781,7 +817,8 @@ def _rlc_finish_cuda(f, rsig, agg_inf, sig_ok, sig_sub, f_off, s_off):
                       agg_inf.contiguous(), sig_ok.contiguous(),
                       sig_sub.contiguous(), table[:g1], table[g1:2 * g1],
                       table[2 * g1:], ctypes.c_int(live.size),
-                      ctypes.c_int(threads), verdict)
+                      ctypes.c_int(threads), ctypes.c_int(nf_max),
+                      ctypes.c_int(ns_max), verdict)
         rlc_finish.launches += 1
     return verdict
 
@@ -796,11 +833,13 @@ def rlc_finish_geometry(f, rsig, f_off=None, s_off=None):
     query: it launches nothing."""
     from grandine_tpu_torch.gpu import _build
 
-    _, _, live, threads = finish_groups(f, rsig, f_off, s_off)
+    fo, so, live, threads = finish_groups(f, rsig, f_off, s_off)
+    nf_max, ns_max = finish_widths(fo, so, live)
     geometry = np.zeros((4,), np.int32)
     if live.size:
         _build.launch("rlc_finish_geometry", ctypes.c_int(live.size),
-                      ctypes.c_int(threads),
+                      ctypes.c_int(threads), ctypes.c_int(nf_max),
+                      ctypes.c_int(ns_max),
                       ctypes.c_void_p(geometry.ctypes.data))
     return tuple(int(v) for v in geometry)
 
@@ -812,7 +851,7 @@ def rlc_partial_plain(f, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
     """Plain version of `rlc_partial`: each group's product in the kernel's
     order at the launch's thread count (one for an empty group) and its
     flag byte."""
-    fo, so, _, threads = finish_groups(f, sig_ok, f_off, s_off)
+    fo, so, threads = partial_groups(f, sig_ok, f_off, s_off)
     terms = L.from_words(f)
     if f.shape[0] == 0:  # every group empty: give the gather a row
         terms = F.fp12_one((1,), f.device)
@@ -840,9 +879,10 @@ def rlc_partial(f, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
     make_sharded_multi_verify_msm (grandine_tpu/tpu/bls.py:1132, :1258),
     each chip's local product `TP.fp12_product_tree(TP.miller_loop(...))`
     (:1175-1177, :1368) and its subgroup fold `_fused_subgroup_mask(...)
-    .all()` (:1185-1188, :1373-1375). It is the product half of
-    `rlc_finish` (one shared device function), with `rlc_finish`'s
-    geometry (`finish_threads`): every group launches. Bound: operations
+    .all()` (:1185-1188, :1373-1375). It is the product half that
+    `rlc_finish` had before its tail went warp-wide (the one-thread
+    strided loop and tree of csrc/pairing.cu), with its own geometry
+    (`partial_threads`): every group launches. Bound: operations
     — 54 Fp products and one conversion a term, against 577 bytes a term;
     a shard's 64–512 terms fold in one block's strided loop and tree, so
     the kernel is latency-bound on ⌈terms/128⌉ + 7 dependent Fp12
@@ -856,7 +896,7 @@ def rlc_partial(f, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
             or sig_sub.shape != (n,)):
         raise ValueError("rlc_partial: f (M, 2, 3, 2, 12), agg_inf (M,), "
                          "sig_ok and sig_sub (N,)")
-    fo, so, _, threads = finish_groups(f, sig_ok, f_off, s_off)
+    fo, so, threads = partial_groups(f, sig_ok, f_off, s_off)
     g = fo.size - 1
     dev = f.device
     out = torch.empty((g, 2, 3, 2, 12), dtype=torch.int32, device=dev)
@@ -2308,7 +2348,8 @@ __all__ = [
     "aggregate_rlc_scale_plain", "multi_rlc_scale", "multi_rlc_scale_plain",
     "g1_group_sum", "g1_group_sum_plain", "rlc_finish", "rlc_finish_plain",
     "rlc_sig_miller_plain", "finish_threads", "finish_groups",
-    "rlc_finish_geometry", "PER_THREAD_SPAN", "rlc_partial",
+    "rlc_finish_geometry", "PER_THREAD_SPAN", "partial_threads",
+    "partial_groups", "finish_widths", "rlc_partial",
     "rlc_partial_plain", "partial_flags", "make_sharded_multi_verify",
     "sharded_multi_verify", "make_sharded_multi_verify_msm",
     "sharded_multi_verify_msm",

@@ -221,14 +221,23 @@ def test_rlc_finish_plain_group_verdicts(sets):
 
 
 def test_finish_threads_follow_the_span():
-    assert B.finish_threads([]) == 1
-    assert B.finish_threads([1, 1, 0]) == 1
-    assert B.finish_threads([4, 2]) == 1
-    assert B.finish_threads([B.PER_THREAD_SPAN]) == 1
+    # rlc_finish: one warp a group up to a span of 32 (warp 0 runs every
+    # group's tail), one warp more a 32 terms, at most four
+    assert B.finish_threads([]) == 32
+    assert B.finish_threads([1, 1, 0]) == 32
+    assert B.finish_threads([4, 2]) == 32
     assert B.finish_threads([B.PER_THREAD_SPAN + 1]) == 32
+    assert B.finish_threads([32]) == 32
     assert B.finish_threads([33, 4]) == 64
     assert B.finish_threads([65]) == 96
     assert B.finish_threads([1562]) == 128
+    # rlc_partial keeps one thread a group up to PER_THREAD_SPAN
+    assert B.partial_threads([]) == 1
+    assert B.partial_threads([4, 2]) == 1
+    assert B.partial_threads([B.PER_THREAD_SPAN]) == 1
+    assert B.partial_threads([B.PER_THREAD_SPAN + 1]) == 32
+    assert B.partial_threads([33, 4]) == 64
+    assert B.partial_threads([1562]) == 128
 
 
 # --- the grouped route end to end -----------------------------------------------
