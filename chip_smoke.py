@@ -49,9 +49,11 @@ Phases (any failure raises and exits non-zero):
      routes timed on the same triples; the group-indexed rlc_finish and
      g1_group_sum against their plain versions on edge rows (phase 4) and
      rlc_finish on every recorded pass;
-  7. the signing path on the operator's 50,000 keys: batch_sign and both
-     group_sum instances against their plain versions on edge rows (∞
-     messages, both sign masks, sk = 1, r − 1, r − 2; empty, all-∞ and
+  7. the signing path on the operator's 50,000 keys: batch_sign at one,
+     two and four lanes a signature (each edge call launched EDGE_REPEATS
+     times with the same words) and both group_sum instances against their
+     plain versions on edge rows (∞ messages, sk = 1, r − 1, r − 2, the
+     digit |x| − 1, |x|, |x|³, zero digits; empty, all-∞ and
      single-member groups); the operator slot — its 1,562 duty validators
      attesting their committee's root and 512 sync-committee members
      signing the head root — through runtime.sign_plane.SigningPlane with
@@ -67,8 +69,11 @@ Phases (any failure raises and exits non-zero):
      failure, one batch degraded; one full bucket of 16,384 keys through
      TorchBlsBackend.batch_sign, every point its anchor;
   8. the EIP-4844 blob-KZG plane on the official 4,096-point setup:
-     g1_scalar_mul against its plain version and the host ladder on edge
-     rows (k = 0, 1, r − 1, an ∞ base, the generator); a block's 6 blobs
+     g1_scalar_mul (its edge call launched EDGE_REPEATS times) against its
+     plain version and the host ladder on edge rows (k = 0, 1, r − 1, x²,
+     3·x² (k0 = 0), x² − 1, halves of window digits ±16, an ∞ base, the
+     generator); every batch_sign and g1_scalar_mul launch of phases 7-9,
+     held against the plain versions after phase 9; a block's 6 blobs
      committed and proved on the card (kzg.eip4844, one device pass
      each), one proof at a root of unity, commitment and proof 0 equal to
      the host Pippenger, a constant blob's commitment c·G1, the zero
@@ -226,6 +231,9 @@ ROUTE_ROUNDS = 2
 #: launches of each rlc_finish edge call, which must all give the same
 #: verdicts (a missing warp synchronisation shows as a verdict that moves)
 FINISH_REPEATS = 20
+#: launches of each batch_sign and g1_scalar_mul edge call (phases 7 and
+#: 8): every launch must give the same words
+EDGE_REPEATS = 5
 #: timed rounds of the operator slot through the signing plane (after one
 #: warm round), and the signers of its chaos round
 SIGN_ROUNDS, CHAOS_SIGNERS = 3, 32
@@ -439,19 +447,63 @@ class OpModel:
         return sum(3 * k * c + f * self.add1 * max(0, c - 1) + 3 * k
                    for c in counts)
 
-    def sign(self, k, live):
-        """batch_sign over its live rows at the function's least work: per
-        row the conversions and the endomorphism, 128 doublings and
-        popcount(k0) + popcount(k1) − 1 mixed additions in Fp2 (three Fp
-        products to each Fp2 one); the branchless ladder's discarded
-        candidates are not charged. k: (N, 2, 4) uint32 words."""
+    def sign(self, d, live):
+        """batch_sign over its live rows at the function's least work with
+        the base-|x| digits: per row the conversions in (4), the bases
+        (−ψ)ⁱ(H) (three maps of two Fp2 products), 64 doublings and
+        Σ popcount(dᵢ) − 1 mixed additions in Fp2 (three Fp products to
+        each Fp2 one), the conversion out (6); the branchless lanes'
+        discarded candidates and duplicated doublings are not charged.
+        d: (N, 4, 2) uint32 words."""
         total = 0
-        for row, lv in zip(k, live):
+        for row, lv in zip(d, live):
             if lv:
                 adds = sum(bin(int(w) & 0xFFFFFFFF).count("1")
                            for w in row.reshape(-1))
+                total += (4 + 3 * 2 * self.fp2 + 3 * (
+                    64 * self.dbl1 + self.madd1 * max(0, adds - 1)) + 6)
+        return total
+
+    def sign_glv(self, d, live, abs_x, decompose_glv):
+        """The bound of the one-thread GLV ladder: the same rows' secrets
+        (Σ dᵢ|x|ⁱ) by their GLV halves — the conversions and the
+        endomorphism, 128 doublings and popcount(k0) + popcount(k1) − 1
+        mixed additions in Fp2."""
+        total = 0
+        for row, lv in zip(d, live):
+            if lv:
+                w = [int(v) & 0xFFFFFFFF for v in row.reshape(-1)]
+                sk = sum((w[2 * i] | w[2 * i + 1] << 32) * abs_x ** i
+                         for i in range(4))
+                a, _, b, _ = decompose_glv(sk)
+                adds = bin(a).count("1") + bin(b).count("1")
                 total += (4 + 4 + 3 * (128 * self.dbl1
                                        + self.madd1 * max(0, adds - 1)) + 6)
+        return total
+
+    def kzg(self, k, inf, x2):
+        """g1_scalar_mul at the function's least work with the halves
+        k = k1·x² + k0: per live row the conversions in (2), φ (2), 128
+        doublings and popcount(k0) + popcount(k1) − 1 mixed additions, the
+        conversion out (3); k = 0 or an ∞ base only the conversion out.
+        k: (N, 8) uint32 words."""
+        total = 0
+        for row_k, row_inf in zip(k, inf):
+            v = int.from_bytes(row_k.tobytes(), "little")
+            k1, k0 = divmod(v, x2)
+            adds = bin(k0).count("1") + bin(k1).count("1")
+            total += 3 + ((2 + 2 + 128 * self.dbl1 + self.madd1 * (adds - 1))
+                          if v and not row_inf else 0)
+        return total
+
+    def kzg_one_ladder(self, k, inf):
+        """The bound of the one 255-bit ladder: 255 doublings and
+        popcount(k) − 1 mixed additions a live row."""
+        total = 0
+        for row_k, row_inf in zip(k, inf):
+            v = int.from_bytes(row_k.tobytes(), "little")
+            total += 3 + ((2 + 255 * self.dbl1 + self.madd1 * (
+                bin(v).count("1") - 1)) if v and not row_inf else 0)
         return total
 
     def pubkey(self, k):
@@ -678,6 +730,33 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
+def check_ladder_launches(torch, B, GK, recs, same):
+    """Every recorded launch of batch_sign and g1_scalar_mul (Recorders
+    keeping (args, kwargs)) against the plain version: the launches of one
+    geometry (batch_sign's lanes) stacked along the rows, one plain call
+    each — rows are independent, so each launch's words must reappear."""
+    plain = {"batch_sign": (lambda *a, lanes: B.batch_sign_plain(*a, lanes),
+                            lambda a, k: k.get("lanes") or B.sign_lanes(
+                                a[1].shape[0])),
+             "g1_scalar_mul": (lambda *a, lanes: GK.g1_scalar_mul_plain(*a),
+                               lambda a, k: None)}
+    for rec in recs:
+        fn, key = plain[rec.name]
+        groups = {}
+        for (args, kwargs), out in rec.calls:
+            groups.setdefault(key(args, kwargs), []).append((args, out))
+        for g, calls in groups.items():
+            stacked = [torch.cat([a[i] for a, _ in calls])
+                       for i in range(len(calls[0][0]))]
+            got = torch.cat([o for _, o in calls])
+            at = "" if g is None else f" at lanes {g}"
+            same(rec.name, got, fn(*stacked, lanes=g),
+                 f"every launch of phases 7-9{at}: {len(calls)} launches, "
+                 f"{got.shape[0]} rows")
+        if not rec.calls:
+            fail(f"{rec.name}: no launch recorded in phases 7-9")
+
+
 class PassTimer:
     """The backend's two localization seams, each pass timed on the host
     clock from its dispatch to its settled, synchronized result, with the
@@ -719,7 +798,7 @@ class SignSplit(Recorder):
     """Recorder of gpu/bls.py `batch_sign` that also splits each
     `backend.batch_sign` call by the thread that makes it: host clocks
     around the backend's `_messages` (hash-to-G2) and the module's
-    `sign_scalars_host` (GLV decomposition), CUDA events around the launch,
+    `sign_digits_host` (base-|x| digits), CUDA events around the launch,
     and the host clock from the launch's return to `g2_points_from_words`
     (device wait and copy) and from there to the call's end (readback into
     `Signature`s). `done[thread]` holds the thread's last finished split."""
@@ -727,7 +806,7 @@ class SignSplit(Recorder):
     def __init__(self, module, backend):
         super().__init__(module, "batch_sign", lambda *a: a)
         self.backend, self.live, self.done = backend, {}, {}
-        self.scalars = module.sign_scalars_host
+        self.digits = module.sign_digits_host
         self.points = module.g2_points_from_words
 
     def _split(self):
@@ -740,11 +819,11 @@ class SignSplit(Recorder):
             self._split()["hash_s"] = time.perf_counter() - t
         return out
 
-    def _scalars(self, *args):
+    def _digits(self, *args):
         t = time.perf_counter()
-        out = self.scalars(*args)
+        out = self.digits(*args)
         if self._split() is not None:
-            self._split()["glv_s"] = time.perf_counter() - t
+            self._split()["digits_s"] = time.perf_counter() - t
         return out
 
     def _points(self, *args):
@@ -762,7 +841,7 @@ class SignSplit(Recorder):
         events = split.pop("events")
         self.done[me] = {
             "n": split["n"], "hash_s": split["hash_s"],
-            "glv_s": split["glv_s"],
+            "digits_s": split["digits_s"],
             "host_prep_s": split["t_in"] - split["t0"],
             "wait_s": split["t_points"] - split["t_out"],
             "readback_s": end - split["t_points"],
@@ -790,13 +869,13 @@ class SignSplit(Recorder):
             self.backend.batch_sign
         self.backend._messages, self.backend.batch_sign = self._messages, \
             self._sign
-        self.module.sign_scalars_host = self._scalars
+        self.module.sign_digits_host = self._digits
         self.module.g2_points_from_words = self._points
         return self
 
     def __exit__(self, *exc):
         del self.backend._messages, self.backend.batch_sign
-        self.module.sign_scalars_host = self.scalars
+        self.module.sign_digits_host = self.digits
         self.module.g2_points_from_words = self.points
         super().__exit__(*exc)
 
@@ -879,7 +958,7 @@ def signing_phase(c):
     """The signing path on the operator's keys (c: what main() built).
     Returns (timing rows, {entry: launches on its path})."""
     torch, np, A, B = c.torch, c.np, c.A, c.B
-    from grandine_tpu_torch.crypto.curves import g2_infinity
+    from grandine_tpu_torch.crypto.curves import decompose_glv, g2_infinity
     from grandine_tpu_torch.gpu import schemes
     from grandine_tpu_torch.runtime.sign_plane import (
         DEFAULT_SIGN_LANES, SigningPlane)
@@ -913,25 +992,39 @@ def signing_phase(c):
             return "geometry not measured (no card)"
         blocks, threads, smem, per_sm = B.launch_geometry(name, n)
         waves = -(-blocks // (per_sm * c.sms)) if per_sm else 0
-        return (f"{blocks} blocks of {threads} threads, {smem} B shared "
-                f"memory, {per_sm} blocks an SM, {waves} wave(s) on "
+        lanes = (f"{B.sign_lanes(n)} lanes a signature, "
+                 if name == "batch_sign" else "")
+        return (f"{lanes}{blocks} blocks of {threads} threads, {smem} B "
+                f"shared memory, {per_sm} blocks an SM, {waves} wave(s) on "
                 f"{c.sms} SMs")
 
-    # the kernels against their plain versions on edge rows
-    edge_scalars = [1, R - 1, R - 2] + c.sks[:29]
-    k_e, neg_e = B.sign_scalars_host(edge_scalars)
-    if not (neg_e.any(0).all() and (~neg_e).any(0).all()):
-        fail("the edge scalars do not hold both signs on each half")
+    # the kernels against their plain versions on edge rows; batch_sign at
+    # each geometry, each call launched EDGE_REPEATS times with the same
+    # words (a missing warp synchronisation shows as a word that moves)
+    ax = B.ABS_X
+    edge_scalars = [1, R - 1, R - 2, ax - 1, ax, ax ** 3, 5 + 9 * ax ** 3,
+                    7 + 3 * ax ** 2] + c.sks[:24]
+    d_e = B.sign_digits_host(edge_scalars)
+    dw = d_e.view(np.uint32)
+    if not ((dw == 0).all(-1).any() and (dw[:, :, 0] == (ax - 1) & 0xFFFFFFFF)
+            .any()):
+        fail("the edge keys do not hold zero digits and the digit |x| - 1")
     probe = B.TorchBlsBackend(device=dev)
     msg_e, inf_e = probe._messages(
         [c.roots[i % len(c.roots)] for i in range(len(edge_scalars))], dst)
     inf_e = inf_e.clone()
     inf_e[[1, 17]] = True
-    args = (msg_e, inf_e, torch.from_numpy(k_e).to(dev),
-            torch.from_numpy(neg_e).to(dev))
-    c.same("batch_sign", B.batch_sign(*args), B.batch_sign_plain(*args),
-           f"edge rows: {len(edge_scalars)} signatures, ∞ messages (rows 1, "
-           f"17), both signs on each half, sk = 1, r - 1, r - 2")
+    args = (msg_e, inf_e, torch.from_numpy(d_e).to(dev))
+    for lanes in (4, 2, 1):
+        got = [B.batch_sign(*args, lanes=lanes) for _ in range(EDGE_REPEATS)]
+        if not all(torch.equal(got[0], g) for g in got[1:]):
+            fail(f"batch_sign at {lanes} lane(s): a word moved between "
+                 f"{EDGE_REPEATS} launches on the same edge rows")
+        c.same("batch_sign", got[0], B.batch_sign_plain(*args, lanes),
+               f"edge rows at {lanes} lane(s) a signature ({EDGE_REPEATS} "
+               f"launches, the same words): {len(edge_scalars)} signatures, "
+               f"∞ messages (rows 1, 17), sk = 1, r - 1, r - 2, |x| - 1, "
+               f"|x|, |x|^3, zero digits")
     first12 = sorted(c.unagg_pts)[:12]
     g2_pts = [c.unagg_pts[i][1] for i in first12] + [g2_infinity()] * 2
     g1_pts = [c.keys[i].point for i in first12] + [
@@ -1024,8 +1117,8 @@ def signing_phase(c):
     for r in records:
         share = r["decode_s"] + r["verify_s"]
         log(f"  sign batch of {r['n']}: host prep {r['host_prep_s'] * 1e3:.1f}"
-            f" ms (hash-to-G2 {r['hash_s'] * 1e3:.1f} ms, GLV decomposition "
-            f"{r['glv_s'] * 1e3:.1f} ms, upload), kernel "
+            f" ms (hash-to-G2 {r['hash_s'] * 1e3:.1f} ms, base-|x| digits "
+            f"{r['digits_s'] * 1e3:.1f} ms, upload), kernel "
             f"{kernel_ms(r)} (CUDA events), device wait "
             f"{r['wait_s'] * 1e3:.1f} ms, readback {r['readback_s'] * 1e3:.1f}"
             f" ms + encoding {r['encode_s'] * 1e3:.1f} ms; gate: host decode "
@@ -1163,8 +1256,8 @@ def signing_phase(c):
     log(f"full bucket: TorchBlsBackend.batch_sign of {n_full} registry keys "
         f"over {len(c.roots)} roots ({full_launches} launch): "
         f"{full_s * 1e3:.1f} ms = host prep {r['host_prep_s'] * 1e3:.1f} ms "
-        f"(hash-to-G2 {r['hash_s'] * 1e3:.1f} ms, GLV decomposition "
-        f"{r['glv_s'] * 1e3:.1f} ms, upload) + device wait "
+        f"(hash-to-G2 {r['hash_s'] * 1e3:.1f} ms, base-|x| digits "
+        f"{r['digits_s'] * 1e3:.1f} ms, upload) + device wait "
         f"{r['wait_s'] * 1e3:.1f} ms (kernel {kernel_ms(r)}, CUDA "
         f"events) + readback {r['readback_s'] * 1e3:.1f} ms; "
         f"{n_full / full_s:.1f} signatures/s; every point equals its anchor "
@@ -1187,11 +1280,18 @@ def signing_phase(c):
             (f"full bucket, N = {n_full}", full_rec.calls[0][0],
              full_launches)):
         n = ops_s[1].shape[0]
+        d_s, live_s = ops_s[2].cpu().numpy(), (~ops_s[1]).cpu().tolist()
+        old_ms = bound_ms(c.ops.sign_glv(d_s, live_s, B.ABS_X,
+                                         decompose_glv), n * 515, c.sms,
+                          c.clock_hz)[0]
+        log(f"  batch_sign bound, {where}: the one-thread GLV ladder's "
+            f"least work {old_ms:.4f} ms; the digits' below (time line) "
+            f"{at}")
         rows.append((
             "batch_sign", where, lambda a=ops_s: B.batch_sign(*a),
             lambda a=ops_s: B.batch_sign_plain(*a), 3,
-            c.ops.sign(ops_s[2].cpu().numpy(), (~ops_s[1]).cpu().tolist()),
-            n * 515, "grandine_tpu/tpu/bls.py:896", n_l, "batch_sign"))
+            c.ops.sign(d_s, live_s),
+            n * 513, "grandine_tpu/tpu/bls.py:896", n_l, "batch_sign"))
     for (where, (_, grp, _)), (ops_r, _) in zip(agg_rows.items(),
                                                 rec2.calls + rec1.calls):
         k = 2 if where != "committee aggregate keys" else 1
@@ -1296,10 +1396,17 @@ def kzg_phase(c):
     def ms(v):
         return "not measured (no card)" if v is None else f"{v:.3f} ms"
 
-    # the ladder against its plain version on edge rows
+    # the ladder against its plain version on edge rows, the call launched
+    # EDGE_REPEATS times with the same words; the last two rows' halves
+    # take window digits +16 and -16 in turn (the table's last entry)
     lag = setup.g1_lagrange_brp
-    edge_pts = [lag[0], lag[1], lag[2], g1_infinity(), G1, G1, lag[3]]
-    edge_k = [0, 1, R - 1, rng.randrange(R), rng.randrange(R), 1, R - 1]
+    edge_pts = [lag[0], lag[1], lag[2], g1_infinity(), G1, G1, lag[3],
+                lag[4], lag[5], lag[6], lag[1], lag[2]]
+    alt = [sum((15 << 5 * i) if i % 2 == par else (1 << (5 * i + 4))
+               for i in range(25)) for par in (0, 1)]
+    edge_k = [0, 1, R - 1, rng.randrange(R), rng.randrange(R), 1, R - 1,
+              GK.X2, 3 * GK.X2, GK.X2 - 1, alt[1] * GK.X2 + alt[0],
+              alt[0] * GK.X2 + alt[1]]
     inf = np.array([p.is_infinity() for p in edge_pts], bool)
     px = np.zeros((len(edge_pts), 12), np.int32)
     py = np.zeros_like(px)
@@ -1307,11 +1414,16 @@ def kzg_phase(c):
                                             if not p.is_infinity()])
     args = tuple(torch.from_numpy(a).to(dev)
                  for a in (px, py, inf, GK.scalar_words(edge_k)))
-    got = GK.g1_scalar_mul(*args)
-    c.same("g1_scalar_mul", got, GK.g1_scalar_mul_plain(*args),
-           "edge rows: k = 0, 1, r - 1 on setup points, an ∞ base, the "
-           "generator with a random k, 1 and r - 1")
-    back = B.g1_points_from_words(got.cpu().numpy())
+    got = [GK.g1_scalar_mul(*args) for _ in range(EDGE_REPEATS)]
+    if not all(torch.equal(got[0], g) for g in got[1:]):
+        fail(f"g1_scalar_mul: a word moved between {EDGE_REPEATS} launches "
+             f"on the same edge rows")
+    c.same("g1_scalar_mul", got[0], GK.g1_scalar_mul_plain(*args),
+           f"edge rows ({EDGE_REPEATS} launches, the same words): k = 0, 1, "
+           f"r - 1 on setup points, an ∞ base, the generator with a random "
+           f"k, 1 and r - 1, k = x^2, 3·x^2 (k0 = 0), x^2 - 1, window digits "
+           f"+-16")
+    back = B.g1_points_from_words(got[0].cpu().numpy())
     if [a == p.mul(k) for a, p, k in zip(back, edge_pts, edge_k)] != \
             [True] * len(edge_pts):
         fail("g1_scalar_mul: an edge row differs from the host ladder")
@@ -1479,14 +1591,6 @@ def kzg_phase(c):
 
     # timing rows: (name, where, kernel, plain, reps, Fp products, bytes,
     # replaces, launches on its path, kernels-line entry)
-    def ladder_ops(k, inf):
-        total = 0
-        for row_k, row_inf in zip(k.cpu().numpy(), inf.cpu().tolist()):
-            v = int.from_bytes(row_k.tobytes(), "little")
-            total += 3 + ((2 + 255 * c.ops.dbl1 + c.ops.madd1 * (
-                bin(v).count("1") - 1)) if v and not row_inf else 0)
-        return total
-
     ver = {name: r.calls[0][0] for name, r in rec.items()}
     out = []
     for where, ops_k, n_l, entry in (
@@ -1496,10 +1600,23 @@ def kzg_phase(c):
             (f"setup MSM, {width} rows", msm_ops["g1_scalar_mul"],
              producer["g1_scalar_mul"], "g1_scalar_mul/msm")):
         n = ops_k[2].shape[0]
+        k_s, inf_s = ops_k[3].cpu().numpy(), ops_k[2].cpu().tolist()
+        old_ms = bound_ms(c.ops.kzg_one_ladder(k_s, inf_s), n * (129 + 144),
+                          c.sms, c.clock_hz)[0]
+        if dev.type == "cuda":
+            blocks, threads, smem, per_sm = B.launch_geometry(
+                "g1_scalar_mul", n)
+            geo = (f"window {GK.KZG_WINDOW}, {blocks} blocks of {threads} "
+                   f"threads, {smem} B shared memory, {per_sm} blocks an SM")
+        else:
+            geo = "geometry not measured (no card)"
+        log(f"  g1_scalar_mul launch, {where}: {geo}; bound at the one "
+            f"255-bit ladder's least work {old_ms:.4f} ms, the "
+            f"halves' below (time line) {at}")
         out.append(("g1_scalar_mul", where,
                     lambda a=ops_k: GK.g1_scalar_mul(*a),
                     lambda a=ops_k: GK.g1_scalar_mul_plain(*a), 5,
-                    ladder_ops(ops_k[3], ops_k[2]), n * (129 + 144),
+                    c.ops.kzg(k_s, inf_s, GK.X2), n * (129 + 144),
                     "grandine_tpu/kzg/eip4844.py:370", n_l, entry))
     for where, ops_s, n_l, entry in (
             ("batch verify, 4 groups of 8", ver["g1_group_sum"],
@@ -3536,12 +3653,22 @@ def main() -> None:
         f"rounded up to {_build.STACK_GRANULE} B); loading the kernels and "
         f"setting it took {taken / 2**20:.1f} MiB of device memory, "
         f"{taken_24k / 2**20:.1f} MiB with a 24576 B limit {at}")
-    with open(os.path.join(_build.BUILD_DIR, "libpairing.so.log")) as fh:
-        plog = fh.read()
-    needs = {k: kernel_stack(plog, k) for k in (
-        "rlc_finish_kernel", "rlc_partial_kernel", "miller_loop_pairs_kernel")}
+    needs = {}
+    for lib, names in (("pairing", ("rlc_finish_kernel", "rlc_partial_kernel",
+                                    "miller_loop_pairs_kernel")),
+                       ("sign", ("batch_sign_kernelILi4",
+                                 "batch_sign_kernelILi2",
+                                 "batch_sign_kernelILi1")),
+                       ("kzg", ("g1_scalar_mul_kernel",))):
+        with open(os.path.join(_build.BUILD_DIR, f"lib{lib}.so.log")) as fh:
+            blog = fh.read()
+        needs.update({k: kernel_stack(blog, k) for k in names})
     log("ptxas stack: " + ", ".join(f"{k} {v} B" for k, v in needs.items())
         + f"; the card-wide limit {limit} B")
+    if None in needs.values():
+        fail("a kernel's stack need is missing from its ptxas log")
+    if max(needs.values()) > needs["miller_loop_pairs_kernel"]:
+        fail("a kernel's stack need rose above miller_loop_pairs'")
     rounds, stages = FPG.tail_depth()
     log(f"rlc_finish tail: {rounds} rounds of one Fp product a lane and "
         f"{stages} output stages a live group, one Euclid inversion")
@@ -4161,6 +4288,13 @@ def main() -> None:
             f"({'grouped' if g < f_ else 'flat'} faster by "
             f"{abs(f_ - g) * 1e3:.1f} ms) {at}")
 
+    # every batch_sign and g1_scalar_mul launch of phases 7-9 is recorded
+    # and held against the plain versions after phase 9
+    ladder_recs = [Recorder(B, "batch_sign", lambda *a, **k: (a, k)),
+                   Recorder(GK, "g1_scalar_mul", lambda *a, **k: (a, k))]
+    for r in ladder_recs:
+        r.__enter__()
+
     # 7. the signing path: the operator slot through the signing plane,
     # aggregate construction, a chaos round, one full bucket ------------------
     ops = OpModel(P, -X)
@@ -4171,7 +4305,7 @@ def main() -> None:
         sync_root=sync_root, sync_members=sync_members, s_pts=s_pts, a0=a0,
         d0=d0, count_reset=count_reset, count_read=count_read,
         sign_rounds=SIGN_ROUNDS, chaos_signers=CHAOS_SIGNERS,
-        full_bucket=B.MAX_BUCKET, settle_timeout_s=5.0)
+        full_bucket=B.MAX_BUCKET, settle_timeout_s=5.0, clock_hz=clock_hz)
     sign_rows = signing_phase(sign_ctx)
 
     # 8. the blob-KZG plane at full width: the official setup, a block's
@@ -4186,7 +4320,8 @@ def main() -> None:
     kzg_ctx = SimpleNamespace(
         torch=torch, np=np, A=A, B=B, R=R, dev=dev, at=at, same=same, ops=ops,
         setup=kzg_setup, n_blobs=MAX_BLOBS_PER_BLOCK, kzg_reps=KZG_REPS,
-        count_reset=count_reset, count_read=count_read)
+        count_reset=count_reset, count_read=count_read, sms=sms,
+        clock_hz=clock_hz)
     kzg_rows = kzg_phase(kzg_ctx)
 
     # 9. the verify scheduler: every lane through VerifyScheduler ------------
@@ -4200,6 +4335,11 @@ def main() -> None:
         count_reset=count_reset,
         count_read=count_read))
     log(f"scheduler phase: {time.perf_counter() - t0:.1f} s")
+    for r in ladder_recs:
+        r.__exit__()
+    t0 = time.perf_counter()
+    check_ladder_launches(torch, B, GK, ladder_recs, same)
+    log(f"ladder plain checks: {time.perf_counter() - t0:.1f} s")
 
     # 10. the slasher at full width: six epoch windows and a poisoned one ------
     slasher_rows = slasher_phase(SimpleNamespace(

@@ -348,6 +348,23 @@ BLS_HD void f_one(fp2& r, const uint32_t* K) {
 BLS_HD void f_zero(fp& r) { r = fp_zero(); }
 BLS_HD void f_zero(fp2& r) { r.c0 = fp_zero(); r.c1 = fp_zero(); }
 
+// Fp with its product as one call. A G1 formula inlines 7-16 unrolled Fp
+// products, ~100 KB of straight-line code: on one warp a G1 doubling took
+// 55,516 cycles against ~27,000 for its products and additions alone,
+// where the G2 formulas, whose fp2_mul is a call, take what their parts
+// take (gpu/tail_bench.py). The curve templates take fpc as their field
+// (jac<fpc>), so a formula's products share one copy of the code.
+struct fpc { fp v; };
+BLS_NI fp fp_mul_call(const fp& a, const fp& b) { return fp_mul(a, b); }
+BLS_HD fpc f_mul(const fpc& a, const fpc& b) {
+  return {fp_mul_call(a.v, b.v)};
+}
+BLS_HD fpc f_add(const fpc& a, const fpc& b) { return {fp_add(a.v, b.v)}; }
+BLS_HD fpc f_sub(const fpc& a, const fpc& b) { return {fp_sub(a.v, b.v)}; }
+BLS_HD bool f_is_zero(const fpc& a) { return fp_is_zero(a.v); }
+BLS_HD void f_one(fpc& r, const uint32_t* K) { r.v = fp_load(K + 12 * K_ONE); }
+BLS_HD void f_zero(fpc& r) { r.v = fp_zero(); }
+
 template <class F>
 BLS_HD jac<F> jac_inf(const uint32_t* K) {
   jac<F> r;
@@ -425,6 +442,19 @@ BLS_NI jac<F> point_add_complete(const jac<F>& p, const jac<F>& q,
   o.y = f_sub(t, f_add(S1J, S1J));
   o.z = Z3;
   return o;
+}
+
+// mask ? a : b word by word (mask is 0 or all ones): no branch
+template <class T>
+BLS_HD T ct_select(uint32_t mask, const T& a, const T& b) {
+  T r;
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
+  uint32_t* pr = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); i++)
+    pr[i] = (pa[i] & mask) | (pb[i] & ~mask);
+  return r;
 }
 
 template <class F>
@@ -776,6 +806,19 @@ BLS_HD fp12 fp12_in(const uint32_t* w, const uint32_t* K) {
 #define BLS_TREE 128  // threads of the per-aggregate and final-sum trees
 
 #ifdef __CUDACC__
+// v of lane (this lane ^ m) of the warp, word by word; every lane of the
+// warp takes part
+template <class T>
+__device__ __forceinline__ T shfl_xor_words(const T& v, int m) {
+  T r;
+  const uint32_t* pv = reinterpret_cast<const uint32_t*>(&v);
+  uint32_t* pr = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); i++)
+    pr[i] = __shfl_xor_sync(0xffffffffu, pv[i], m);
+  return r;
+}
+
 // Folds n partial sums `acc` (thread t < n holds one) pairwise in shared
 // memory: part[t] += part[t + s] for s = pow2ceil(n)/2 .. 1 where t + s < n
 // (the order of gpu/msm.py strided_tree_sum); the total lands in part[0].

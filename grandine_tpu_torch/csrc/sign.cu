@@ -10,16 +10,29 @@
 // what its design does about that is written beside its Python wrapper
 // (gpu/bls.py batch_sign, batch_pubkey).
 //
-// The secret scalar never steers control flow: every row runs exactly
-// SIGN_BITS steps of one doubling and both mixed additions, and the scalar
-// bits, the sign flags and the "started" state choose between computed
-// values through word masks (ct_select), never through a branch. The
-// field arithmetic of bls12_381.cuh keeps its data-dependent conditional
-// reductions, so this is branchless on the scalar, not hardened against
-// physical side channels (the caveat of the JAX kernel it replaces).
+// batch_sign splits each signature across LANES (1, 2 or 4) lanes of a warp
+// by G2's endomorphism: psi acts on G2 as [x] (x < 0, the BLS parameter),
+// so B_i = (-psi)^i(H) = [|x|^i]H, and with the secret's base-|x| digits
+// (sk = d0 + d1|x| + d2|x|^2 + d3|x|^3, each d_i < |x| < 2^64, since
+// r < |x|^4) [sk]H = sum [d_i]B_i. A lane runs one 64-step ladder over
+// its 4 / LANES bases, then the lanes' sums meet in a shuffle tree of
+// complete additions.
 //
-// sign_row and pubkey_row also compile as plain C++ (no __CUDACC__), so the
-// ladders can be run on a host against the plain PyTorch versions.
+// The secret never steers control flow: every lane runs exactly
+// SIGN_DIGIT_BITS steps of one doubling and a mixed addition a base, the
+// digit bits and the "started" state choose between computed values
+// through word masks (ct_select); the tree's addition (point_add_ct)
+// computes every case of the complete addition and selects by masks. No
+// branch and no loop bound depends on a digit or on a point derived from
+// one; the lane index and the row count are public. The field arithmetic
+// of bls12_381.cuh keeps its data-dependent conditional reductions, so
+// this is branchless on the secret, not hardened against physical side
+// channels (the caveat of the JAX kernel it replaces). batch_pubkey keeps
+// the dual 128-bit GLV ladder from the generator.
+//
+// sign_lane, point_add_ct, sign_store and pubkey_row also compile as plain
+// C++ (no __CUDACC__), so a row's lanes can be run in turn on a host, the
+// shuffle tree emulated, against the plain PyTorch versions.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -28,19 +41,17 @@
 
 using namespace bls;
 
-#define SIGN_BITS 128  // bits of each GLV half (gpu/bls.py SIGN_HALF_BITS)
+#define SIGN_DIGIT_BITS 64  // bits of each base-|x| digit (gpu/bls.py)
+#define SIGN_BITS 128  // bits of each GLV half of batch_pubkey (SIGN_HALF_BITS)
 
-// mask ? a : b word by word (mask is 0 or all ones): no branch
+// all ones when every word of a is zero, else 0: no branch
 template <class T>
-BLS_HD T ct_select(uint32_t mask, const T& a, const T& b) {
-  T r;
+BLS_HD uint32_t ct_zero_mask(const T& a) {
   const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
-  const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
-  uint32_t* pr = reinterpret_cast<uint32_t*>(&r);
+  uint32_t acc = 0;
 #pragma unroll
-  for (int i = 0; i < (int)(sizeof(T) / 4); i++)
-    pr[i] = (pa[i] & mask) | (pb[i] & ~mask);
-  return r;
+  for (int i = 0; i < (int)(sizeof(T) / 4); i++) acc |= pa[i];
+  return 0u - (uint32_t)(acc == 0);
 }
 
 // one slot of a ladder step: st + (bx, by) when the bit is set (the base
@@ -58,35 +69,111 @@ BLS_HD void ladder_slot(jac<F>& st, uint32_t& started, uint32_t bit,
   started |= bit;
 }
 
-// [±k0 ± k1*lambda] H for one row: msg = [x | y] of H (2 x 24 canonical
-// words), k = |k0|, |k1| as 4 + 4 little-endian words, neg = their signs;
-// writes the Jacobian result (3 x 24 canonical words), infinity when inf.
-BLS_NI void sign_row(const uint32_t* msg, bool inf, const uint32_t* k,
-                     const bool* neg, uint32_t* out, const uint32_t* K) {
-  fp2 qx = mont_in2(msg, K);
-  fp2 qy = mont_in2(msg + 24, K);
-  fp2 q2x = fp2_mul_fp(qx, fp_load(K + 12 * K_G2_WX));
-  fp2 q2y = fp2_mul_fp(qy, fp_load(K + 12 * K_G2_WY));
-  qy = ct_select(0u - (uint32_t)neg[0], fp2_neg(qy), qy);
-  q2y = ct_select(0u - (uint32_t)neg[1], fp2_neg(q2y), q2y);
+// (x, y) <- -psi(x, y), affine Montgomery: [|x|](x, y) on G2
+BLS_HD void neg_psi(fp2& x, fp2& y, const uint32_t* K) {
+  x = fp2_mul(kfp2(K, K_PSI_CX0, K_PSI_CX1), fp2_conj(x));
+  y = fp2_neg(fp2_mul(kfp2(K, K_PSI_CY0, K_PSI_CY1), fp2_conj(y)));
+}
+
+// The complete addition of bls12_381.cuh point_add_complete without a
+// branch: the generic sum, the doubling and infinity are all computed and
+// chosen by masks in the priority of gpu/curve.py point_add_complete
+// (p infinite -> q, q infinite -> p, equal -> [2]p, opposite -> infinity).
+template <class F>
+BLS_NI jac<F> point_add_ct(const jac<F>& p, const jac<F>& q,
+                           const uint32_t* K) {
+  F Z1Z1 = f_mul(p.z, p.z), Z2Z2 = f_mul(q.z, q.z);
+  F U1 = f_mul(p.x, Z2Z2), U2 = f_mul(q.x, Z1Z1);
+  F t1 = f_mul(q.z, Z2Z2), t2 = f_mul(p.z, Z1Z1);
+  F Z1Z2 = f_mul(p.z, q.z);
+  F H = f_sub(U2, U1);
+  F H2 = f_add(H, H);
+  F ZZ2 = f_add(Z1Z2, Z1Z2);
+  F S1 = f_mul(p.y, t1), S2 = f_mul(q.y, t2);
+  F r = f_sub(S2, S1);
+  r = f_add(r, r);
+  uint32_t p_inf = ct_zero_mask(p.z), q_inf = ct_zero_mask(q.z);
+  uint32_t eq_x = ct_zero_mask(H), eq_y = ct_zero_mask(r);
+  F I = f_mul(H2, H2);
+  jac<F> o;
+  o.z = f_mul(ZZ2, H);
+  F J = f_mul(H, I), V = f_mul(U1, I), R2 = f_mul(r, r);
+  o.x = f_sub(R2, f_add(J, f_add(V, V)));
+  F t = f_mul(r, f_sub(V, o.x)), S1J = f_mul(S1, J);
+  o.y = f_sub(t, f_add(S1J, S1J));
+  o = ct_select(eq_x & ~eq_y & ~p_inf & ~q_inf, jac_inf<F>(K), o);
+  o = ct_select(eq_x & eq_y, point_double(p), o);
+  o = ct_select(q_inf, p, o);
+  return ct_select(p_inf, q, o);
+}
+
+// Lane `lane` of LANES of one signature: msg = [x | y] of H (2 x 24
+// canonical words), d the four base-|x| digits as 4 x 2 little-endian
+// words. The lane's bases are B_i = (-psi)^i(H) for i = lane * PER ..
+// lane * PER + PER - 1 (PER = 4 / LANES), the first reached through masks
+// so every lane runs the same (LANES - 1) * PER maps; returns
+// sum [d_i]B_i over them by one joint ladder of SIGN_DIGIT_BITS steps.
+//
+// Its mixed additions never meet P = +-Q, nor an infinite accumulator once
+// started. The lane's bases are [|x|^i]B for its first base B. Before the
+// slot of base i adds, the accumulator is [c]B with c = sum u_j |x|^j, u_j
+// the prefix of digit j read so far: this step's bit included for the
+// slots before i, doubled (even) for i and after. Every u_j <= d_j < |x|
+// (sign_digits_host), so the u_j are c's base-|x| digits, and c > 0 once
+// started. c != |x|^i since u_i is even. With one or two bases c < x^2 < r,
+// so c != -|x|^i mod r and c != 0 mod r. With four (LANES = 1) c < x^4 =
+// r + x^2 - 1: c = |x|^i mod r needs c = r + |x|^i (i <= 1), c = -|x|^i
+// needs c = r - |x|^i, and c = 0 needs c = r. In base |x| each of r + 1,
+// r - 1 (i = 0), r + |x|, r - |x| (i = 1) and r - x^2 (i = 2) has an odd
+// digit at j >= i, where u_j is even; r - |x|^3 = (1, 0, |x| - 1, |x| - 2)
+// and r = (1, 0, |x| - 1, |x| - 1) need every prefix at its full digit,
+// that is sk = r.
+template <int LANES>
+BLS_HD jac<fp2> sign_lane(const uint32_t* msg, const uint32_t* d, int lane,
+                          const uint32_t* K) {
+  constexpr int PER = 4 / LANES;
+  fp2 bx[PER], by[PER];
+  bx[0] = mont_in2(msg, K);
+  by[0] = mont_in2(msg + 24, K);
+  for (int j = 1; j <= (LANES - 1) * PER; j++) {  // the lane's first base
+    fp2 nx = bx[0], ny = by[0];
+    neg_psi(nx, ny, K);
+    uint32_t take = 0u - (uint32_t)(j <= lane * PER);
+    bx[0] = ct_select(take, nx, bx[0]);
+    by[0] = ct_select(take, ny, by[0]);
+  }
+  for (int i = 1; i < PER; i++) {
+    bx[i] = bx[i - 1];
+    by[i] = by[i - 1];
+    neg_psi(bx[i], by[i], K);
+  }
   fp2 one;
   f_one(one, K);
   jac<fp2> st = jac_inf<fp2>(K);
   uint32_t started = 0;
-  for (int s = SIGN_BITS - 1; s >= 0; s--) {  // fixed trip count
-    uint32_t b0 = 0u - ((k[s >> 5] >> (s & 31)) & 1u);
-    uint32_t b1 = 0u - ((k[4 + (s >> 5)] >> (s & 31)) & 1u);
+  const uint32_t* dl = d + 2 * PER * lane;
+#pragma unroll 1
+  for (int s = SIGN_DIGIT_BITS - 1; s >= 0; s--) {  // fixed trip count
     st = point_double(st);
-    ladder_slot(st, started, b0, qx, qy, one);
-    ladder_slot(st, started, b1, q2x, q2y, one);
+#pragma unroll
+    for (int i = 0; i < PER; i++) {
+      uint32_t bit = 0u - ((dl[2 * i + (s >> 5)] >> (s & 31)) & 1u);
+      ladder_slot(st, started, bit, bx[i], by[i], one);
+    }
   }
-  st = ct_select(0u - (uint32_t)inf, jac_inf<fp2>(K), st);
-  mont_out2(out, st.x);
-  mont_out2(out + 24, st.y);
-  mont_out2(out + 48, st.z);
+  return st;
 }
 
-// [±k0 ± k1*lambda] g1 for one row: the G1 twin of sign_row from the
+// the row's result (3 x 24 canonical words), infinity when inf
+BLS_HD void sign_store(uint32_t* out, const jac<fp2>& st, bool inf,
+                       const uint32_t* K) {
+  jac<fp2> r = ct_select(0u - (uint32_t)inf, jac_inf<fp2>(K), st);
+  mont_out2(out, r.x);
+  mont_out2(out + 24, r.y);
+  mont_out2(out + 48, r.z);
+}
+
+// [±k0 ± k1*lambda] g1 for one row: the dual 128-bit GLV ladder from the
 // generator, g1 = (x, -y) of the table's -g1; k = |k0|, |k1| as 4 + 4
 // little-endian words, neg = their signs; writes the Jacobian result (3 x
 // 12 canonical words).
@@ -115,15 +202,26 @@ BLS_NI void pubkey_row(const uint32_t* k, const bool* neg, uint32_t* out,
 }
 
 #ifdef __CUDACC__
-// --- batch_sign: one thread per signature, one warp a block -------------------
+// --- batch_sign: LANES lanes a signature, one warp a block ------------------
 
+// Thread t runs lane t % LANES of row t / LANES; lanes past the last row
+// run its ladder again (every lane of the warp takes part in the shuffles)
+// and store nothing. The tree adds lane m's sum into lane 0's side at each
+// level (m = 1, 2): lane 0 ends with (P0 + P1) + (P2 + P3).
+template <int LANES>
 __global__ void __launch_bounds__(32)
-batch_sign_kernel(const uint32_t* msg, const bool* msg_inf, const uint32_t* k,
-                  const bool* neg, int n, uint32_t* out, const uint32_t* K) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  sign_row(msg + 48 * (size_t)i, msg_inf[i], k + 8 * (size_t)i, neg + 2 * i,
-           out + 72 * (size_t)i, K);
+batch_sign_kernel(const uint32_t* msg, const bool* msg_inf, const uint32_t* d,
+                  int n, uint32_t* out, const uint32_t* K) {
+  int t = blockIdx.x * 32 + threadIdx.x;
+  int row = t / LANES, lane = t % LANES;
+  int r = row < n ? row : n - 1;
+  jac<fp2> st = sign_lane<LANES>(msg + 48 * (size_t)r, d + 8 * (size_t)r,
+                                 lane, K);
+#pragma unroll
+  for (int m = 1; m < LANES; m <<= 1)
+    st = point_add_ct(st, shfl_xor_words(st, m), K);
+  if (lane == 0 && row < n)
+    sign_store(out + 72 * (size_t)row, st, msg_inf[row], K);
 }
 
 // --- batch_pubkey: one thread per key, one warp a block ---------------------
@@ -141,25 +239,38 @@ batch_pubkey_kernel(const uint32_t* k, const bool* neg, int n, uint32_t* out,
 extern "C" {
 
 int bls_batch_sign(const uint32_t* msg, const bool* msg_inf,
-                   const uint32_t* k, const bool* neg, int n, uint32_t* out,
+                   const uint32_t* d, int n, int lanes, uint32_t* out,
                    const uint32_t* K, cudaStream_t stream) {
-  // one warp a block: a lane batch of 512 rows spreads over 16 SMs and a
-  // full bucket of 16,384 rows over every SM
-  if (n > 0)
-    batch_sign_kernel<<<(n + 31) / 32, 32, 0, stream>>>(msg, msg_inf, k, neg,
-                                                        n, out, K);
+  // one warp a block, 32 / lanes signatures a warp: a lane batch of 512
+  // rows at 4 lanes is 64 blocks, one warp on each of 64 SMs
+  int blocks = (int)(((long long)n * lanes + 31) / 32);
+  if (lanes != 1 && lanes != 2 && lanes != 4)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0 && lanes == 4)
+    batch_sign_kernel<4><<<blocks, 32, 0, stream>>>(msg, msg_inf, d, n, out,
+                                                    K);
+  else if (n > 0 && lanes == 2)
+    batch_sign_kernel<2><<<blocks, 32, 0, stream>>>(msg, msg_inf, d, n, out,
+                                                    K);
+  else if (n > 0)
+    batch_sign_kernel<1><<<blocks, 32, 0, stream>>>(msg, msg_inf, d, n, out,
+                                                    K);
   return (int)cudaGetLastError();
 }
 
-// geometry (host memory) of the launch bls_batch_sign makes over n rows:
-// blocks, threads a block, shared memory bytes, and the most blocks of this
-// shape one SM holds at once. Launches nothing.
-int bls_batch_sign_geometry(int n, int32_t* geometry, const uint32_t* K,
-                            cudaStream_t stream) {
+// geometry (host memory) of the launch bls_batch_sign makes over n rows at
+// `lanes` lanes a row: blocks, threads a block, shared memory bytes, and
+// the most blocks of this shape one SM holds at once. Launches nothing.
+int bls_batch_sign_geometry(int n, int lanes, int32_t* geometry,
+                            const uint32_t* K, cudaStream_t stream) {
+  if (lanes != 1 && lanes != 2 && lanes != 4)
+    return (int)cudaErrorInvalidValue;
   int per_sm = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, batch_sign_kernel, 32, 0);
-  geometry[0] = (n + 31) / 32;
+      &per_sm, lanes == 4 ? batch_sign_kernel<4>
+               : lanes == 2 ? batch_sign_kernel<2> : batch_sign_kernel<1>,
+      32, 0);
+  geometry[0] = (int)(((long long)n * lanes + 31) / 32);
   geometry[1] = 32;
   geometry[2] = 0;
   geometry[3] = per_sm;
@@ -168,8 +279,8 @@ int bls_batch_sign_geometry(int n, int32_t* geometry, const uint32_t* K,
 
 int bls_batch_pubkey(const uint32_t* k, const bool* neg, int n, uint32_t* out,
                      const uint32_t* K, cudaStream_t stream) {
-  // one warp a block, as batch_sign: a full bucket of 16,384 keys is 512
-  // one-warp blocks over every SM
+  // one warp a block: a full bucket of 16,384 keys is 512 one-warp blocks
+  // over every SM
   if (n > 0)
     batch_pubkey_kernel<<<(n + 31) / 32, 32, 0, stream>>>(k, neg, n, out, K);
   return (int)cudaGetLastError();

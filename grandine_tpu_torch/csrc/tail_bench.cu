@@ -1,8 +1,11 @@
 // Cycles (clock64, one warp, one block) of the pieces of rlc_finish's tail
 // (csrc/finish_tail.cuh): the Fp product, a form, each warp program, the
 // Euclid inversion, the one-thread Fp12 product and G2 addition that the
-// block's folds use, a whole final exponentiation. Built and run by
-// grandine_tpu_torch/gpu/tail_bench.py; no kernel of the port calls it.
+// block's folds use, a whole final exponentiation; and of the ladder steps
+// of batch_sign and g1_scalar_mul (Fp addition and subtraction, the G1 and
+// G2 doubling and mixed addition, the G1 formulas with their products
+// inlined and as calls). Built and run by grandine_tpu_torch/gpu/tail_bench.py;
+// no kernel of the port calls it.
 #include <cuda_runtime.h>
 
 #include "finish_tail.cuh"
@@ -11,7 +14,11 @@ using namespace bls;
 
 // what < 0: -1 fp_mul, -2 a CYC_SQ output form, -3 the Euclid inversion,
 // -4 fp12_mul_to on one thread, -5 point_add_complete on one thread, -6 a
-// final exponentiation; what >= 0: warp program `what`. out: cycles per
+// final exponentiation, -7 fp_add, -8 fp_sub, -9 point_double<fp>, -11
+// point_madd_unsafe<fp>, -12 point_double<fp2>, -13
+// point_madd_unsafe<fp2>, -14 fp2_mul, -15 point_double<fpc> (products as
+// calls), -16 point_madd_unsafe<fpc>, each on every lane; what >= 0:
+// warp program `what`. out: cycles per
 // operation. Shared memory starts with 200 seed Fp values.
 __global__ void tail_bench_kernel(int what, int reps, long long* out,
                                   const uint32_t* seed, const uint32_t* K) {
@@ -23,6 +30,10 @@ __global__ void tail_bench_kernel(int what, int reps, long long* out,
   uint32_t* buf = sm;  // four groups of 36 Fp values
   uint32_t* scratch = sm + 12 * 200;
   fp x = fp_load(sm + 12 * lane), y = fp_load(sm + 12 * (lane + 32));
+  jac<fp> g = {x, y, fp_load(sm + 12 * (lane + 64))};
+  jac<fp2> g2 = {{x, y}, {y, x}, {fp_load(sm + 12 * (lane + 96)), x}};
+  fp2 y2 = {y, fp_load(sm + 12 * (lane + 128))};
+  jac<fpc> gc = {{x}, {y}, {fp_load(sm + 12 * (lane + 160))}};
   long long t0 = clock64();
   for (int r = 0; r < reps; r++) {
     if (what >= 0) {
@@ -43,6 +54,24 @@ __global__ void tail_bench_kernel(int what, int reps, long long* out,
     } else if (what == -5) {
       jac<fp2>* a = reinterpret_cast<jac<fp2>*>(buf);
       if (lane == 0) a[0] = point_add_complete(a[0], a[1], K);
+    } else if (what == -7) {
+      x = fp_add(x, y);
+    } else if (what == -8) {
+      x = fp_sub(x, y);
+    } else if (what == -9) {
+      g = point_double(g);
+    } else if (what == -11) {
+      g = point_madd_unsafe(g, x, y);
+    } else if (what == -12) {
+      g2 = point_double(g2);
+    } else if (what == -13) {
+      g2 = point_madd_unsafe(g2, y2, g2.z);
+    } else if (what == -14) {
+      y2 = fp2_mul(y2, g2.x);
+    } else if (what == -15) {
+      gc = point_double(gc);
+    } else if (what == -16) {
+      gc = point_madd_unsafe(gc, fpc{x}, fpc{y});
     } else {
       tail::final_exp(buf, scratch, K);
     }
@@ -50,7 +79,8 @@ __global__ void tail_bench_kernel(int what, int reps, long long* out,
   }
   long long t1 = clock64();
   if (lane == 0) out[0] = (t1 - t0) / reps;
-  if (lane == 1) out[1] = x.l[0];  // keeps the chains live
+  if (lane == 1)  // keeps the chains live
+    out[1] = x.l[0] ^ g.x.l[0] ^ g2.x.c0.l[0] ^ y2.c1.l[0] ^ gc.x.v.l[0];
 }
 
 extern "C" int tail_bench(int what, int reps, long long* out,

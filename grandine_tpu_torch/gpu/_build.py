@@ -24,6 +24,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -47,7 +48,7 @@ LIBRARIES = {
                    "rlc_partial"),
     "sign.cu": ("batch_sign", "batch_sign_geometry", "batch_pubkey"),
     "normalize.cu": ("g1_normalize", "g2_normalize"),
-    "kzg.cu": ("g1_scalar_mul",),
+    "kzg.cu": ("g1_scalar_mul", "g1_scalar_mul_geometry"),
     "ed25519.cu": ("ed25519_verify",),
     "spans.cu": ("span_update_grid",),
     "msm.cu": ("g1_msm_lane_scan", "g2_msm_lane_scan",
@@ -80,9 +81,10 @@ SIGNATURES = {
     "miller_loop_pairs": [_vp, _vp, _vp, _vp, _i],
     "g1_group_sum": [_vp, _vp, _i, _vp],
     "g2_group_sum": [_vp, _vp, _i, _vp],
-    "batch_sign": [_vp, _vp, _vp, _vp, _i, _vp],
-    "batch_sign_geometry": [_i, _vp],
+    "batch_sign": [_vp, _vp, _vp, _i, _i, _vp],
+    "batch_sign_geometry": [_i, _i, _vp],
     "g1_scalar_mul": [_vp, _vp, _vp, _vp, _i, _vp],
+    "g1_scalar_mul_geometry": [_i, _vp],
     "ed25519_verify": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp],
     "span_update_grid": [_vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
     "group_sum_geometry": [_i, _i, _vp],
@@ -153,10 +155,22 @@ def build(force: bool = False) -> "dict[str, str]":
         jobs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
                         digest)
+    t0, outs = time.perf_counter(), {}
+
+    def wait(source, proc):  # each nvcc's output and wall time
+        out, _ = proc.communicate()
+        outs[source] = (out, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(source, proc))
+               for source, (proc, _) in jobs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = [], []
     for source, (proc, digest) in jobs.items():
-        out, _ = proc.communicate()
-        logs.append(f"== {source}\n{out}")
+        out, secs = outs[source]
+        logs.append(f"== {source} ({secs:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(source)
             continue

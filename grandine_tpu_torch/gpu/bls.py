@@ -39,8 +39,9 @@ verdict, as the JAX package fuses the ψ ladder into its verify programs
 by default; the compressed seams get it from the decompression kernel.
 
 Signing (`TorchBlsBackend.batch_sign`, the signing plane's device seam):
-`batch_sign` (this module: [skᵢ]·H(mᵢ) by a branchless dual 128-bit GLV
-ladder) — replacing batch_sign_kernel. Aggregate construction
+`batch_sign` (this module: [skᵢ]·H(mᵢ) from the secret's base-|x| digits,
+one branchless 64-step ladder a lane over (−ψ)ⁱ(H), one, two or four
+lanes a signature) — replacing batch_sign_kernel. Aggregate construction
 (`g2_aggregate_groups`, `g1_aggregate_groups`): `g2_group_sum` /
 `g1_group_sum` over groups padded with ∞ — replacing g2_aggregate_kernel
 and g1_aggregate_kernel.
@@ -90,11 +91,25 @@ from grandine_tpu_torch.gpu.mesh import resolve_mesh
 #: chunks of this size, each one RLC check (all must pass)
 MAX_BUCKET = 1 << 14
 
-#: bits of each GLV half of a secret scalar: Babai rounding keeps |k0|,
-#: |k1| ≤ λ ≈ 2¹²⁷·⁴, and the ladder's mixed additions never meet a
-#: degenerate case only while both stay below 2¹²⁸ (grandine_tpu/tpu/
-#: curve.py:604-609)
+#: bits of each GLV half of a secret scalar (`batch_pubkey`): Babai
+#: rounding keeps |k0|, |k1| ≤ λ ≈ 2¹²⁷·⁴, and the ladder's mixed additions
+#: never meet a degenerate case only while both stay below 2¹²⁸
+#: (grandine_tpu/tpu/curve.py:604-609)
 SIGN_HALF_BITS = 128
+
+#: |x|, the BLS parameter's magnitude: −ψ acts on G2 as [|x|], and a secret
+#: below r < |x|⁴ has four base-|x| digits (`sign_digits_host`)
+ABS_X = -constants.X
+#: bits of each base-|x| digit: the ladder steps of one `batch_sign` lane
+SIGN_DIGIT_BITS = 64
+#: `sign_lanes`: the most threads a `batch_sign` launch takes, about one
+#: warp for each of the H100's 528 warp schedulers (4 × 132 SMs). Up to it
+#: more lanes only shorten each signature's chain; past it the warps share
+#: a scheduler's issue slots and the lanes' duplicated doublings cost time
+#: (ladder_timing.py, H100 80GB HBM3 at 700 W: 4 / 2 / 1 lanes 8.53 / 13.27
+#: / 21.01 ms at 512 rows, 9.53 / 13.34 / 20.92 at 4,096, 15.67 / 14.66 /
+#: 20.99 at 8,192, 29.67 / 26.71 / 23.81 at 16,384)
+SIGN_LANE_THREADS = 1 << 14
 
 #: entries of the hash-to-G2 point cache (one per distinct signing root;
 #: a slot at mainnet width has at most 64 committees)
@@ -356,15 +371,19 @@ def _group_sum_cuda(name, rows, offsets, point_shape):
 
 def launch_geometry(name: str, n: int):
     """(blocks, threads a block, shared memory bytes, blocks one SM holds
-    at once) of the launch that "batch_sign" makes over n rows, or
-    "g1_group_sum" / "g2_group_sum" over n groups, on the current CUDA
+    at once) of the launch that "batch_sign" (at `sign_lanes(n)` lanes a
+    row) or "g1_scalar_mul" makes over n rows,
+    or "g1_group_sum" / "g2_group_sum" over n groups, on the current CUDA
     device. A query: it launches nothing."""
     from grandine_tpu_torch.gpu import _build
 
     geometry = np.zeros((4,), np.int32)
     out = ctypes.c_void_p(geometry.ctypes.data)
     if name == "batch_sign":
-        _build.launch("batch_sign_geometry", ctypes.c_int(n), out)
+        _build.launch("batch_sign_geometry", ctypes.c_int(n),
+                      ctypes.c_int(sign_lanes(n)), out)
+    elif name == "g1_scalar_mul":
+        _build.launch("g1_scalar_mul_geometry", ctypes.c_int(n), out)
     else:
         _build.launch("group_sum_geometry",
                       ctypes.c_int(name == "g2_group_sum"), ctypes.c_int(n),
@@ -375,53 +394,83 @@ def launch_geometry(name: str, n: int):
 # --- batch_sign -----------------------------------------------------------------
 
 
-def batch_sign_plain(msg, msg_inf, k, neg):
-    """Plain version of `batch_sign`: the 128-bit dual GLV ladder of
-    gpu/curve.py scalar_mul_glv with the sign masks."""
-    w = k.to(torch.int64) & 0xFFFFFFFF
-    out = C.scalar_mul_glv(L.from_words(msg[:, 0]), L.from_words(msg[:, 1]),
-                           msg_inf, w[:, 0], w[:, 1], C.g2_endo(msg.device),
-                           C.FP2_OPS, nbits=SIGN_HALF_BITS,
-                           neg_lo=neg[:, 0], neg_hi=neg[:, 1])
-    return C.jac_to_words(out, 2)
+def sign_lanes(n: int) -> int:
+    """Lanes a signature of a `batch_sign` launch over n rows: the most of
+    4, 2 and 1 that keeps n · lanes within SIGN_LANE_THREADS (4 up to 4,096
+    rows, 2 up to 8,192, 1 at a full bucket)."""
+    return next((v for v in (4, 2) if n * v <= SIGN_LANE_THREADS), 1)
 
 
-def batch_sign(msg, msg_inf, k, neg):
+def batch_sign_plain(msg, msg_inf, d, lanes: "int | None" = None):
+    """Plain version of `batch_sign`, in the kernel's steps: the bases
+    Bᵢ = (−ψ)ⁱ(H), lane j's joint ladder (gpu/curve.py `ladder`) over
+    Bᵢ for i = j·4/lanes … over the digits' 64 bits, then the lanes'
+    sums added pairwise as the kernel's shuffle tree adds them."""
+    n = msg_inf.shape[0]
+    lanes = sign_lanes(n) if lanes is None else lanes
+    per = 4 // lanes
+    bases = [(L.from_words(msg[:, 0]), L.from_words(msg[:, 1]))]
+    for _ in range(3):
+        bases.append(C.neg_psi(*bases[-1]))
+    w = d.to(torch.int64) & 0xFFFFFFFF
+    st = C.ladder(
+        [tuple(torch.stack([bases[j * per + i][c] for j in range(lanes)], 1)
+               for c in range(2)) for i in range(per)],
+        [C._bits_msb(w[:, i::per], SIGN_DIGIT_BITS) for i in range(per)],
+        C.FP2_OPS)
+    parts = [tuple(c[:, j] for c in st) for j in range(lanes)]
+    while len(parts) > 1:
+        parts = [C.point_add_complete(parts[i], parts[i + 1], C.FP2_OPS)
+                 for i in range(0, len(parts), 2)]
+    return C.jac_to_words(C._mask_inf(parts[0], msg_inf, C.FP2_OPS), 2)
+
+
+def batch_sign(msg, msg_inf, d, lanes: "int | None" = None):
     """N signatures [skᵢ]·H(mᵢ): msg (N, 2, 2, 12) the affine canonical
     words [x, y] of H(mᵢ) with msg_inf (N,) (an ∞ row gives ∞ whatever
-    its scalar); k (N, 2, 4) int32 the GLV halves |k0|, |k1| of skᵢ as
-    little-endian 32-bit words and neg (N, 2) bool their signs
-    (`sign_scalars_host`). Returns (N, 3, 2, 12) Jacobian words. CUDA
-    kernel `batch_sign` (csrc/sign.cu) on CUDA tensors, the plain version
-    on CPU tensors.
+    its digits); d (N, 4, 2) int32 the base-|x| digits of skᵢ as
+    little-endian 32-bit words, each below |x| (`sign_digits_host`);
+    `lanes` 1, 2 or 4 lanes a signature (`sign_lanes(N)` by default).
+    Returns (N, 3, 2, 12) Jacobian words. CUDA kernel `batch_sign`
+    (csrc/sign.cu) on CUDA tensors, the plain version on CPU tensors.
 
     Replaces grandine_tpu/tpu/bls.py batch_sign_kernel (:896) with
-    curve.py scalar_mul_glv (:591) on FP2_OPS. One thread a signature, one
-    warp a block: exactly 128 steps of one doubling and both mixed
-    additions, the bits and the "started" state choosing by mask selects —
-    no branch and no loop bound depends on a scalar bit. Bound:
-    operations — 128 doublings and ~128 mixed additions in Fp2 (~11,000
-    Fp products a row) against 515 bytes a row; each row is one thread's
-    dependent chain, so at a lane's 512 rows the kernel is latency-bound
-    on one ladder, and a full bucket (16,384 rows, 512 one-warp blocks)
-    fills the card.
+    curve.py scalar_mul_glv (:591) on FP2_OPS, by another decomposition of
+    the same product: ψ acts on G2 as [x], so with sk = Σ dᵢ|x|ⁱ (four
+    digits below |x| < 2⁶⁴) [sk]H = Σ [dᵢ]Bᵢ, Bᵢ = (−ψ)ⁱ(H). One warp a
+    block, `lanes` lanes a signature: each lane runs exactly 64 steps of
+    one doubling and a mixed addition a base (4 / lanes bases), the digit
+    bits and the "started" state choosing by mask selects; the lanes' sums
+    meet in a shuffle tree of complete additions that select by masks too
+    — no branch and no loop bound depends on a digit. Bound: operations —
+    at the function's least work 64 doublings and Σ popcount(dᵢ) − 1 mixed
+    additions in Fp2 (~5,500 Fp products a row; the branchless lanes
+    compute 64 · lanes doublings and 256 additions) against 513 bytes a
+    row. A lane batch of 512 rows (64 one-warp blocks at four lanes) is
+    latency-bound on one lane's 64 steps (before: one thread's 128 steps
+    with two additions each); a full bucket (16,384 rows, one lane: 512
+    blocks, about a warp a scheduler) is bound by the schedulers' issue
+    rate, so it takes the fewest duplicated doublings (`sign_lanes`).
 
     NOTE (as the JAX kernel says): secret scalars live on the card; the
-    kernel is branchless on the scalar (fixed trip count, select-based)
+    kernel is branchless on the secret (fixed trip count, select-based)
     but NOT hardened against physical side channels — the field
     arithmetic's conditional reductions still depend on the data."""
     n = msg_inf.shape[0]
-    if (msg.shape != (n, 2, 2, 12) or k.shape != (n, 2, 4)
-            or k.dtype != torch.int32 or neg.shape != (n, 2)):
+    if (msg.shape != (n, 2, 2, 12) or d.shape != (n, 4, 2)
+            or d.dtype != torch.int32):
         raise ValueError("batch_sign: msg (N, 2, 2, 12), msg_inf (N,), "
-                         "k (N, 2, 4) int32, neg (N, 2)")
+                         "d (N, 4, 2) int32")
+    lanes = sign_lanes(n) if lanes is None else lanes
+    if lanes not in (1, 2, 4):
+        raise ValueError(f"batch_sign: 1, 2 or 4 lanes a row, not {lanes}")
     if msg.device.type == "cpu":
-        return batch_sign_plain(msg, msg_inf, k, neg)
+        return batch_sign_plain(msg, msg_inf, d, lanes)
     from grandine_tpu_torch.gpu import _build
 
     out = torch.empty((n, 3, 2, 12), dtype=torch.int32, device=msg.device)
     _build.launch("batch_sign", msg.contiguous(), msg_inf.contiguous(),
-                  k.contiguous(), neg.contiguous(), ctypes.c_int(n), out)
+                  d.contiguous(), ctypes.c_int(n), ctypes.c_int(lanes), out)
     batch_sign.launches += 1
     return out
 
@@ -1644,6 +1693,24 @@ def sign_scalars_host(scalars, pad_to: "int | None" = None):
     return k.view(np.int32), neg
 
 
+def sign_digits_host(scalars, pad_to: "int | None" = None) -> np.ndarray:
+    """Secret scalars → (N, 4, 2) int32: the base-|x| digits d0 … d3 of
+    each (sk = d0 + d1|x| + d2|x|² + d3|x|³, three divmods by |x|; every
+    digit below |x| < 2⁶⁴ because sk < r < |x|⁴) as little-endian 32-bit
+    words, the operands of `batch_sign`. Rows past the scalars, up to
+    pad_to, are (1, 0, 0, 0)."""
+    vals = [int(v) for v in scalars]
+    n = len(vals) if pad_to is None else pad_to
+    out = np.zeros((n, 4), "<u8")
+    out[len(vals):, 0] = 1
+    for i, v in enumerate(vals):
+        assert 0 <= v < constants.R
+        for j in range(3):
+            v, out[i, j] = divmod(v, ABS_X)
+        out[i, 3] = v
+    return out.view("<u4").reshape(n, 4, 2).view(np.int32)
+
+
 def g2_points_from_words(words) -> "list[Point]":
     """(N, 3, 2, 12) Jacobian canonical words → host G2 points in affine
     form (Z = 1; ∞ where Z = 0), with one batched inversion."""
@@ -2165,7 +2232,7 @@ class TorchBlsBackend:
     ) -> "list[A.Signature]":
         """N signatures [skᵢ]·H(mᵢ) on the card (grandine_tpu/tpu/bls.py
         TpuBlsBackend.batch_sign :2986): H(mᵢ) from the hash-to-G2 cache,
-        the scalars GLV-decomposed on the host (`sign_scalars_host`), one
+        the scalars' base-|x| digits on the host (`sign_digits_host`), one
         `batch_sign` launch, the Jacobian results read back into affine
         `Signature`s with one batched inversion. Byte for byte the host
         `SecretKey.sign`; batches past MAX_BUCKET run in chunks."""
@@ -2179,8 +2246,8 @@ class TorchBlsBackend:
                                                secret_keys[i : i + MAX_BUCKET],
                                                dst)]
         msg, msg_inf = self._messages(messages, dst)
-        k, neg = sign_scalars_host([sk.scalar for sk in secret_keys])
-        words = batch_sign(msg, msg_inf, self._up(k), self._up(neg))
+        d = sign_digits_host([sk.scalar for sk in secret_keys])
+        words = batch_sign(msg, msg_inf, self._up(d))
         return [A.Signature(pt)
                 for pt in g2_points_from_words(words.cpu().numpy())]
 
@@ -2357,7 +2424,9 @@ __all__ = [
     "verify_sets", "verify_grouped", "grouped_route", "message_groups",
     "g1_decompress_rows", "rlc_pairs_words", "rlc_bits_host",
     "g2_affine_words", "g2_affine_words_many", "g1_affine_words",
-    "SIGN_HALF_BITS", "sign_scalars_host", "batch_sign", "batch_sign_plain",
+    "SIGN_HALF_BITS", "SIGN_DIGIT_BITS", "sign_scalars_host",
+    "sign_digits_host", "SIGN_LANE_THREADS", "sign_lanes", "batch_sign",
+    "batch_sign_plain",
     "g2_group_sum", "g2_group_sum_plain", "g2_aggregate_groups",
     "g1_aggregate_groups", "g2_points_from_words", "g1_points_from_words",
     "jacobian_rows", "launch_geometry", "batch_pubkey", "batch_pubkey_plain",

@@ -168,15 +168,27 @@ def _mask_inf(st, inf, ops):
 
 def scalar_mul(qx, qy, q_inf, bits, ops):
     """[k]Q for affine Q, MSB-first bit list (mixed adds; k < r)."""
+    return _mask_inf(ladder([(qx, qy)], [bits], ops), q_inf, ops)
+
+
+def ladder(bases, bits, ops):
+    """The joint branchless ladder over affine bases [(qx, qy), …], none
+    ∞: every step doubles, then each base's slot adds it by a mixed
+    addition where its bit is set (the base itself before the first set
+    bit), the bits choosing by select. `bits` holds one MSB-first list of
+    (…,) bool tensors a base. Returns the Jacobian sum, ∞ (1, 1, 0) where
+    no bit is set."""
+    qx = bases[0][0]
     one = ops.one(ops.batch(qx), qx.device)
     st = (one, one, torch.zeros_like(qx))
     started = torch.zeros(ops.batch(qx), dtype=torch.bool, device=qx.device)
-    for b in bits:
+    for step in zip(*bits):
         st = point_double(st, ops)
-        added = point_madd_unsafe(st, qx, qy, ops)
-        st = _sel3(b, _sel3(started, added, (qx, qy, one)), st)
-        started = started | b
-    return _mask_inf(st, q_inf, ops)
+        for b, (bx, by) in zip(step, bases):
+            added = point_madd_unsafe(st, bx, by, ops)
+            st = _sel3(b, _sel3(started, added, (bx, by, one)), st)
+            started = started | b
+    return st
 
 
 def scalar_mul_glv(qx, qy, q_inf, r0, r1, endo, ops, nbits: int = 32,
@@ -188,21 +200,14 @@ def scalar_mul_glv(qx, qy, q_inf, r0, r1, endo, ops, nbits: int = 32,
     words for wider halves (128-bit signing scalars); the (…,) bool masks
     neg_lo / neg_hi negate the y of the matching base (after the
     endomorphism), for signed GLV decompositions. Every step doubles and
-    both additions are computed, the bits choosing by select."""
+    both additions are computed, the bits choosing by select (`ladder`)."""
     q2x, q2y = ops.mul_many([qx, qy], list(endo))
     if neg_lo is not None:
         qy = L.select(neg_lo, L.neg_mod(qy), qy)
     if neg_hi is not None:
         q2y = L.select(neg_hi, L.neg_mod(q2y), q2y)
-    one = ops.one(ops.batch(qx), qx.device)
-    st = (one, one, torch.zeros_like(qx))
-    started = torch.zeros(ops.batch(qx), dtype=torch.bool, device=qx.device)
-    for b0, b1 in zip(_bits_msb(r0, nbits), _bits_msb(r1, nbits)):
-        st = point_double(st, ops)
-        for b, bx, by in ((b0, qx, qy), (b1, q2x, q2y)):
-            added = point_madd_unsafe(st, bx, by, ops)
-            st = _sel3(b, _sel3(started, added, (bx, by, one)), st)
-            started = started | b
+    st = ladder([(qx, qy), (q2x, q2y)],
+                [_bits_msb(r0, nbits), _bits_msb(r1, nbits)], ops)
     return _mask_inf(st, q_inf, ops)
 
 
@@ -247,6 +252,16 @@ def g2_endo(device):
 
 
 # --- ψ subgroup check -------------------------------------------------------
+
+
+def neg_psi(x, y):
+    """−ψ of affine Fp2 Montgomery (x, y): (cx·x̄, −cy·ȳ), which is
+    [|x|](x, y) on G2 (ψ acts there as [x], x < 0)."""
+    (cx0, cx1), (cy0, cy1) = psi_constants_ints()
+    cx = F.fp2_const(cx0, cx1, (), x.device)
+    cy = F.fp2_const(cy0, cy1, (), x.device)
+    nx, ny = FP2_OPS.mul_many([cx, cy], [F.fp2_conj(x), F.fp2_conj(y)])
+    return nx, L.neg_mod(ny)
 
 
 def psi_check(x, y, inf):
@@ -488,7 +503,8 @@ def jac_to_words(p, k: int) -> torch.Tensor:
 
 __all__ = [
     "FP_OPS", "FP2_OPS", "point_double", "point_madd_unsafe",
-    "point_add_complete", "scalar_mul", "scalar_mul_glv",
+    "point_add_complete", "ladder", "scalar_mul",
+    "scalar_mul_glv", "neg_psi",
     "scalar_mul_jac_glv", "sum_points_grouped", "psi_check",
     "g1_decompress", "g1_decompress_plain", "g2_decompress_subgroup",
     "g2_decompress_subgroup_plain", "g2_subgroup_check",

@@ -1,4 +1,5 @@
-"""Cycles of the pieces of `rlc_finish`'s tail on the card.
+"""Cycles of the pieces of `rlc_finish`'s tail, and of the ladder steps of
+`batch_sign` and `g1_scalar_mul`, on the card.
 
     python -m grandine_tpu_torch.gpu.tail_bench
 
@@ -7,7 +8,10 @@ on one warp of one block with clock64: the Fp product, one of the
 cyclotomic square's output forms, every warp program of
 csrc/finish_programs.cuh (on seeded values: the G2 addition takes its
 generic case), the Euclid inversion, the one-thread Fp12 product and G2
-addition of the block's folds and a whole final exponentiation. Prints
+addition of the block's folds and a whole final exponentiation; the Fp
+addition and subtraction, the G1 doubling and mixed addition (their Fp
+products inlined, and on `fpc`, as calls), the G2 doubling and mixed
+addition and the Fp2 product, each on every lane of the warp. Prints
 the card's name and power limit, one line an operation (cycles, and µs at
 the card's maximum SM clock) and one JSON object. Needs a card: it raises
 without one.
@@ -35,7 +39,15 @@ PIECES = [("fp_mul (a lane)", -1, 1000), ("form (CYC_SQ output)", -2, 1000),
           ("Euclid inversion (one lane)", -3, 20),
           ("fp12_mul_to (one thread)", -4, 20),
           ("point_add_complete (one thread)", -5, 20),
-          ("final exponentiation", -6, 1)]
+          ("final exponentiation", -6, 1),
+          ("fp_add (a lane)", -7, 1000), ("fp_sub (a lane)", -8, 1000),
+          ("G1 point_double (a lane)", -9, 100),
+          ("G1 point_madd_unsafe (a lane)", -11, 100),
+          ("G2 point_double (a lane)", -12, 50),
+          ("G2 point_madd_unsafe (a lane)", -13, 50),
+          ("fp2_mul (a lane)", -14, 200),
+          ("G1 point_double, products as calls (a lane)", -15, 100),
+          ("G1 point_madd_unsafe, products as calls (a lane)", -16, 100)]
 
 
 def main() -> None:

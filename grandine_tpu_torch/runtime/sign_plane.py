@@ -2,9 +2,10 @@
 sign_plane.py): every validator duty signature funnels into one
 multi-lane batch-signing plane. `submit` coalesces (signing root, secret
 key, duty kind) requests under a deadline-or-max_batch policy per lane
-into `batch_sign` launches on the card (gpu/bls.py, one dual 128-bit GLV
-ladder a signature), hands back ticket futures, and `pipeline_depth`
-worker threads overlap one batch's host work with another's device run.
+into `batch_sign` launches on the card (gpu/bls.py, a signature's four
+base-|x| digits over one to four lanes of 64-step ladders), hands back
+ticket futures, and `pipeline_depth` worker threads overlap one batch's
+host work with another's device run.
 
   release gate — before any caller sees a device-produced batch, the plane
       batch-verifies it against the callers' public keys in one RLC

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the verify routes of one or more checkouts of the port, in turns,
-on one card: the grouped route that `TorchBlsBackend.multi_verify` takes
-for repeated messages, and the flat route on the same sets as a control
-of the host's speed.
+"""Time the signature paths of one or more checkouts of the port, in
+turns, on one card: the verify routes — the grouped route that
+`TorchBlsBackend.multi_verify` takes for repeated messages, and the flat
+route on the same sets as a control of the host's speed — and the
+signing path: the operator slot through the signing plane and one full
+bucket through `TorchBlsBackend.batch_sign`.
 
     python3 route_timing.py TREE [TREE ...]      # e.g. parent change change parent
 
@@ -14,9 +16,20 @@ signing its committee's root) and the sync-committee slot (--sync
 signers over one root). Per tree and slot it prints the p50 of
 `multi_verify_async` → settle (host prep + enqueue apart from the device
 wait) over --rounds rounds of (flat, grouped, grouped, flat), after one
-warm-up call of each, and then one JSON line per tree. `--device cpu`
-runs the plain versions on the CPU (a tiny check of the script: use few
-validators and signers there).
+warm-up call of each (--rounds 0 skips the verify routes). Then, with
+--sign-rounds above 0, the operator slot: every signer of the slot's
+committees attests its committee's root and the sync signers sign
+theirs, each a `SigningPlane.submit` (DEFAULT_SIGN_LANES, release gate
+on), one warm round and --sign-rounds timed rounds, every released
+signature checked against its anchor; per round its time, and per batch
+the scheme's batch_sign (hash-to-G2, scalar prep, kernel, readback,
+encoding) and release gate (host decode, then the device multi_verify)
+on the host clock. Then the full bucket: `MAX_BUCKET` registry keys over
+the slot's roots (fewer when there are fewer validators), one warm call
+and 3 timed, a sample of 8 checked against `SecretKey.sign`. One JSON
+line per tree closes the output. `--device cpu` runs the plain versions
+on the CPU (a tiny check of the script: use few validators and signers
+there).
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ def _smoke():
 
 
 def worker(tree: str, device: str, validators: int, sync: int,
-           rounds: int, seed: int) -> dict:
+           rounds: int, sign_rounds: int, seed: int) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -101,7 +114,7 @@ def worker(tree: str, device: str, validators: int, sync: int,
             torch.cuda.synchronize()
 
     out = {"tree": tree, "build_s": build_s, "slots": {}}
-    for where, (ml, sl, kl) in shapes.items():
+    for where, (ml, sl, kl) in (shapes.items() if rounds else ()):
         groups = B.message_groups(ml)
         if not B.grouped_route(len(groups), max(map(len, groups.values())),
                                len(ml)):
@@ -134,7 +147,113 @@ def worker(tree: str, device: str, validators: int, sync: int,
             slot[name] = {"p50_ms": total * 1e3, "host_ms": host * 1e3,
                           "wait_ms": (total - host) * 1e3, "n": len(rr)}
         out["slots"][where] = slot
+    if sign_rounds:
+        requests = ([("attestation", m, i, p) for m, p, i in unagg]
+                    + [("sync_message", sync_root, i, s_pts[i])
+                       for i in members])
+        out["sign"] = sign_paths(sm, A, B, backend, requests, sks, key,
+                                 sorted(set(roots)), device, sign_rounds,
+                                 sync_device)
     return out
+
+
+def sign_paths(sm, A, B, backend, requests, sks, key, roots, device,
+               rounds, sync_device) -> dict:
+    """The operator slot through the signing plane (`requests`: (duty,
+    root, validator, anchor point)) and the full bucket, timed."""
+    from grandine_tpu_torch.gpu import schemes
+    from grandine_tpu_torch.runtime.sign_plane import (
+        DEFAULT_SIGN_LANES, SigningPlane)
+
+    anchors = [A.g2_to_bytes(p) for _, _, _, p in requests]
+    secret = {i: A.SecretKey(sks[i]) for _, _, i, _ in requests}
+    pubkey = {i: key(i) for _, _, i, _ in requests}
+    base, batches = schemes.get("bls"), []
+
+    def batch_sign(be, messages, secret_keys):
+        t = time.perf_counter()
+        out = base.signing.batch_sign(be, messages, secret_keys)
+        batches.append({"n": len(messages), "sign_s": time.perf_counter() - t})
+        return out
+
+    def release_verify(be, messages, sig_bytes, public_keys):
+        timer = sm.SignTimer(be)
+        t = time.perf_counter()
+        ok = base.signing.release_verify(timer, messages, sig_bytes,
+                                         public_keys)
+        batches.append({"n": len(messages),
+                        "gate_s": time.perf_counter() - t,
+                        "verify_s": timer.verify_s})
+        return ok
+
+    twin = schemes.Scheme(
+        "bls", field_bits=base.field_bits, curve=base.curve,
+        make_backend=base.make_backend, host_check=base.host_check,
+        device_dispatch=base.device_dispatch, async_seam=base.async_seam,
+        kernel_label=base.kernel_label, canary=base.canary,
+        signing=schemes.SigningDescriptor(
+            batch_sign=batch_sign, host_sign=base.signing.host_sign,
+            release_verify=release_verify))
+    sign_backend = B.TorchBlsBackend(device=device)
+    plane = SigningPlane(backend=sign_backend, lanes=DEFAULT_SIGN_LANES,
+                         device=device,
+                         settle_timeout_s=5.0 if device == "cuda" else 600.0)
+    schemes.register(twin)
+    times = []
+    try:
+        for r in range(1 + rounds):
+            del batches[:]
+            sync_device()
+            t0 = time.perf_counter()
+            tickets = [plane.submit(m, secret[i], duty_kind=duty,
+                                    public_key=pubkey[i])
+                       for duty, m, i, _ in requests]
+            got = [t.result(300.0) for t in tickets]
+            elapsed = time.perf_counter() - t0
+            if got != anchors:
+                raise SystemExit("operator slot: a released signature "
+                                 "differs from its anchor")
+            if r:  # the first round warms the plane and the caches up
+                times.append({"round_s": elapsed, "batches": list(batches)})
+        totals = sm.plane_totals(plane)
+    finally:
+        plane.stop()
+        schemes.register(base)
+    if totals["device_batches"] != totals["batches"] or any(
+            totals[k] for k in ("degraded", "device_faults", "gate_failures",
+                                "expired")):
+        raise SystemExit(f"operator slot: not every batch ran on the device "
+                         f"({totals})")
+
+    def total(name):
+        return sum(b.get(name, 0.0) for t in times for b in t["batches"])
+
+    gate, verify, sign = total("gate_s"), total("verify_s"), total("sign_s")
+    slot = {"requests": len(requests), "rounds": len(times),
+            "round_ms": [t["round_s"] * 1e3 for t in times],
+            "p50_ms": statistics.median(t["round_s"] for t in times) * 1e3,
+            "sign_ms": sign * 1e3 / len(times),
+            "decode_ms": (gate - verify) * 1e3 / len(times),
+            "verify_ms": verify * 1e3 / len(times),
+            "gate_share": gate / (gate + sign)}
+
+    n_full = min(B.MAX_BUCKET, len(sks))
+    msgs = [roots[i % len(roots)] for i in range(n_full)]
+    keys = [A.SecretKey(sks[i]) for i in range(n_full)]
+    bucket = []
+    for r in range(4):
+        sync_device()
+        t0 = time.perf_counter()
+        sigs = backend.batch_sign(msgs, keys)
+        bucket.append((time.perf_counter() - t0) * 1e3)
+    pick = range(0, n_full, n_full // 8)
+    if [sigs[j].to_bytes() for j in pick] != [
+            keys[j].sign(msgs[j]).to_bytes() for j in pick]:
+        raise SystemExit("full bucket: a sampled signature differs from "
+                         "SecretKey.sign")
+    return {"operator_slot": slot,
+            "full_bucket": {"rows": n_full, "ms": bucket[1:],
+                            "p50_ms": statistics.median(bucket[1:])}}
 
 
 def main() -> None:
@@ -144,12 +263,13 @@ def main() -> None:
     ap.add_argument("--validators", type=int, default=50_000)
     ap.add_argument("--sync", type=int, default=512)
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--sign-rounds", type=int, default=0)
     ap.add_argument("--seed", type=int, default=20261017)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
         print(json.dumps(worker(a.trees[0], a.device, a.validators, a.sync,
-                                a.rounds, a.seed)))
+                                a.rounds, a.sign_rounds, a.seed)))
         return
     if a.device == "cuda":
         import torch
@@ -168,8 +288,9 @@ def main() -> None:
             [sys.executable, os.path.abspath(__file__), "--worker",
              os.path.abspath(tree),
              "--device", a.device, "--validators", str(a.validators),
-             "--sync", str(a.sync), "--rounds", str(a.rounds), "--seed",
-             str(a.seed)], capture_output=True, text=True,
+             "--sync", str(a.sync), "--rounds", str(a.rounds),
+             "--sign-rounds", str(a.sign_rounds), "--seed", str(a.seed)],
+            capture_output=True, text=True,
             cwd=os.path.abspath(tree))
         if proc.returncode:
             sys.stderr.write(proc.stderr)
@@ -183,6 +304,17 @@ def main() -> None:
                       f"{slot[name]['host_ms']:.1f}, wait "
                       f"{slot[name]['wait_ms']:.1f}, n = {slot[name]['n']})"
                       for name in ("grouped", "flat")), flush=True)
+        if "sign" in res:
+            op, fb = res["sign"]["operator_slot"], res["sign"]["full_bucket"]
+            print(f"{tree}: operator slot, {op['requests']} signatures a "
+                  f"round: p50 {op['p50_ms']:.1f} ms over {op['rounds']} "
+                  f"rounds ({', '.join(f'{v:.1f}' for v in op['round_ms'])})"
+                  f"; a round's batches: sign {op['sign_ms']:.1f} ms, gate "
+                  f"host decode {op['decode_ms']:.1f} ms + device verify "
+                  f"{op['verify_ms']:.1f} ms (gate share "
+                  f"{op['gate_share']:.3f}); full bucket of {fb['rows']}: "
+                  f"p50 {fb['p50_ms']:.1f} ms ("
+                  f"{', '.join(f'{v:.1f}' for v in fb['ms'])})", flush=True)
     for res in results:
         print(json.dumps(res))
 

@@ -437,23 +437,26 @@ def test_sharded_routes_on_the_card(flat_sets, signer_sets, cuda_device, d):
 # --- the signing path ----------------------------------------------------------
 
 
-def test_batch_sign_matches_plain(cuda_device):
-    """Edge rows: ∞ message rows, both sign masks on each half, scalars 1,
-    r − 1, r − 2 and seeded ones, 40 rows (two one-warp blocks)."""
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_batch_sign_matches_plain(cuda_device, lanes):
+    """Edge rows at one, two and four lanes a signature: ∞ message rows,
+    keys 1, |x| − 1, |x|³, r − 1, r − 2, zero digits and seeded ones, 40
+    rows (two to five one-warp blocks)."""
+    from grandine_tpu_torch.crypto.constants import X
+
     host = random.Random(0xC0DD)
-    scalars = [1, R - 1, R - 2] + [host.randrange(1, R) for _ in range(37)]
-    k, neg = B.sign_scalars_host(scalars)
-    assert neg.any(0).all() and (~neg).any(0).all()
+    scalars = [1, -X - 1, (-X) ** 3, R - 1, R - 2, 5 + 9 * (-X) ** 3] + [
+        host.randrange(1, R) for _ in range(34)]
     be = B.TorchBlsBackend(device=cuda_device)
     msg, msg_inf = be._messages([bytes([i % 5]) * 32 for i in range(40)],
                                 DST_SIGNATURE)
     msg_inf = msg_inf.clone()
     msg_inf[[1, 17]] = True
-    args = (msg, msg_inf, torch.from_numpy(k).to(cuda_device),
-            torch.from_numpy(neg).to(cuda_device))
+    args = (msg, msg_inf,
+            torch.from_numpy(B.sign_digits_host(scalars)).to(cuda_device))
     before = B.batch_sign.launches
-    got = B.batch_sign(*args)
-    _equal((got,), (B.batch_sign_plain(*args),))
+    got = B.batch_sign(*args, lanes=lanes)
+    _equal((got,), (B.batch_sign_plain(*args, lanes),))
     assert B.batch_sign.launches == before + 1
     assert got[1, 2].abs().sum().item() == 0  # ∞: Z = 0
 
@@ -536,16 +539,17 @@ def _kzg_rows(points, scalars, dev):
 
 
 def test_g1_scalar_mul_matches_plain_on_edge_rows(cuda_device):
-    """k = 0, 1, r − 1, an ∞ base, the generator and random rows: the kernel
-    equals its plain version word for word and the host ladder as points."""
+    """k = 0, 1, r − 1, x² − 1, x², 3·x² (k0 = 0), an ∞ base, the generator
+    and random rows: the kernel equals its plain version word for word and
+    the host ladder as points."""
     from grandine_tpu_torch.crypto.curves import g1_infinity
     from grandine_tpu_torch.gpu import kzg as GK
 
     rng = random.Random(0x4844)
-    points = [G1.mul(rng.randrange(1, R)) for _ in range(5)]
+    points = [G1.mul(rng.randrange(1, R)) for _ in range(8)]
     points += [g1_infinity(), G1, G1, G1]
-    scalars = [0, 1, R - 1, rng.randrange(R), 2, rng.randrange(R), 1, R - 1,
-               rng.randrange(R)]
+    scalars = [0, 1, R - 1, GK.X2 - 1, GK.X2, 3 * GK.X2, rng.randrange(R),
+               2, rng.randrange(R), 1, R - 1, rng.randrange(R)]
     args = _kzg_rows(points, scalars, cuda_device)
     before = GK.g1_scalar_mul.launches
     got = GK.g1_scalar_mul(*args)
@@ -759,7 +763,8 @@ def _normalize_rows(k, dev):
     """Jacobian rows with Z ≠ 1 (ladder outputs), an ∞ row, Z = 1 and
     Z = −1 (X, −Y, −1) of one point."""
     host = random.Random(0xC0E2 + k)
-    ks, neg = B.sign_scalars_host([host.randrange(1, R) for _ in range(37)])
+    scalars = [host.randrange(1, R) for _ in range(37)]
+    ks, neg = B.sign_scalars_host(scalars)
     if k == 1:
         rows = B.batch_pubkey_plain(torch.from_numpy(ks),
                                     torch.from_numpy(neg)).numpy()
@@ -768,9 +773,9 @@ def _normalize_rows(k, dev):
     else:
         h = hash_to_g2(b"norm", DST_SIGNATURE)
         msg = torch.from_numpy(np.stack([B.g2_affine_words(h)[0]] * 37))
-        rows = B.batch_sign_plain(msg, torch.zeros((37,), dtype=torch.bool),
-                                  torch.from_numpy(ks),
-                                  torch.from_numpy(neg)).numpy()
+        rows = B.batch_sign_plain(
+            msg, torch.zeros((37,), dtype=torch.bool),
+            torch.from_numpy(B.sign_digits_host(scalars))).numpy()
         x, y = h.to_affine()
         ints = [x.c0.n, x.c1.n, y.c0.n, y.c1.n, 1, 0,
                 x.c0.n, x.c1.n, (C.P - y.c0.n) % C.P, (C.P - y.c1.n) % C.P,

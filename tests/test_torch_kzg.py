@@ -9,10 +9,14 @@ be identical.
 The plain device path of one batch verify costs ~12 s on one core (the
 plain Miller loop and final exponentiation), so four verdicts run it
 (valid, forged, tampered, ∞ proof) and the other cases are held at the
-prepare/pack level and on the port's host tail. The `kernel`+`slow` test
-holds the plain path against the JAX programs kzg_msm and
-kzg_blob_verify (outside tier-1)."""
+prepare/pack level and on the port's host tail. `g1_scalar_mul_plain`
+(two lanes a row by φ = [x²], signed 5-bit windows) is held against the
+JAX package's scalar plane on edge scalars, extreme window digits and
+seeded scalars. The
+`kernel`+`slow` test holds the plain path against the JAX programs
+kzg_msm and kzg_blob_verify (outside tier-1)."""
 
+import functools
 import hashlib
 import os
 
@@ -20,10 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+from grandine_tpu.crypto.constants import X as RX
+from grandine_tpu.crypto.curves import G1 as RG1
 from grandine_tpu.kzg import eip4844 as RK
 from grandine_tpu.kzg import fr as RF
 from grandine_tpu.kzg import setup as RS
 from grandine_tpu.tpu import limbs as RL
+from grandine_tpu_torch.gpu import bls as PB
 from grandine_tpu_torch.gpu import kzg as GK
 from grandine_tpu_torch.gpu import limbs as L
 from grandine_tpu_torch.gpu import schemes
@@ -421,6 +428,91 @@ def test_scalars_at_or_above_r_are_refused():
         k = torch.from_numpy(GK.scalar_words([1, bad]))
         with pytest.raises(ValueError, match="below r"):
             GK.g1_scalar_mul(px, px, torch.ones(2, dtype=torch.bool), k)
+
+
+# ------------------------------ the scalar plane against the JAX package's
+
+
+X2 = RX * RX  # φ acts on G1 as [x²]: k = k1·x² + k0
+
+
+def _alternating(par):
+    """A 125-bit half whose signed 5-bit windows alternate +16 and −16
+    (the table's last entry, both signs) from window 1 on."""
+    return sum((0b1111 << 5 * i) if i % 2 == par else (1 << (5 * i + 4))
+               for i in range(25))
+
+
+_ALT0, _ALT1 = _alternating(0), _alternating(1)
+_NEG16 = sum(1 << (5 * i + 4) for i in range(25))  # windows of −15
+_POS15 = sum(1 << b for b in range(125) if b % 5 != 4)  # windows of +15
+
+
+def _scalar_rows(rows, rng):
+    """Nine scalars of a row set; the last row's base is ∞."""
+    seeded = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(9)]
+    return {
+        # k0 = 0 at 3·x² and x²; the ∞ base with a live scalar
+        "edges": [0, 1, X2 - 1, X2, X2 + 1, R - 1, 3 * X2, seeded[0],
+                  seeded[0]],
+        # the windows' extreme digits (±16, ±15) in each half, the largest
+        # k1 with k0 = 0, bit 127 alone, a digit −16 in window 0
+        "digits": [_ALT1 * X2 + _ALT0, _ALT0 * X2 + _ALT1,
+                   _NEG16 * X2 + _POS15, _POS15 * X2 + _NEG16,
+                   (R - 1) // X2 * X2, 1 << 127, 16, (1 << 127) * X2,
+                   _ALT0 * X2 + _ALT1],
+        "seeded": seeded,
+    }[rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_plane_rows(rows):
+    """Rows of the scalar plane — eight seeded multiples of G1 and an ∞
+    base, with the scalars of `rows` — and the JAX package's answer:
+    grandine_tpu/tpu/curve.py scalar_mul over 255 MSB-first bits, as
+    kzg_msm runs it, jitted on the CPU (affine ints, None for ∞)."""
+    import jax
+
+    from grandine_tpu.tpu import curve as JC
+
+    rng = np.random.default_rng(0x5CA1)
+    seeded = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(8)]
+    points = [RG1.mul(v) for v in seeded] + [RG1.mul(0)]
+    scalars = _scalar_rows(rows, rng)
+    devs = [JC.g1_point_to_dev(p) for p in points]
+    px, py = np.stack([d[0] for d in devs]), np.stack([d[1] for d in devs])
+    inf = np.array([bool(d[2]) for d in devs])
+    bits = JC.scalars_to_bits_msb(scalars, 255)
+    X, Y, Z = (np.asarray(c) for c in jax.jit(lambda x, y, i, b: tuple(
+        RL.merge(c) for c in JC.scalar_mul(RL.split(x), RL.split(y), i, b.T,
+                                           JC.FP_OPS)))(px, py, inf, bits))
+    want = [g1_ints(JC.dev_to_g1_point(X[i], Y[i], Z[i]))
+            for i in range(len(points))]
+    words = np.zeros((len(points), 2, 12), np.int32)
+    live = [g1_ints(p) for p in points]
+    for i, xy in enumerate(live):
+        if xy is not None:
+            words[i] = L.ints_to_words(list(xy)).reshape(2, 12)
+    return words, inf, GK.scalar_words(scalars), want
+
+
+@pytest.mark.parametrize("rows", ["edges", "digits", "seeded"])
+def test_g1_scalar_mul_plain_equals_jax_scalar_plane(rows):
+    """`g1_scalar_mul_plain` (the halves k0, k1, the two lanes' signed
+    5-bit windows, the complete sum) against the JAX package's one-thread
+    scalar plane on the same rows: the same points, ∞ (Z = 0) for k = 0
+    and the ∞ base."""
+    words, inf, k, want = _scalar_plane_rows(rows)
+    got = GK.g1_scalar_mul_plain(
+        torch.from_numpy(words[:, 0]), torch.from_numpy(words[:, 1]),
+        torch.from_numpy(inf), torch.from_numpy(k))
+    assert [g1_ints(p) for p in PB.g1_points_from_words(got.numpy())] == want
+    assert want[8] is None and not got[8, 2].any()
+    if rows == "edges":
+        assert want[0] is None and want[1] is not None
+        assert not got[0, 2].any()
+    else:
+        assert all(p is not None for p in want[:8])
 
 
 # ------------------------------------- the plain path against the JAX programs

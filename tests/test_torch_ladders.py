@@ -1,0 +1,218 @@
+"""The two lane-split ladders on the CPU: csrc/sign.cu (`batch_sign`) and
+csrc/kzg.cu (`g1_scalar_mul`) compiled as plain C++, a row's lanes run in
+turn and the warp's shuffle tree emulated, against the port's plain
+versions, exact (canonical words).
+
+- `batch_sign` at one, two and four lanes a signature: sk = 1, |x| − 1, |x|,
+  |x|², |x|³, r − 2, r − 1, keys with zero digits, a seeded key and an ∞
+  message row, against `batch_sign_plain` at the same geometry.
+- `g1_scalar_mul` (signed 5-bit windows) on three row sets, each with an
+  ∞ base: the edges k = 0, 1, x² − 1, x², x² + 1, r − 1, k0 = 0 (3·x²);
+  halves whose windows take the table's extreme digits ±16 and ±15; and
+  seeded scalars — against `g1_scalar_mul_plain`.
+- The lane's long division k = k1·x² + k0 against Python's divmod.
+
+The harness builds with g++ into the git-ignored csrc/build/; without g++
+the tests skip (decided in the fixture).
+"""
+
+import ctypes
+import hashlib
+import os
+import random
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from grandine_tpu_torch.crypto.constants import DST_SIGNATURE, R, X
+from grandine_tpu_torch.crypto.curves import G1, g1_infinity
+from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
+from grandine_tpu_torch.gpu import _build
+from grandine_tpu_torch.gpu import bls as B
+from grandine_tpu_torch.gpu import kzg as GK
+from grandine_tpu_torch.gpu import limbs as L
+
+HARNESS = r"""
+#include "sign.cu"
+#include "kzg.cu"
+extern "C" {
+// batch_sign over n rows: each row's lanes in turn, then the shuffle tree
+// (lane l adds lane l + m at level m, as __shfl_xor_sync gives it)
+void ladders_sign(const uint32_t* msg, const bool* inf, const uint32_t* d,
+                  int n, int lanes, uint32_t* out, const uint32_t* K) {
+  for (int row = 0; row < n; row++) {
+    jac<fp2> p[4];
+    for (int l = 0; l < lanes; l++)
+      p[l] = lanes == 4 ? sign_lane<4>(msg + 48 * row, d + 8 * row, l, K)
+           : lanes == 2 ? sign_lane<2>(msg + 48 * row, d + 8 * row, l, K)
+                        : sign_lane<1>(msg + 48 * row, d + 8 * row, l, K);
+    for (int m = 1; m < lanes; m <<= 1)
+      for (int l = 0; l < lanes; l += 2 * m)
+        p[l] = point_add_ct(p[l], p[l + m], K);
+    sign_store(out + 72 * row, p[0], inf[row], K);
+  }
+}
+
+// g1_scalar_mul over n rows: lane 0, lane 1, the complete sum
+void ladders_kzg(const uint32_t* px, const uint32_t* py, const bool* inf,
+                 const uint32_t* k, int n, uint32_t* out, const uint32_t* K) {
+  uint32_t tab[(1 << (KZG_W - 1)) * 36];
+  for (int row = 0; row < n; row++) {
+    jac<fpc> h[2];
+    for (int half = 0; half < 2; half++)
+      h[half] = kzg_lane(px + 12 * row, py + 12 * row, k + 8 * row, half,
+                         tab, 1, K);
+    kzg_store(out + 36 * row, h[0], h[1], inf[row], K);
+  }
+}
+
+// the halves of n scalars: (k0, k1) as 4 + 4 words a row
+void ladders_split(const uint32_t* k, int n, uint32_t* out) {
+  for (int row = 0; row < n; row++)
+    for (int half = 0; half < 2; half++)
+      kzg_split(k + 8 * row, half, out + 8 * row + 4 * half);
+}
+}
+"""
+
+FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-I", _build.CSRC]
+SOURCES = ("sign.cu", "kzg.cu")
+ABS_X = -X
+X2 = X * X
+rng = random.Random(0x1AD)
+
+
+@pytest.fixture(scope="module")
+def lib():
+    """The harness, built with g++ into csrc/build/ (hash-stamped, a
+    per-process temporary name), loaded."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the ladders' host harness cannot be built")
+    h = hashlib.sha256(HARNESS.encode() + " ".join(FLAGS).encode())
+    for name in (*SOURCES, *_build.HEADERS):
+        with open(os.path.join(_build.CSRC, name), "rb") as fh:
+            h.update(fh.read())
+    path = os.path.join(_build.BUILD_DIR,
+                        f"libladders_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(path):
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        src = f"{path}.{os.getpid()}.cpp"
+        with open(src, "w") as fh:
+            fh.write(HARNESS)
+        try:
+            subprocess.run(["g++", *FLAGS, "-o", f"{path}.{os.getpid()}",
+                            src], check=True, capture_output=True,
+                           timeout=300)
+            os.replace(f"{path}.{os.getpid()}", path)
+        finally:
+            os.unlink(src)
+    return ctypes.CDLL(path)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+K = L.ints_to_words(_build.constant_table_ints()).astype(np.uint32)
+
+
+def _ptr(a):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+SIGN_KEYS = [1, ABS_X - 1, ABS_X, ABS_X ** 2, ABS_X ** 3, R - 2, R - 1,
+             5 + 9 * ABS_X ** 3,        # two zero middle digits
+             7 + 3 * ABS_X ** 2,        # zero digits 1 and 3
+             rng.randrange(R)]
+
+
+@pytest.fixture(scope="module")
+def sign_rows():
+    """The edge keys' digits and H(m) words over three messages; row 2's
+    message marked ∞."""
+    d = B.sign_digits_host(SIGN_KEYS)
+    msgs = [B.g2_affine_words(hash_to_g2(b"ladder-%d" % i, DST_SIGNATURE))[0]
+            for i in range(3)]
+    msg = np.stack([msgs[i % 3] for i in range(len(SIGN_KEYS))])
+    inf = np.zeros(len(SIGN_KEYS), bool)
+    inf[2] = True
+    return msg, inf, d
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_sign_lanes_equal_plain(lib, sign_rows, lanes):
+    msg, inf, d = sign_rows
+    n = len(SIGN_KEYS)
+    out = np.zeros((n, 3, 2, 12), np.uint32)
+    lib.ladders_sign(_ptr(msg), _ptr(inf), _ptr(d), n, lanes, _ptr(out),
+                     _ptr(K))
+    want = B.batch_sign_plain(torch.from_numpy(msg), torch.from_numpy(inf),
+                              torch.from_numpy(d), lanes)
+    assert np.array_equal(out.view(np.int32), want.numpy())
+    assert not out[2, 2].any()  # ∞ message: Z = 0
+
+
+def _alternating(par):
+    """A 125-bit half whose signed 5-bit windows alternate +16 and −16
+    from window 1 on."""
+    return sum((0b1111 << 5 * i) if i % 2 == par else (1 << (5 * i + 4))
+               for i in range(25))
+
+
+ALT0, ALT1 = _alternating(0), _alternating(1)
+NEG16 = sum(1 << (5 * i + 4) for i in range(25))  # windows of −15
+POS15 = sum(1 << b for b in range(125) if b % 5 != 4)  # windows of +15
+KZG_SCALARS = {
+    "edges": [0, 1, X2 - 1, X2, X2 + 1, R - 1, 3 * X2, rng.randrange(R), 5],
+    "digits": [ALT1 * X2 + ALT0, ALT0 * X2 + ALT1, NEG16 * X2 + POS15,
+               POS15 * X2 + NEG16, (R - 1) // X2 * X2, 1 << 127, 16,
+               (1 << 127) * X2, 7],
+    "seeded": [rng.randrange(R) for _ in range(9)],
+}
+
+
+def _kzg_rows(rows):
+    """Eight seeded multiples of G1 and an ∞ base, the scalars of
+    `rows`."""
+    pts = [G1.mul(rng.randrange(1, R)) for _ in range(8)] + [g1_infinity()]
+    inf = np.array([p.is_infinity() for p in pts], bool)
+    px = np.zeros((len(pts), 12), np.int32)
+    py = np.zeros_like(px)
+    px[~inf], py[~inf] = B.g1_affine_words([p for p in pts
+                                            if not p.is_infinity()])
+    return px, py, inf, GK.scalar_words(KZG_SCALARS[rows])
+
+
+@pytest.mark.parametrize("rows", sorted(KZG_SCALARS))
+def test_kzg_lanes_equal_plain(lib, rows):
+    px, py, inf, k = args = _kzg_rows(rows)
+    n = inf.shape[0]
+    out = np.zeros((n, 3, 12), np.uint32)
+    lib.ladders_kzg(_ptr(px), _ptr(py), _ptr(inf), _ptr(k), n, _ptr(out),
+                    _ptr(K))
+    want = GK.g1_scalar_mul_plain(*(torch.from_numpy(a) for a in args))
+    assert np.array_equal(out.view(np.int32), want.numpy())
+    assert not out[8, 2].any()  # the ∞ base
+    assert out[1:8, 2].any(-1).all()  # live rows with k ≠ 0
+    if rows == "edges":
+        assert not out[0, 2].any()  # k = 0
+
+
+def test_kzg_split_equals_divmod(lib):
+    ks = [0, 1, X2 - 1, X2, X2 + 1, R - 1, 3 * X2, (1 << 255) - 1,
+          (1 << 128) - 1] + [rng.randrange(1 << 255) for _ in range(23)]
+    k = GK.scalar_words(ks)
+    out = np.zeros((len(ks), 2, 4), np.uint32)
+    lib.ladders_split(_ptr(k), len(ks), _ptr(out))
+    got = [(int.from_bytes(r[0].tobytes(), "little"),
+            int.from_bytes(r[1].tobytes(), "little")) for r in out]
+    assert got == [divmod(v, X2)[::-1] for v in ks]
+    halves = GK.scalar_halves(torch.from_numpy(k)).numpy().astype(np.uint32)
+    assert np.array_equal(halves, out)

@@ -1,11 +1,14 @@
 """The port's signing path and aggregate construction on the CPU, against
 the JAX package: `sign_scalars_host` against `sign_bits_host` (the same
-halves and signs), `TorchBlsBackend(device="cpu").batch_sign` byte for
-byte against the JAX host anchor `SecretKey.sign` on the edge corpus, the
-aggregate seams against `Signature.aggregate` / `PublicKey.aggregate`,
-and — marked kernel and slow, as the JAX package marks its own — the
-plain versions against the JAX programs batch_sign_kernel and
-g2/g1_aggregate_kernel jitted on the CPU with the same operands."""
+halves and signs, `batch_pubkey`'s operands), `sign_digits_host`'s
+base-|x| digits on seeded and edge keys, `batch_sign_plain` at one, two
+and four lanes a signature against the JAX host anchor's points,
+`TorchBlsBackend(device="cpu").batch_sign` byte for byte against the JAX
+host anchor `SecretKey.sign` on the edge corpus, the aggregate seams
+against `Signature.aggregate` / `PublicKey.aggregate`, and — marked
+kernel and slow, as the JAX package marks its own — the plain versions
+against the JAX programs batch_sign_kernel and g2/g1_aggregate_kernel
+jitted on the CPU with the same secrets and points."""
 
 import random
 
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from grandine_tpu.crypto import bls as JA
-from grandine_tpu.crypto.constants import DST_SIGNATURE, R
+from grandine_tpu.crypto.constants import DST_SIGNATURE, R, X
 from grandine_tpu.crypto.curves import LAMBDA
 from grandine_tpu.tpu import bls as JB
 from grandine_tpu.tpu import curve as JC
@@ -27,6 +30,11 @@ from grandine_tpu_torch.validator.duties import (
 
 rng = random.Random(0x51C)
 SKS = [0x7E57_0001 + 0x1357 * i for i in range(8)]
+ABS_X = -X
+#: the digit edges: 1, |x| − 1, |x|, |x|², |x|³, r − 2, r − 1, zero
+#: middle digits
+DIGIT_EDGES = [1, ABS_X - 1, ABS_X, ABS_X ** 2, ABS_X ** 3, R - 2, R - 1,
+               5 + 9 * ABS_X ** 3, 7 + 3 * ABS_X ** 2]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,6 +72,48 @@ def test_sign_scalars_host_matches_jax():
         assert a < 1 << 128 and b < 1 << 128
 
 
+def _digits_of_words(d):
+    """(N, 4, 2) int32 words → [[d0, d1, d2, d3], …] ints."""
+    u = np.asarray(d).view(np.uint32).astype(object)
+    return [[int(row[i, 0]) + (int(row[i, 1]) << 32) for i in range(4)]
+            for row in u]
+
+
+def test_sign_digits_host_edges_and_seeded_keys():
+    scalars = DIGIT_EDGES + [rng.randrange(1, R) for _ in range(24)]
+    d = B.sign_digits_host(scalars, pad_to=len(scalars) + 2)
+    assert d.shape == (len(scalars) + 2, 4, 2) and d.dtype == np.int32
+    digits = _digits_of_words(d)
+    for s, ds in zip(scalars, digits):
+        assert sum(v * ABS_X ** i for i, v in enumerate(ds)) == s
+        assert all(0 <= v < ABS_X for v in ds)
+    assert digits[-2:] == [[1, 0, 0, 0]] * 2  # padding
+    assert digits[:5] == [[1, 0, 0, 0], [ABS_X - 1, 0, 0, 0], [0, 1, 0, 0],
+                          [0, 0, 1, 0], [0, 0, 0, 1]]
+    assert digits[6] == [0, 0, ABS_X - 1, ABS_X - 1]  # r − 1
+    assert digits[7] == [5, 0, 0, 9] and digits[8] == [7, 0, 3, 0]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_batch_sign_plain_at_each_geometry_matches_jax_anchor(lanes):
+    """The plain version at one, two and four lanes a signature: the digit
+    edges and a seeded key over three messages, an ∞ message row, equal
+    as points to [sk]·H(m) of the JAX package's host crypto."""
+    scalars = DIGIT_EDGES + [rng.randrange(1, R)]
+    msgs = [b"geometry-%d" % (i % 3) for i in range(len(scalars))]
+    be = B.TorchBlsBackend(device="cpu")
+    msg = torch.from_numpy(np.stack(
+        [be._hash_to_g2_words(m, DST_SIGNATURE)[0] for m in msgs]))
+    inf = torch.zeros(len(scalars), dtype=torch.bool)
+    inf[4] = True
+    got = B.batch_sign_plain(msg, inf, torch.from_numpy(
+        B.sign_digits_host(scalars)), lanes)
+    want = [JA.g2_to_bytes(JA.hash_to_g2(m, DST_SIGNATURE).mul(k))
+            for k, m in zip(scalars, msgs)]
+    want[4] = JA.g2_to_bytes(JA.g2_infinity())
+    assert _port_affine_g2(got.numpy()) == want
+
+
 def _corpus():
     return [
         (1, b"scalar-one"),
@@ -92,9 +142,9 @@ def test_batch_sign_chunks_and_empty(monkeypatch):
     rows = []
     kernel = B.batch_sign
 
-    def counted(msg, msg_inf, k, neg):
+    def counted(msg, msg_inf, d):
         rows.append(msg.shape[0])
-        return kernel(msg, msg_inf, k, neg)
+        return kernel(msg, msg_inf, d)
 
     monkeypatch.setattr(B, "batch_sign", counted)
     keys = [PA.SecretKey(k) for k in SKS[:5]]
@@ -178,10 +228,11 @@ def _port_affine_g2(words):
 
 @pytest.mark.kernel
 @pytest.mark.slow
-def test_batch_sign_plain_matches_jax_kernel():
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_batch_sign_plain_matches_jax_kernel(lanes):
     """batch_sign_kernel jitted on the CPU at N = 4 (an ∞ message row,
     scalars 1, r − 1 and a seeded one) and the port's plain version on the
-    same operands: the same points."""
+    same secrets and messages, at each geometry: the same points."""
     msgs = [b"k1", b"k2", b"k3", b"k4"]
     scalars = [1, R - 1, rng.randrange(1, R), R - 2]
     jx = [JC.g2_point_to_dev(JA.hash_to_g2(m, DST_SIGNATURE)) for m in msgs]
@@ -194,9 +245,8 @@ def test_batch_sign_plain_matches_jax_kernel():
     be = B.TorchBlsBackend(device="cpu")
     msg = torch.from_numpy(np.stack(
         [be._hash_to_g2_words(m, DST_SIGNATURE)[0] for m in msgs]))
-    k, pneg = B.sign_scalars_host(scalars)
-    got = B.batch_sign_plain(msg, torch.from_numpy(minf), torch.from_numpy(k),
-                             torch.from_numpy(pneg))
+    got = B.batch_sign_plain(msg, torch.from_numpy(minf), torch.from_numpy(
+        B.sign_digits_host(scalars)), lanes)
     assert _port_affine_g2(got.numpy()) == want
 
 
