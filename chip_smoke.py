@@ -13,8 +13,16 @@ Phases (any failure raises and exits non-zero):
      terms only, signature terms only, an ∞ signature sum, spans 1, 8,
      9, 128 and 129, the 2,048-group per-item rung), each launched
      FINISH_REPEATS times with the same verdicts and held against the
-     plain version with phase 14's batched checks; ptxas' stack need of
-     the pairing kernels and the tail's depth in warp rounds;
+     plain version with phase 14's batched checks; miller_loop_pairs at
+     MILLER_EDGE pair counts (testing/pairing_rows.py: Z = 1 and Z ≠ 1,
+     −g1, pair_inf rows) and aggregate_rlc_scale on its edge rows (r0 = 0,
+     r1 = 0, r = 1, halves 0xFFFFFFFF, a sum to ∞, a doubling, one member,
+     130 members, masked signatures), EDGE_REPEATS launches each, every
+     launch equal to
+     the plain version, with each shape's geometry and CUDA-event time;
+     ptxas' stack need of the pairing, aggregate and ladder kernels
+     against STACK_CEILING and the warp rounds of a group's tail and of a
+     pair's Miller loop;
   3. the main path at real size: a 50,000-validator registry ingested on
      the card, then one slot of gossip aggregates (12 committees × 16
      aggregators = 192 aggregates of 87–130 members) through
@@ -196,7 +204,9 @@ Phases (any failure raises and exits non-zero):
      PyTorch computation gives the same function, that one's;
      end-to-end p50 of the gossip batch, the block and the window with
      the hash-to-G2 cache warm and cold, host prep kept apart from
-     device time.
+     device time; then every miller_loop_pairs and aggregate_rlc_scale
+     launch of phases 3-14 (the timing table's aside, checked there),
+     recorded as it ran, against batched plain calls.
 Prints the card's name and power limit, one `kernels` JSON line, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -225,7 +235,7 @@ SYNC_COMMITTEE_SIZE = 512
 #: a replay window, cut from the JAX package's 32 blocks (signing its
 #: ~4,200 distinct messages on the host would take ~5 minutes)
 WINDOW_BLOCKS = 8
-BLOCK_REPS_WARM, BLOCK_REPS_COLD, WINDOW_REPS_WARM = 5, 3, 3
+BLOCK_REPS_WARM, BLOCK_REPS_COLD, WINDOW_REPS_WARM = 5, 2, 2
 #: rounds of (flat, grouped, grouped, flat) when both routes are timed
 ROUTE_ROUNDS = 2
 #: launches of each rlc_finish edge call, which must all give the same
@@ -250,6 +260,18 @@ HBM_BYTES_PER_S = 3.35e12
 GROUPED_LAUNCHES = {"msm_lane_scan": 2, "msm_bucket_reduce": 2,
                     "msm_horner": 2, "g2_subgroup_check": 1,
                     "miller_loop_pairs": 1, "rlc_finish": 1}
+#: the per-thread stack ceiling: no kernel's ptxas stack need may pass it
+#: (the limit the build sets is the deepest need rounded up to 1 KiB;
+#: 5,120 B since rlc_finish's warp tail, 264 MiB of device memory per KiB)
+STACK_CEILING = 5120
+#: pair counts of the miller_loop_pairs edge phase (phase 2): one warp, a
+#: full block of four, a partial one, the gossip slot, the window, past
+#: the card's 528 schedulers; each launched EDGE_REPEATS times
+MILLER_EDGE = (1, 32, 33, 192, 1048, 2048)
+#: rows a batched plain call of the pairing launch checks takes at most
+#: (Miller pairs, aggregates), and the narrowest gather width the
+#: aggregates are padded to (a plain call costs ~5 s whatever its size)
+PLAIN_CHUNK_PAIRS, PLAIN_CHUNK_AGGS, PLAIN_AGG_WIDTH = 32768, 4096, 130
 #: 32-bit integer multiply / multiply-add results per clock per SM for
 #: compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 #: instruction throughput table)
@@ -363,14 +385,12 @@ class OpModel:
         self.psi = psi
         self.g1_row = 6 + self.sqrt
         self.g2_row = 2 + 6 + self.fq2_sqrt + 2 + psi + 4
-        adds = bin(abs_x).count("1") - 1
-        # the Miller loop of a general (P, Q) pair: the doubling step 49
-        # Fp products, the addition step 71, each line product sparse, each
-        # square the 36-product one; P and Q in (7), P's constants (3), f
-        # out (12)
-        dbl_step, add_step = 49, 71
-        self.miller = (7 + 3 + 63 * (self.sq12 + self.line + dbl_step)
-                       + adds * (add_step + self.line) + 12)
+        n = {k: v[0] for k, v in FPG.stats().items()}
+        # the Miller loop of a general (P, Q) pair from its warp programs'
+        # products (finish_programs.miller_runs): P's coefficients, the
+        # doubling with the 36-product square and the sparse line product,
+        # the addition with Q affine; P and Q in (7), f out (12)
+        self.miller = 7 + sum(n[k] * c for k, c in FPG.miller_runs()) + 12
         # rlc_finish's tail, from its warp programs' products
         # (gpu/finish_programs.py): the Miller loop of (−g1, Σ) with P's
         # constants folded, its product with the f terms; the final
@@ -378,7 +398,6 @@ class OpModel:
         # Euclid inversion (no multiplies; 2 products back into Montgomery
         # form) and cyclotomic squares in the hard part
         # (finish_programs.tail_runs)
-        n = {k: v[0] for k, v in FPG.stats().items()}
         runs = [n[k] * c for k, c in FPG.tail_runs()]
         self.miller_rlc = sum(runs[:4])
         self.final_exp = sum(runs[4:]) + 2
@@ -657,6 +676,76 @@ def finish_edge_calls(torch, np, L, P, fin):
     calls += [(f"span {k}", tiled(k, k)) for k in (1, 8, 9, 128, 129)]
     calls.append(("the per-item rung, 2,048 groups of 1", tiled(1, 1, 2048)))
     return calls
+
+
+def miller_operands(rpk, msg, inf):
+    """A Recorder's `operands` for miller_loop_pairs: its inputs, cloned."""
+    return rpk.clone(), msg.clone(), inf.clone()
+
+
+def aggregate_operands(src_x, src_y, idx, cnt, sig_x, sig_y, sig_mask, r01):
+    """A Recorder's `operands` for aggregate_rlc_scale: each aggregate's
+    member rows gathered and cloned (a later write into the gather source
+    cannot change what the check sees), the rest cloned."""
+    rows = idx.long()
+    return (src_x[rows].clone(), src_y[rows].clone(), cnt.clone(),
+            sig_x.clone(), sig_y.clone(), sig_mask.clone(), r01.clone())
+
+
+def check_pairing_launches(torch, B, TP, recs, same, dev):
+    """Every recorded launch of miller_loop_pairs and aggregate_rlc_scale
+    against the plain version: rows are independent, so the launches'
+    rows are stacked (aggregates grouped by their gather width, at least
+    PLAIN_AGG_WIDTH with zero rows past cnt, their member rows as the
+    source) and held against a few batched plain calls of at most
+    PLAIN_CHUNK_PAIRS pairs or PLAIN_CHUNK_AGGS aggregates."""
+    for rec in recs:
+        if not rec.calls:
+            fail(f"{rec.name}: no launch recorded")
+        t0 = time.perf_counter()
+        if rec.name == "miller_loop_pairs":
+            ins = [torch.cat([a[i].to(dev) for a, _ in rec.calls])
+                   for i in range(3)]
+            got = torch.cat([o.to(dev) for _, o in rec.calls])
+            n, step = got.shape[0], PLAIN_CHUNK_PAIRS
+            for c0 in range(0, n, step):
+                same(rec.name, got[c0:c0 + step], TP.miller_loop_pairs_plain(
+                    *(a[c0:c0 + step] for a in ins)),
+                     f"every launch of phases 3-14: {len(rec.calls)} "
+                     f"launches, pairs {c0}-{min(n, c0 + step) - 1} of {n}")
+            log(f"check {rec.name}: {len(rec.calls)} launches, {n} pairs, in "
+                f"{time.perf_counter() - t0:.1f} s")
+            continue
+        by_k = {}
+        for (mx, my, *rest), out in rec.calls:
+            k = max(mx.shape[1], PLAIN_AGG_WIDTH)
+            pad = (0, 0, 0, k - mx.shape[1])
+            by_k.setdefault(k, []).append((
+                (torch.nn.functional.pad(mx, pad),
+                 torch.nn.functional.pad(my, pad), *rest), out))
+        total = 0
+        for k, calls in sorted(by_k.items()):
+            ins = [torch.cat([a[i].to(dev) for a, _ in calls])
+                   for i in range(7)]
+            outs = [torch.cat([o[i].to(dev) for _, o in calls])
+                    for i in range(3)]
+            m, step = outs[0].shape[0], PLAIN_CHUNK_AGGS
+            total += m
+            for c0 in range(0, m, step):
+                mx, my, cnt, gx, gy, mask, r01 = (a[c0:c0 + step]
+                                                 for a in ins)
+                mc = mx.shape[0]
+                idx = torch.arange(mc * k, dtype=torch.int32,
+                                   device=dev).reshape(mc, k)
+                same(rec.name, tuple(o[c0:c0 + step] for o in outs),
+                     B.aggregate_rlc_scale_plain(
+                         mx.reshape(-1, 12), my.reshape(-1, 12), idx, cnt,
+                         gx, gy, mask, r01),
+                     f"every launch of phases 3-14 at gather width {k}: "
+                     f"{len(calls)} launches, aggregates {c0}-"
+                     f"{min(m, c0 + step) - 1} of {m}")
+        log(f"check {rec.name}: {len(rec.calls)} launches, {total} "
+            f"aggregates, in {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_stack(log, name):
@@ -3585,6 +3674,7 @@ def main() -> None:
     from grandine_tpu_torch.gpu import pairing as TP
     from grandine_tpu_torch.gpu import spans as GS
     from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
+    from grandine_tpu_torch.testing import pairing_rows as PR
     from grandine_tpu_torch.consensus.verifier import (
         SignatureInvalid, TorchVerifier)
     from grandine_tpu_torch.crypto.curves import (
@@ -3656,6 +3746,7 @@ def main() -> None:
     needs = {}
     for lib, names in (("pairing", ("rlc_finish_kernel", "rlc_partial_kernel",
                                     "miller_loop_pairs_kernel")),
+                       ("aggregate", ("aggregate_rlc_scale_kernel",)),
                        ("sign", ("batch_sign_kernelILi4",
                                  "batch_sign_kernelILi2",
                                  "batch_sign_kernelILi1")),
@@ -3667,11 +3758,15 @@ def main() -> None:
         + f"; the card-wide limit {limit} B")
     if None in needs.values():
         fail("a kernel's stack need is missing from its ptxas log")
-    if max(needs.values()) > needs["miller_loop_pairs_kernel"]:
-        fail("a kernel's stack need rose above miller_loop_pairs'")
+    if max(needs.values()) > STACK_CEILING:
+        fail(f"a kernel's stack need rose above the {STACK_CEILING} B "
+             f"ceiling")
     rounds, stages = FPG.tail_depth()
     log(f"rlc_finish tail: {rounds} rounds of one Fp product a lane and "
         f"{stages} output stages a live group, one Euclid inversion")
+    rounds, stages = FPG.tail_depth(FPG.miller_runs())
+    log(f"miller_loop_pairs: {rounds} rounds of one Fp product a lane and "
+        f"{stages} output stages a pair, one warp a pair")
 
     # host prep: registry keys, committees, aggregates ------------------------
     rng = random.Random(20261017)
@@ -3767,6 +3862,50 @@ def main() -> None:
                                                            pair_inf), edge)
     fin = (f, agg[2], agg[1], dec[3], dec[7])
     same("rlc_finish", B.rlc_finish(*fin), B.rlc_finish_plain(*fin), edge)
+    # miller_loop_pairs at MILLER_EDGE pair counts (prefixes of one set of
+    # rows: Z = 1 and Z ≠ 1, −g1, pair_inf rows) and aggregate_rlc_scale
+    # on its edge rows, each launched EDGE_REPEATS times, every launch
+    # equal to the plain version; the geometry and CUDA-event time a shape
+    m_rows, m_msg, m_inf, m_tile = PR.miller_rows(max(MILLER_EDGE), 20261020)
+    e_plain = TP.miller_loop_pairs_plain(*(torch.from_numpy(a).to(dev) for a
+                                           in (m_rows, m_msg, m_inf)))
+    e_rows = [torch.from_numpy(np.ascontiguousarray(a[m_tile])).to(dev)
+              for a in (m_rows, m_msg, m_inf)]
+    e_plain = e_plain[torch.from_numpy(m_tile).to(dev)]
+
+    def repeats(fn):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        outs = [fn() for _ in range(EDGE_REPEATS)]
+        e1.record()
+        torch.cuda.synchronize()
+        return outs, e0.elapsed_time(e1) / EDGE_REPEATS
+
+    for n in MILLER_EDGE:
+        outs, ms = repeats(lambda: TP.miller_loop_pairs(
+            *(a[:n] for a in e_rows)))
+        for o in outs:
+            same("miller_loop_pairs", o, e_plain[:n],
+                 f"edge rows, {n} pairs (Z = 1 and Z ≠ 1, −g1, the "
+                 f"generator and hashed messages, "
+                 f"{int(e_rows[2][:n].sum())} pair_inf)")
+        log(f"miller_loop_pairs edge, {n} pairs: geometry (blocks, "
+            f"threads, shared bytes, blocks an SM) "
+            f"{TP.miller_loop_pairs_geometry(n)}; {ms:.3f} ms a launch "
+            f"(CUDA events, {EDGE_REPEATS} launches) {at}")
+    a_args = [torch.from_numpy(a).to(dev)
+              for a in PR.aggregate_rows(PR.AGGREGATE_EDGES, 20261021)]
+    a_plain = B.aggregate_rlc_scale_plain(*a_args)
+    outs, ms = repeats(lambda: B.aggregate_rlc_scale(*a_args))
+    for o in outs:
+        same("aggregate_rlc_scale", o, a_plain, "edge rows: r0 = 0; r1 = 0; "
+             "r = 1; halves 0xFFFFFFFF; 130 members; a sum to ∞; the same "
+             "key twice; one member; masked signatures")
+    if a_plain[1].tolist() != [i in (4, 8) for i in range(len(a_args[3]))]:
+        fail(f"aggregate_rlc_scale edges: agg_inf {a_plain[1].tolist()}")
+    log(f"aggregate_rlc_scale edge rows ({len(a_args[3])} aggregates): "
+        f"{ms:.3f} ms a launch (CUDA events, {EDGE_REPEATS} launches, each "
+        f"equal to the plain version) {at}")
     # rlc_finish's edge groups, each launched FINISH_REPEATS times with
     # identical verdicts; held against the plain version with the other
     # recorded finish calls, in the batched plain calls after the timings
@@ -3782,6 +3921,13 @@ def main() -> None:
         f"{FINISH_REPEATS} times with the same verdicts")
 
     # 3. the main path at real size -------------------------------------------
+    # every launch of miller_loop_pairs and aggregate_rlc_scale from here on
+    # (the timing table's own launches aside, checked in the table) is
+    # recorded and held against the plain version at the end
+    pair_recs = [Recorder(TP, "miller_loop_pairs", miller_operands),
+                 Recorder(B, "aggregate_rlc_scale", aggregate_operands)]
+    for r in pair_recs:
+        r.__enter__()
     backend = B.TorchBlsBackend()
     registry = DevicePubkeyRegistry()
 
@@ -4564,6 +4710,8 @@ def main() -> None:
         for where, (ops_r, verdict_r) in finish_records
         if where not in timed_finish]
 
+    for r in pair_recs:  # the table times the wrappers themselves
+        r.__exit__(None, None, None)
     report = []
     sources = {name: src for src, names in _build.LIBRARIES.items()
                for name in names}
@@ -4620,6 +4768,8 @@ def main() -> None:
     log(f"rlc_finish: {len(finish_checks)} calls held against batched "
         f"plain calls over their {sum(r.shape[0] for r in refs)} groups in "
         f"{time.perf_counter() - t0:.1f} s")
+    for r in pair_recs:
+        r.__enter__()
 
     # end to end: host prep apart from device time --------------------------
     # "warm": the same batch again, its 12 signing roots' hash-to-G2 points
@@ -4703,6 +4853,9 @@ def main() -> None:
         f"{sum(window_cold) * 1e3:.1f} ms {at}")
     if not all(v is True for v, _, _ in rows):
         fail("a valid window did not verify")
+    for r in pair_recs:
+        r.__exit__(None, None, None)
+    check_pairing_launches(torch, B, TP, pair_recs, same, dev)
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the "
         f"build included")
     log(json.dumps({"kernels": report}))

@@ -7,10 +7,9 @@
 // same R over 24 x 16-bit limbs). Tower Fp2 = Fp[u]/(u^2 + 1),
 // Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v), xi = 1 + u. Curve
 // formulas (dbl-2009-l, madd-2007-bl, add-2007-bl with its doubling and
-// infinity cases) and the Miller loop steps are those of
-// grandine_tpu_torch/gpu/{curve,pairing}.py, which are those of the JAX
-// package (grandine_tpu/tpu/{curve,pairing}.py); rlc_finish's final
-// exponentiation is csrc/finish_tail.cuh's.
+// infinity cases) are those of grandine_tpu_torch/gpu/curve.py, which are
+// those of the JAX package (grandine_tpu/tpu/curve.py); the Miller loop
+// and the final exponentiation are csrc/finish_tail.cuh's warp programs.
 //
 // Constants that derive from the curve (Montgomery one, R^2, b, 1/2, the
 // GLV and psi constants, -g1) reach every kernel as one table
@@ -304,8 +303,6 @@ BLS_NI void fp12_mul_to(fp12& r, const fp12& a, const fp12& b) {
   r.c1 = fp6_sub(t2, fp6_add(t0, t1));
 }
 
-BLS_HD void fp12_conj_ip(fp12& a) { a.c1 = fp6_neg(a.c1); }
-
 BLS_HD fp2 kfp2(const uint32_t* K, int i0, int i1) {
   return {fp_load(K + 12 * i0), fp_load(K + 12 * i1)};
 }
@@ -509,22 +506,6 @@ BLS_NI jac<F> scalar_mul_glv(const F& qx, const F& qy, const F& q2x,
   return st;
 }
 
-// GLV ladder for a Jacobian base, complete additions throughout
-BLS_NI jac<fp> scalar_mul_jac_glv_g1(const jac<fp>& q, uint32_t r0,
-                                     uint32_t r1, const uint32_t* K) {
-  jac<fp> e2;
-  e2.x = fp_mul(q.x, fp_load(K + 12 * K_G1_BX));
-  e2.y = fp_mul(q.y, fp_load(K + 12 * K_G1_BY));
-  e2.z = q.z;
-  jac<fp> st = jac_inf<fp>(K);
-  for (int i = 31; i >= 0; i--) {
-    st = point_double(st);
-    if ((r0 >> i) & 1) st = point_add_complete(st, q, K);
-    if ((r1 >> i) & 1) st = point_add_complete(st, e2, K);
-  }
-  return st;
-}
-
 // --- square roots and decompression -------------------------------------
 
 // (root, ok): root = a^((p+1)/4), ok iff root^2 = a
@@ -671,84 +652,6 @@ BLS_NI bool psi_check(const fp2& x, const fp2& y, const uint32_t* K) {
   f_one(ps.z, K);
   jac<fp2> t = point_add_complete(xp, ps, K);
   return fp2_is_zero(t.z);
-}
-
-// --- Miller loop and final exponentiation --------------------------------
-
-struct g1c_t { fp2 xi_yp; fp neg_xpzp, zp3; };
-
-BLS_HD fp12 line_fp12(const fp2& a, const fp2& b, const fp2& c) {
-  fp12 r;
-  fp2 z = {fp_zero(), fp_zero()};
-  r.c0.c0 = a; r.c0.c1 = z; r.c0.c2 = z;
-  r.c1.c0 = z; r.c1.c1 = b; r.c1.c2 = c;
-  return r;
-}
-
-BLS_NI fp12 double_step(jac<fp2>& T, const g1c_t& g) {
-  fp2 X2 = fp2_sq(T.x);
-  fp2 A = fp2_add(fp2_add(X2, X2), X2);
-  fp2 YZ = fp2_mul(T.y, T.z), AX = fp2_mul(A, T.x);
-  fp2 B = fp2_add(YZ, YZ);
-  fp2 YB = fp2_mul(T.y, B), BZ = fp2_mul(B, T.z), AZ = fp2_mul(A, T.z);
-  fp2 B2 = fp2_mul(B, B);
-  fp2 la = fp2_mul(BZ, g.xi_yp);
-  fp2 lb = fp2_mul_fp(fp2_sub(AX, YB), g.zp3);
-  fp2 lc = fp2_mul_fp(AZ, g.neg_xpzp);
-  fp2 A2 = fp2_mul(A, A), XB2 = fp2_mul(T.x, B2), B3 = fp2_mul(B, B2);
-  fp2 A2Z = fp2_mul(A2, T.z), YB3 = fp2_mul(T.y, B3), Z2 = fp2_mul(B3, T.z);
-  fp2 XB2_2 = fp2_add(XB2, XB2);
-  fp2 XB2_3 = fp2_add(XB2_2, XB2);
-  T.x = fp2_mul(B, fp2_sub(A2Z, XB2_2));
-  T.y = fp2_sub(fp2_mul(A, fp2_sub(XB2_3, A2Z)), YB3);
-  T.z = Z2;
-  return line_fp12(la, lb, lc);
-}
-
-BLS_NI fp12 add_step(jac<fp2>& T, const jac<fp2>& Q, const g1c_t& g) {
-  fp2 YZq = fp2_mul(T.y, Q.z), YqZ = fp2_mul(Q.y, T.z);
-  fp2 XZq = fp2_mul(T.x, Q.z), XqZ = fp2_mul(Q.x, T.z);
-  fp2 E = fp2_sub(YZq, YqZ), Fv = fp2_sub(XZq, XqZ);
-  fp2 EXq = fp2_mul(E, Q.x), FYq = fp2_mul(Fv, Q.y), EZq = fp2_mul(E, Q.z);
-  fp2 FZq = fp2_mul(Fv, Q.z), F2 = fp2_mul(Fv, Fv);
-  fp2 la = fp2_mul(FZq, g.xi_yp);
-  fp2 lb = fp2_mul_fp(fp2_sub(EXq, FYq), g.zp3);
-  fp2 lc = fp2_mul_fp(EZq, g.neg_xpzp);
-  fp2 E2 = fp2_mul(E, E), F3 = fp2_mul(Fv, F2);
-  fp2 Fsum = fp2_mul(F2, fp2_add(XZq, XqZ)), XF2 = fp2_mul(F2, T.x);
-  fp2 E2Z = fp2_mul(E2, T.z), XF2Zq = fp2_mul(XF2, Q.z);
-  fp2 YF3 = fp2_mul(F3, T.y), F3Z = fp2_mul(F3, T.z);
-  fp2 E2ZZq = fp2_mul(E2Z, Q.z), YF3Zq = fp2_mul(YF3, Q.z);
-  fp2 Z3 = fp2_mul(F3Z, Q.z);
-  fp2 G = fp2_sub(E2ZZq, Fsum);
-  T.x = fp2_mul(Fv, G);
-  T.y = fp2_sub(fp2_mul(E, fp2_sub(XF2Zq, G)), YF3Zq);
-  T.z = Z3;
-  return line_fp12(la, lb, lc);
-}
-
-// f = f_{|x|,Q}(P) conjugated; P Jacobian G1, Q homogeneous on the twist
-BLS_NI void miller_loop(fp12& f, const jac<fp>& P, const jac<fp2>& Q,
-                        const uint32_t* K) {
-  g1c_t g;
-  fp XpZp = fp_mul(P.x, P.z), Zp2 = fp_mul(P.z, P.z);
-  g.zp3 = fp_mul(Zp2, P.z);
-  g.xi_yp.c0 = P.y;
-  g.xi_yp.c1 = P.y;
-  g.neg_xpzp = fp_neg(XpZp);
-  f = fp12_one(K);
-  jac<fp2> T = Q;
-  fp12 l;
-  for (int i = 62; i >= 0; i--) {
-    fp12_mul_to(f, f, f);
-    l = double_step(T, g);
-    fp12_mul_to(f, f, l);
-    if ((BLS_ABS_X >> i) & 1) {
-      l = add_step(T, Q, g);
-      fp12_mul_to(f, f, l);
-    }
-  }
-  fp12_conj_ip(f);
 }
 
 // --- canonical-word I/O ------------------------------------------------------

@@ -1,4 +1,5 @@
-// rlc_finish for the H100: one block a live group, its tail across a warp.
+// rlc_finish for the H100: one block a live group, its tail across a warp;
+// and miller_loop_pairs: one warp a pair, on the same warp programs.
 //
 // A group's block folds its terms with all of its threads, then warp 0
 // runs the Miller loop of (-g1, the sum of its signature terms), the
@@ -15,9 +16,15 @@
 // values live in shared memory; a lane holds only the Fp values of the
 // product or form it is computing.
 //
+// miller_loop_pairs runs, on each warp, one pair's loop: the coefficient
+// program of its Jacobian P (yP, zP^3, -xP zP), then 63 doubling and 5
+// addition programs with those coefficients and its affine Q, and writes
+// conj(f) as canonical words (miller_pair below).
+//
 // The same code compiles as plain C++ (no __CUDACC__): a stage's 32 lanes
-// (or a block's threads) then run in turn between the synchronisation
-// points, so a host harness reproduces the kernel's words exactly.
+// (or a block's threads, or its warps) then run in turn between the
+// synchronisation points, so a host harness reproduces the kernel's words
+// exactly.
 #pragma once
 #include "bls12_381.cuh"
 
@@ -52,6 +59,12 @@ __device__ __forceinline__ void warps_each(int, Fn fn) {
   fn((int)(threadIdx.x >> 5));
   __syncthreads();
 }
+// fn(warp) on the calling warp, with no synchronisation (the warps of the
+// block are independent)
+template <class Fn>
+__device__ __forceinline__ void each_warp(int, Fn fn) {
+  fn((int)(threadIdx.x >> 5));
+}
 BLS_HD int ctz32(uint32_t x) { return __ffs(x) - 1; }
 #define TAIL_HHD __host__ __device__ __forceinline__
 #else
@@ -66,6 +79,10 @@ static inline void block_each(int T, Fn fn) {
 template <class Fn>
 static inline void warps_each(int T, Fn fn) {
   for (int w = 0; w < T / 32; w++) fn(w);
+}
+template <class Fn>
+static inline void each_warp(int W, Fn fn) {
+  for (int w = 0; w < W; w++) fn(w);
 }
 BLS_HD int ctz32(uint32_t x) { return __builtin_ctz(x); }
 #define TAIL_HHD static inline
@@ -534,6 +551,77 @@ BLS_HD void finish_group(uint32_t* sm, int T, int NF, int NS, bool terms,
         *verdict = (fp12_is_one(*reinterpret_cast<const fp12*>(F), K) &&
                     !*flag) ? 1 : 0;
     });
+  });
+}
+
+// --- miller_loop_pairs: one warp a pair ------------------------------------
+
+// Fp values of a pair's buffers: F (12), T (6), Q affine (4), P's
+// coefficients (3), then the warp's scratch; MILLER_WS in all
+enum MillerBuf {
+  M_F = 0, M_T = 12, M_Q = 18, M_P = 22, M_SCRATCH = 25,
+  MILLER_WS = M_SCRATCH + MILLER_SCRATCH
+};
+
+// One pair by the calling warp, in `sm` (MILLER_WS Fp values): f =
+// conj(f_{|x|,Q}(P)) for P Jacobian (rpk: 3 x 12 canonical words) and Q
+// affine (msg: 2 x 2 x 12), or one for a pair_inf row; 144 canonical
+// words to `f`. P's Jacobian words pass through F before PCOEF turns them
+// into its coefficients; T starts as Q (Z = 1).
+BLS_HD void miller_pair(uint32_t* sm, const uint32_t* rpk,
+                        const uint32_t* msg, bool inf, uint32_t* f,
+                        const uint32_t* K) {
+  uint32_t *F = sm + 12 * M_F, *Tt = sm + 12 * M_T, *Q = sm + 12 * M_Q,
+           *Pc = sm + 12 * M_P, *scratch = sm + 12 * M_SCRATCH;
+  if (inf) {
+    warp_each([&](int lane) {
+      if (lane < 12) {
+        fp one = fp_zero();
+        one.l[0] = lane == 0;
+        fp_store(f + 12 * lane, one);
+      }
+    });
+    return;
+  }
+  warp_each([&](int lane) {
+    if (lane < 3) fp_store(F + 12 * lane, mont_in(rpk + 12 * lane, K));
+    else if (lane < 7)
+      fp_store(Q + 12 * (lane - 3), mont_in(msg + 12 * (lane - 3), K));
+  });
+  run(PROG_PCOEF, F, Pc, nullptr, nullptr, scratch);
+  warp_each([&](int lane) {
+    if (lane < 12)
+      fp_store(F + 12 * lane, lane == 0 ? fp_load(K + 12 * K_ONE) : fp_zero());
+    else if (lane < 16)
+      fp_store(Tt + 12 * (lane - 12), fp_load(Q + 12 * (lane - 12)));
+    else if (lane < 18)
+      fp_store(Tt + 12 * (lane - 12),
+               lane == 16 ? fp_load(K + 12 * K_ONE) : fp_zero());
+  });
+  for (int i = 62; i >= 0; i--) {
+    run(PROG_DBL_P, F, Tt, Q, Pc, scratch);
+    if ((BLS_ABS_X >> i) & 1) run(PROG_ADD_P, F, Tt, Q, Pc, scratch);
+  }
+  // conj(f): its c1 half (values 6..11) negated on the way out
+  warp_each([&](int lane) {
+    if (lane < 12) {
+      fp v = fp_load(F + 12 * lane);
+      mont_out(f + 12 * lane, lane < 6 ? v : fp_neg(v));
+    }
+  });
+}
+
+// Block b of a launch of W warps a block over n pairs: warp w takes pair
+// b * W + w (none past n); `sm` holds W * MILLER_WS Fp values
+BLS_HD void miller_block(uint32_t* sm, int W, int b, int n,
+                         const uint32_t* rpk, const uint32_t* msg,
+                         const bool* pair_inf, uint32_t* f,
+                         const uint32_t* K) {
+  each_warp(W, [&](int w) {
+    size_t i = (size_t)b * W + w;
+    if (i < (size_t)n)
+      miller_pair(sm + 12 * MILLER_WS * w, rpk + 36 * i, msg + 48 * i,
+                  pair_inf[i], f + 144 * i, K);
   });
 }
 

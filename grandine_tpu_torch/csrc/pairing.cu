@@ -1,6 +1,7 @@
 // The pairing kernels of the BLS verify path: miller_loop_pairs,
 // rlc_finish and rlc_partial (the per-shard product of the sharded
-// verify programs).
+// verify programs). miller_loop_pairs and rlc_finish run warp programs
+// (csrc/finish_tail.cuh).
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -17,27 +18,22 @@
 
 using namespace bls;
 
-// --- miller_loop_pairs: one thread per pair --------------------------------
+// --- miller_loop_pairs: one warp a pair -----------------------------------
+//
+// Pair i = blockIdx.x * W + w runs on warp w of its block (W = blockDim / 32,
+// 1 to 4, gpu/pairing.py miller_warps): csrc/finish_tail.cuh miller_pair,
+// the coefficient program of P, 63 doubling and 5 addition warp programs
+// over the warp's buffers in dynamic shared memory (MILLER_WS Fp values a
+// warp), conj(f) out as canonical words. The warps of a block share
+// nothing; a warp past the last pair returns at once.
 
-__global__ void miller_loop_pairs_kernel(const uint32_t* rpk,
-                                         const uint32_t* msg,
-                                         const bool* pair_inf, uint32_t* f,
-                                         int n, const uint32_t* K) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  fp12 out = fp12_one(K);
-  if (!pair_inf[i]) {
-    jac<fp> P;
-    P.x = mont_in(rpk + 36 * (size_t)i, K);
-    P.y = mont_in(rpk + 36 * (size_t)i + 12, K);
-    P.z = mont_in(rpk + 36 * (size_t)i + 24, K);
-    jac<fp2> Q;
-    Q.x = mont_in2(msg + 48 * (size_t)i, K);
-    Q.y = mont_in2(msg + 48 * (size_t)i + 24, K);
-    f_one(Q.z, K);
-    miller_loop(out, P, Q, K);
-  }
-  fp12_out(f + 144 * (size_t)i, out);
+__global__ void __launch_bounds__(BLS_TREE, 4)
+miller_loop_pairs_kernel(const uint32_t* rpk, const uint32_t* msg,
+                         const bool* pair_inf, uint32_t* f, int n,
+                         const uint32_t* K) {
+  extern __shared__ uint4 dyn_smem[];
+  tail::miller_block(reinterpret_cast<uint32_t*>(dyn_smem), blockDim.x >> 5,
+                     blockIdx.x, n, rpk, msg, pair_inf, f, K);
 }
 
 // --- rlc_finish: one block a live group, its tail across warp 0 ---------
@@ -149,13 +145,46 @@ rlc_partial_kernel(const uint32_t* f, const bool* agg_inf,
 
 extern "C" {
 
+// dynamic shared memory of a miller_loop_pairs block of `warps` warps
+static size_t miller_smem(int warps) {
+  return (size_t)warps * tail::MILLER_WS * 48;
+}
+
+static cudaError_t miller_allow_smem() {
+  return cudaFuncSetAttribute(miller_loop_pairs_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)miller_smem(BLS_TREE / 32));
+}
+
 int bls_miller_loop_pairs(const uint32_t* rpk, const uint32_t* msg,
                           const bool* pair_inf, uint32_t* f, int n,
-                          const uint32_t* K, cudaStream_t stream) {
+                          int warps, const uint32_t* K, cudaStream_t stream) {
+  if (warps < 1 || warps > BLS_TREE / 32) return (int)cudaErrorInvalidValue;
+  cudaError_t err = miller_allow_smem();
+  if (err != cudaSuccess) return (int)err;
   if (n > 0)
-    miller_loop_pairs_kernel<<<(n + 63) / 64, 64, 0, stream>>>(
+    miller_loop_pairs_kernel<<<(n + warps - 1) / warps, 32 * warps,
+                               miller_smem(warps), stream>>>(
         rpk, msg, pair_inf, f, n, K);
   return (int)cudaGetLastError();
+}
+
+// geometry (host memory) of the launch bls_miller_loop_pairs makes over n
+// pairs at `warps` a block: blocks, threads a block, dynamic shared memory
+// bytes, and the most blocks of this shape one SM holds at once. Launches
+// nothing.
+int bls_miller_loop_pairs_geometry(int n, int warps, int32_t* geometry,
+                                   const uint32_t* K, cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t err = miller_allow_smem();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, miller_loop_pairs_kernel, 32 * warps, miller_smem(warps));
+  geometry[0] = (n + warps - 1) / warps;
+  geometry[1] = 32 * warps;
+  geometry[2] = (int)miller_smem(warps);
+  geometry[3] = per_sm;
+  return (int)err;
 }
 
 // The launch of rlc_partial over n groups at `threads` a group (1: one

@@ -4,11 +4,14 @@
 // block's folds use, a whole final exponentiation; and of the ladder steps
 // of batch_sign and g1_scalar_mul (Fp addition and subtraction, the G1 and
 // G2 doubling and mixed addition, the G1 formulas with their products
-// inlined and as calls). Built and run by grandine_tpu_torch/gpu/tail_bench.py;
-// no kernel of the port calls it.
+// inlined and as calls); and the stage clocks of aggregate_rlc_scale and
+// its lanes (csrc/aggregate.cu, included: the same kernel and launch).
+// Built and run by grandine_tpu_torch/gpu/tail_bench.py; no kernel of the
+// port calls it.
 #include <cuda_runtime.h>
 
 #include "finish_tail.cuh"
+#include "aggregate.cu"
 
 using namespace bls;
 
@@ -17,9 +20,10 @@ using namespace bls;
 // final exponentiation, -7 fp_add, -8 fp_sub, -9 point_double<fp>, -11
 // point_madd_unsafe<fp>, -12 point_double<fp2>, -13
 // point_madd_unsafe<fp2>, -14 fp2_mul, -15 point_double<fpc> (products as
-// calls), -16 point_madd_unsafe<fpc>, each on every lane; what >= 0:
-// warp program `what`. out: cycles per
-// operation. Shared memory starts with 200 seed Fp values.
+// calls), -16 point_madd_unsafe<fpc>, each on every lane; -17 an
+// aggregate_rlc_scale G1 lane (32 steps on fpc, lane 0), -18 a G2 half (32
+// steps as warp programs); what >= 0: warp program `what`. out: cycles
+// per operation. Shared memory starts with 200 seed Fp values.
 __global__ void tail_bench_kernel(int what, int reps, long long* out,
                                   const uint32_t* seed, const uint32_t* K) {
   extern __shared__ uint4 dyn[];
@@ -72,6 +76,10 @@ __global__ void tail_bench_kernel(int what, int reps, long long* out,
       gc = point_double(gc);
     } else if (what == -16) {
       gc = point_madd_unsafe(gc, fpc{x}, fpc{y});
+    } else if (what == -17) {
+      if (lane == 0) gc = agg_g1_lane(gc, 0x9E3779B9u, 1, K);
+    } else if (what == -18) {
+      agg_g2_half(scratch, seed, seed + 24, 0x9E3779B9u, 1, K);
     } else {
       tail::final_exp(buf, scratch, K);
     }
@@ -91,4 +99,17 @@ extern "C" int tail_bench(int what, int reps, long long* out,
   if (err != cudaSuccess) return (int)err;
   tail_bench_kernel<<<1, 32, smem>>>(what, reps, out, seed, K);
   return (int)cudaDeviceSynchronize();
+}
+
+// aggregate_rlc_scale's launch (csrc/aggregate.cu) with its stage clocks
+// (5 a block; null: none), on the default stream
+extern "C" int tail_bench_aggregate(
+    const uint32_t* src_x, const uint32_t* src_y, const int32_t* idx,
+    const int32_t* cnt, int m, int k, const uint32_t* sig_x,
+    const uint32_t* sig_y, const bool* sig_mask, const uint32_t* r01,
+    uint32_t* rpk, bool* agg_inf, uint32_t* rsig, const uint32_t* K,
+    long long* clocks) {
+  return (int)aggregate_launch(src_x, src_y, idx, cnt, m, k, sig_x, sig_y,
+                               sig_mask, r01, rpk, agg_inf, rsig, K, clocks,
+                               0);
 }

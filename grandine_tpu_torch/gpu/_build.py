@@ -44,8 +44,8 @@ LIBRARIES = {
     "aggregate.cu": ("aggregate_rlc_scale",),
     "multi.cu": ("multi_rlc_scale", "g1_group_sum", "g2_group_sum",
                  "group_sum_geometry"),
-    "pairing.cu": ("miller_loop_pairs", "rlc_finish", "rlc_finish_geometry",
-                   "rlc_partial"),
+    "pairing.cu": ("miller_loop_pairs", "miller_loop_pairs_geometry",
+                   "rlc_finish", "rlc_finish_geometry", "rlc_partial"),
     "sign.cu": ("batch_sign", "batch_sign_geometry", "batch_pubkey"),
     "normalize.cu": ("g1_normalize", "g2_normalize"),
     "kzg.cu": ("g1_scalar_mul", "g1_scalar_mul_geometry"),
@@ -78,7 +78,8 @@ SIGNATURES = {
     "aggregate_rlc_scale": [_vp, _vp, _vp, _vp, _i, _i, _vp, _vp, _vp,
                             _vp, _vp, _vp, _vp],
     "multi_rlc_scale": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
-    "miller_loop_pairs": [_vp, _vp, _vp, _vp, _i],
+    "miller_loop_pairs": [_vp, _vp, _vp, _vp, _i, _i],
+    "miller_loop_pairs_geometry": [_i, _i, _vp],
     "g1_group_sum": [_vp, _vp, _i, _vp],
     "g2_group_sum": [_vp, _vp, _i, _vp],
     "batch_sign": [_vp, _vp, _vp, _i, _i, _vp],

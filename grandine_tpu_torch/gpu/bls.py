@@ -131,9 +131,12 @@ def resolve_device(device) -> torch.device:
 
 def aggregate_rlc_scale_plain(src_x, src_y, idx, cnt, sig_x, sig_y,
                               sig_mask, r01):
-    """Plain version of `aggregate_rlc_scale`: gather members
-    src[idx[m, :cnt[m]]], sum them, rᵢ·apkᵢ (complete-add GLV ladder) and
-    rᵢ·sigᵢ (mixed-add GLV ladder) with rᵢ = r01[m, 0] + r01[m, 1]·λ."""
+    """Plain version of `aggregate_rlc_scale`, in the kernel's steps: gather
+    members src[idx[m, :cnt[m]]], sum them (strided over the block's
+    threads, then the tree), rᵢ·apkᵢ and rᵢ·sigᵢ with rᵢ = r01[m, 0] +
+    r01[m, 1]·λ, each as its two halves' ladders apart joined by one
+    complete addition (G1: complete additions, `C.scalar_mul_jac_glv`;
+    G2: mixed additions, `C.scalar_mul_glv_split`)."""
     m, k = idx.shape
     dev = idx.device
     rows = idx.long()
@@ -146,9 +149,9 @@ def aggregate_rlc_scale_plain(src_x, src_y, idx, cnt, sig_x, sig_y,
     r = r01.to(torch.int64) & 0xFFFFFFFF
     rpk = C.scalar_mul_jac_glv(apk, agg_inf, r[:, 0], r[:, 1],
                                C.g1_endo(dev), C.FP_OPS)
-    rsig = C.scalar_mul_glv(L.from_words(sig_x), L.from_words(sig_y),
-                            sig_mask, r[:, 0], r[:, 1], C.g2_endo(dev),
-                            C.FP2_OPS)
+    rsig = C.scalar_mul_glv_split(L.from_words(sig_x), L.from_words(sig_y),
+                                  sig_mask, r[:, 0], r[:, 1], C.g2_endo(dev),
+                                  C.FP2_OPS)
     return C.jac_to_words(rpk, 1), agg_inf, C.jac_to_words(rsig, 2)
 
 
@@ -167,13 +170,19 @@ def aggregate_rlc_scale(src_x, src_y, idx, cnt, sig_x, sig_y, sig_mask, r01):
     (bls.py:851-854), grandine_tpu/tpu/curve.py sum_points_grouped and
     scalar_mul_jac_glv (G1), and the per-row rᵢ·sigᵢ of the signature MSM.
     One block of 128 threads per aggregate: the threads sum the members
-    in a strided loop and a shared-memory tree, then warp 0 runs the G1
-    ladder and warp 1 the G2 ladder at once. Bound: operations — one
-    complete G1 addition a member (16 Fp products), the tree, and two
-    32-step ladders (~4,800 Fp products an aggregate of 130) against 100
-    bytes a member (index and gathered row); the two
-    ladders run on one thread each, so the kernel is latency-bound on the
-    ladders, which later work splits across a warp."""
+    in a strided loop and a shared-memory tree (G1 on `fpc`, the Fp
+    product as a call), then each ladder splits by its GLV halves r0, r1:
+    warp 0's lanes 0 and 1 run the G1 halves, [r0]apk and [r1]φ(apk), and
+    meet in a shuffle and one complete addition; warps 2 and 3 run the G2
+    halves, [r0]sig and [r1]ψ'(sig), as warp programs (each doubling and
+    mixed addition a few rounds of Fp products across the warp's lanes),
+    and warp 2 joins them (csrc/aggregate.cu). Bound: operations — one
+    complete G1 addition a member (16 Fp products), the tree, and the
+    ladders' least work (~4,800 Fp products an aggregate of 130) against
+    100 bytes a member (index and gathered row); the kernel is
+    latency-bound on its G1 lanes' chains (32 doublings and ~16 complete
+    additions each) and its G2 halves' chains of warp programs, which run
+    at once."""
     if idx.device.type == "cpu":
         return aggregate_rlc_scale_plain(src_x, src_y, idx, cnt, sig_x,
                                          sig_y, sig_mask, r01)

@@ -211,18 +211,42 @@ def scalar_mul_glv(qx, qy, q_inf, r0, r1, endo, ops, nbits: int = 32,
     return _mask_inf(st, q_inf, ops)
 
 
+def scalar_mul_glv_split(qx, qy, q_inf, r0, r1, endo, ops):
+    """[r0 + r1·λ]Q for affine Q with the halves' ladders apart: [r0]Q and
+    [r1]·endo(Q), each a 32-bit `ladder` of mixed additions, joined by one
+    complete addition (p the r0 half) — the order of aggregate_rlc_scale's
+    two G2 warps (csrc/aggregate.cu). The same point as `scalar_mul_glv`'s
+    joint ladder (grandine_tpu/tpu/curve.py scalar_mul_glv)."""
+    q2x, q2y = ops.mul_many([qx, qy], list(endo))
+    lo = ladder([(qx, qy)], [_bits_msb(r0, 32)], ops)
+    hi = ladder([(q2x, q2y)], [_bits_msb(r1, 32)], ops)
+    return _mask_inf(point_add_complete(lo, hi, ops), q_inf, ops)
+
+
+def jac_ladder(q, bits, ops):
+    """[k]Q for a Jacobian base Q, k's MSB-first bits (a list of (…,)
+    bool tensors): from ∞, each step a doubling and, where the bit is
+    set, a complete addition of Q."""
+    one = ops.one(ops.batch(q[0]), q[0].device)
+    st = (one, one, torch.zeros_like(q[0]))
+    for b in bits:
+        st = point_double(st, ops)
+        st = _sel3(b, point_add_complete(st, q, ops), st)
+    return st
+
+
 def scalar_mul_jac_glv(q, q_inf, r0, r1, endo, ops):
-    """GLV ladder for a Jacobian base, complete additions throughout
-    (grandine_tpu/tpu/curve.py scalar_mul_jac_glv)."""
+    """[r0 + r1·λ]Q for a Jacobian base, complete additions throughout,
+    the halves' ladders apart: [r0]Q and [r1]·endo(Q) (`jac_ladder`)
+    joined by one complete addition (p the r0 half) — the order of
+    aggregate_rlc_scale's two G1 lanes (csrc/aggregate.cu). The same point
+    as the JAX package's joint ladder (grandine_tpu/tpu/curve.py
+    scalar_mul_jac_glv)."""
     Q = _mask_inf(q, q_inf, ops)
     e2x, e2y = ops.mul_many([Q[0], Q[1]], list(endo))
-    one = ops.one(ops.batch(Q[0]), Q[0].device)
-    st = (one, one, torch.zeros_like(Q[0]))
-    for b0, b1 in zip(_bits_msb(r0, 32), _bits_msb(r1, 32)):
-        st = point_double(st, ops)
-        st = _sel3(b0, point_add_complete(st, Q, ops), st)
-        st = _sel3(b1, point_add_complete(st, (e2x, e2y, Q[2]), ops), st)
-    return _mask_inf(st, q_inf, ops)
+    lo = jac_ladder(Q, _bits_msb(r0, 32), ops)
+    hi = jac_ladder((e2x, e2y, Q[2]), _bits_msb(r1, 32), ops)
+    return _mask_inf(point_add_complete(lo, hi, ops), q_inf, ops)
 
 
 def sum_points_grouped(p, ops):
@@ -505,7 +529,8 @@ __all__ = [
     "FP_OPS", "FP2_OPS", "point_double", "point_madd_unsafe",
     "point_add_complete", "ladder", "scalar_mul",
     "scalar_mul_glv", "neg_psi",
-    "scalar_mul_jac_glv", "sum_points_grouped", "psi_check",
+    "scalar_mul_jac_glv", "scalar_mul_glv_split", "jac_ladder",
+    "sum_points_grouped", "psi_check",
     "g1_decompress", "g1_decompress_plain", "g2_decompress_subgroup",
     "g2_decompress_subgroup_plain", "g2_subgroup_check",
     "g2_subgroup_check_plain", "compressed_rows",

@@ -1,8 +1,14 @@
-"""The warp programs of `rlc_finish`'s tail, and the generator of their
-tables (csrc/finish_programs.cuh).
+"""The warp programs of `rlc_finish`'s tail, of `miller_loop_pairs` and of
+`aggregate_rlc_scale`'s G2 ladder, and the generator of their tables
+(csrc/finish_programs.cuh).
 
 One warp runs a group's Miller loop of (−g1, Σ rᵢ·sigᵢ), the product with
-its f terms and the final exponentiation (csrc/finish_tail.cuh). Each
+its f terms and the final exponentiation (csrc/finish_tail.cuh); one warp
+runs a pair's Miller loop of (a Jacobian P, an affine Q) in
+`miller_loop_pairs` on the same doubling and addition formulas, P's line
+coefficients taken from a program group instead of −g1's constants; and
+two warps of an `aggregate_rlc_scale` block run the halves of its G2 GLV
+ladder (G2DBL, G2MADD) and join them (G2ADD). Each
 step of that chain is a *program*: a straight-line set of Fp products,
 each of two linear forms (small signed multiples of Fp values), grouped
 into rounds of at most 32 independent products, one a lane, followed by
@@ -25,7 +31,8 @@ against the plain field ops.
 
 Fp12 groups hold 12 Fp values in the layout of csrc's `fp12` (c0.c0.c0,
 c0.c0.c1, c0.c1.c0, … c1.c2.c1); a G2 point group holds x, y, z as Fp2
-(6 values).
+(6 values), an affine one x, y (4); a G1 coefficient group yP, zP³ and
+−xP·zP (3).
 """
 
 from __future__ import annotations
@@ -328,19 +335,19 @@ def flat2(points):
 # --- the Miller loop steps (gpu/pairing.py double_step, add_step) --------------
 
 _NEG_G1 = (-G1).to_affine()
-#: the line scaling of P = −g1 (affine, Zp = 1): ξ·yP as Fp2 (Yp, Yp),
-#: −Xp·Zp, Zp³ = 1
-_XI_YP = (const(_NEG_G1[1].n), const(_NEG_G1[1].n))
-_NEG_XPZP = const(-_NEG_G1[0].n)
-_ZP3 = const(1)
+#: the line coefficients of P = −g1 (affine, zP = 1): yP, zP³ = 1, −xP·zP
+NEG_G1_COEFFS = (const(_NEG_G1[1].n), const(1), const(-_NEG_G1[0].n))
 
 
-def _lines(pr, la, lb_pre, lc_pre):
-    return (f2_mul(pr, la, _XI_YP), f2_mul_fp(pr, lb_pre, _ZP3),
-            f2_mul_fp(pr, lc_pre, _NEG_XPZP))
+def _lines(pr, la, lb_pre, lc_pre, g1c):
+    """The line's coefficients scaled by P's (yP, zP³, −xP·zP): ξ·yP·la
+    (as ξ·(la·yP), two products), zP³·lb, −xP·zP·lc."""
+    yp, zp3, neg_xpzp = g1c
+    return (f2_xi(f2_mul_fp(pr, la, yp)), f2_mul_fp(pr, lb_pre, zp3),
+            f2_mul_fp(pr, lc_pre, neg_xpzp))
 
 
-def double_step(pr, T):
+def double_step(pr, T, g1c=NEG_G1_COEFFS):
     Xt, Yt, Zt = T
     X2 = f2_mul(pr, Xt, Xt)
     A = f2_add(f2_add(X2, X2), X2)
@@ -348,7 +355,7 @@ def double_step(pr, T):
     B = f2_add(YZ, YZ)
     YB, BZ, AZ = f2_mul(pr, Yt, B), f2_mul(pr, B, Zt), f2_mul(pr, A, Zt)
     B2 = f2_mul(pr, B, B)
-    line = _lines(pr, BZ, f2_sub(AX, YB), AZ)
+    line = _lines(pr, BZ, f2_sub(AX, YB), AZ, g1c)
     A2, XB2, B3 = f2_mul(pr, A, A), f2_mul(pr, Xt, B2), f2_mul(pr, B, B2)
     A2Z, YB3, Z2 = f2_mul(pr, A2, Zt), f2_mul(pr, Yt, B3), f2_mul(pr, B3, Zt)
     XB2_2 = f2_add(XB2, XB2)
@@ -358,7 +365,7 @@ def double_step(pr, T):
     return (Xn, f2_sub(t, YB3), Z2), line
 
 
-def add_step(pr, T, Q):
+def add_step(pr, T, Q, g1c=NEG_G1_COEFFS):
     Xt, Yt, Zt = T
     Xq, Yq, Zq = Q
     YZq, YqZ = f2_mul(pr, Yt, Zq), f2_mul(pr, Yq, Zt)
@@ -366,7 +373,7 @@ def add_step(pr, T, Q):
     E, Fv = f2_sub(YZq, YqZ), f2_sub(XZq, XqZ)
     EXq, FYq, EZq = f2_mul(pr, E, Xq), f2_mul(pr, Fv, Yq), f2_mul(pr, E, Zq)
     FZq, F2 = f2_mul(pr, Fv, Zq), f2_mul(pr, Fv, Fv)
-    line = _lines(pr, FZq, f2_sub(EXq, FYq), EZq)
+    line = _lines(pr, FZq, f2_sub(EXq, FYq), EZq, g1c)
     E2, F3 = f2_mul(pr, E, E), f2_mul(pr, Fv, F2)
     Fsum, XF2 = f2_mul(pr, F2, f2_add(XZq, XqZ)), f2_mul(pr, F2, Xt)
     E2Z, XF2Zq = f2_mul(pr, E2, Zt), f2_mul(pr, XF2, Zq)
@@ -396,18 +403,36 @@ def _p_homog():
     return pr
 
 
-def _p_miller(add):
-    """DBL: f ← f²·ℓ(T, T), T ← 2T; ADD: f ← f·ℓ(T, Q), T ← T + Q."""
-    pr = Program("ADD" if add else "DBL", [("F", 12), ("T", 6), ("Q", 6)])
+def _p_miller(add, general=False):
+    """DBL: f ← f²·ℓ(T, T), T ← 2T; ADD: f ← f·ℓ(T, Q), T ← T + Q. For
+    P = −g1 (rlc_finish: Q homogeneous, 6 values); `general`: DBL_P /
+    ADD_P, P's coefficients from group P (yP, zP³, −xP·zP) and Q affine
+    (x, y; zQ = 1, which folds the products by zQ)."""
+    name = ("ADD" if add else "DBL") + ("_P" if general else "")
+    groups = [("F", 12), ("T", 6), ("Q", 4 if general else 6)]
+    pr = Program(name, groups + ([("P", 3)] if general else []))
     f = f12_of(pr.group("F"))
     T = tuple(f2s_of(pr.group("T")))
+    g1c = tuple(pr.group("P")) if general else NEG_G1_COEFFS
     if add:
-        T, line = add_step(pr, T, tuple(f2s_of(pr.group("Q"))))
+        Q = f2s_of(pr.group("Q"))
+        if general:
+            Q.append((const(1), ZERO))
+        T, line = add_step(pr, T, tuple(Q), g1c)
     else:
         f = f12_sq(pr, f)
-        T, line = double_step(pr, T)
+        T, line = double_step(pr, T, g1c)
     pr.output("F", flat12(f12_mul(pr, f, line_fp12(line))))
     pr.output("T", flat2(T))
+    return pr
+
+
+def _p_pcoef():
+    """P (Jacobian X, Y, Z) → its line coefficients (Y, Z³, −X·Z)."""
+    pr = Program("PCOEF", [("J", 3), ("P", 3)])
+    X, Y, Z = pr.group("J")
+    Z2, XZ = pr.mul(Z, Z), pr.mul(X, Z)
+    pr.output("P", [Y, pr.mul(Z2, Z), -XZ])
     return pr
 
 
@@ -531,12 +556,40 @@ def _p_g2_dbl():
     return pr
 
 
+def _p_g2_madd():
+    """O ← A + (x, y) (Jacobian G2 plus affine, madd-2007-bl: csrc
+    point_madd_unsafe; A ≠ ±Q, neither ∞)."""
+    pr = Program("G2MADD", [("A", 6), ("Q", 4), ("O", 6)])
+    x, y, z = f2s_of(pr.group("A"))
+    qx, qy = f2s_of(pr.group("Q"))
+    Z2 = f2_mul(pr, z, z)
+    U2, ZZZ = f2_mul(pr, qx, Z2), f2_mul(pr, z, Z2)
+    H = f2_sub(U2, x)
+    S2, HH = f2_mul(pr, qy, ZZZ), f2_mul(pr, H, H)
+    I = f2_scale(HH, 4)
+    r = f2_scale(f2_sub(S2, y), 2)
+    J, V, R2 = f2_mul(pr, H, I), f2_mul(pr, x, I), f2_mul(pr, r, r)
+    X3 = f2_sub(R2, f2_add(J, f2_add(V, V)))
+    ZH = f2_add(z, H)
+    t, YJ, ZH2 = (f2_mul(pr, r, f2_sub(V, X3)), f2_mul(pr, y, J),
+                  f2_mul(pr, ZH, ZH))
+    pr.output("O", flat2([X3, f2_sub(t, f2_add(YJ, YJ)),
+                          f2_sub(ZH2, f2_add(Z2, HH))]))
+    return pr
+
+
 #: the programs a block's other warps run in the fold and the sum tree
 FOLD_PROGRAMS = ("MUL", "G2ADD", "G2DBL")
+#: the programs of a `miller_loop_pairs` warp (none of rlc_finish's)
+MILLER_PROGRAMS = ("PCOEF", "DBL_P", "ADD_P")
+#: the programs of an `aggregate_rlc_scale` G2 warp: a half's ladder and
+#: the halves' join
+AGG_PROGRAMS = ("G2DBL", "G2MADD", "G2ADD")
 
 
 def programs():
-    """The tail's programs, in the order of the header's enum."""
+    """The programs, in the order of the header's enum: rlc_finish's, then
+    miller_loop_pairs', then aggregate_rlc_scale's own."""
     return [
         _p_g2_add(), _p_g2_dbl(),
         _p_homog(), _p_miller(False), _p_miller(True),
@@ -545,6 +598,8 @@ def programs():
         _p_inv_norm6(), _p_inv_norm2(), _p_inv_easy(),
         _p_cyc_sq(False), _p_cyc_sq(True), _p_conj_mul_frob(),
         _p_mul_frob2_conj(),
+        _p_pcoef(), _p_miller(False, True), _p_miller(True, True),
+        _p_g2_madd(),
     ]
 
 
@@ -690,7 +745,8 @@ def header():
     """The text of csrc/finish_programs.cuh."""
     t = build_tables()
     lines = [
-        "// The warp programs of rlc_finish's tail (csrc/finish_tail.cuh).",
+        "// The warp programs of rlc_finish's tail, of miller_loop_pairs and",
+        "// of aggregate_rlc_scale's G2 ladder (csrc/finish_tail.cuh).",
         "// Generated by `python -m grandine_tpu_torch.gpu.finish_programs`",
         "// from grandine_tpu_torch/gpu/finish_programs.py: do not edit.",
         "//",
@@ -711,10 +767,20 @@ def header():
         lines.append(f"  PROG_{p['name']},  // {p['products']} products, "
                      f"{p['n_rounds']} rounds, {p['scratch']} scratch slots")
     lines += ["  PROG_COUNT", "};", ""]
-    scratch = max(p["scratch"] for p in t.progs)
-    fold = max(p["scratch"] for p in t.progs if p["name"] in FOLD_PROGRAMS)
-    lines += [f"#define TAIL_SCRATCH {scratch}  // scratch Fp values of warp 0",
-              f"#define FOLD_SCRATCH {fold}  // of a warp that only folds",
+    def most(names):
+        return max(p["scratch"] for p in t.progs if p["name"] in names)
+
+    # warp 0 of rlc_finish runs every program but the other kernels' own
+    finish = [p["name"] for p in t.progs
+              if p["name"] not in MILLER_PROGRAMS + ("G2MADD",)]
+    lines += [f"#define TAIL_SCRATCH {most(finish)}  // scratch Fp values of "
+              "warp 0",
+              f"#define FOLD_SCRATCH {most(FOLD_PROGRAMS)}  // of a warp that "
+              "only folds",
+              f"#define MILLER_SCRATCH {most(MILLER_PROGRAMS)}  // of a "
+              "miller_loop_pairs warp",
+              f"#define AGG_SCRATCH {most(AGG_PROGRAMS)}  // of an "
+              "aggregate_rlc_scale G2 warp",
               "", "struct prog_t {",
               "  uint16_t round0, n_rounds, out0, n_out;", "};", ""]
 
@@ -789,12 +855,20 @@ def tail_runs():
             ("MUL_FROB2_CONJ", 1), ("MUL", 1)]
 
 
-def tail_depth():
-    """(product rounds, output stages) of one live group's tail: its
-    dependent depth, each round one Fp product a lane, besides the
-    Euclid inversion on one lane and a few copies."""
+def miller_runs():
+    """The program runs of one `miller_loop_pairs` warp, in the order of
+    csrc/finish_tail.cuh `miller_pair`. [(name, runs)]."""
+    return [("PCOEF", 1), ("DBL_P", 63),
+            ("ADD_P", bin(ABS_X).count("1") - 1)]
+
+
+def tail_depth(runs=None):
+    """(product rounds, output stages) of one live group's tail (or of
+    `runs`, e.g. `miller_runs()`): its dependent depth, each round one Fp
+    product a lane, besides the Euclid inversion on one lane and a few
+    copies."""
     st = stats()
-    runs = tail_runs()
+    runs = tail_runs() if runs is None else runs
     return (sum(st[n][1] * k for n, k in runs), sum(k for _, k in runs))
 
 

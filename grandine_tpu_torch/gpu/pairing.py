@@ -7,15 +7,17 @@ Jacobian with its line scaling (ξ·yP·Zp³, xP·Zp³ folded into the line
 coefficients), lines land in the sparse subspace {1, w³, w⁵}, and the
 hard part of the final exponentiation is the x-chain
 (x−1)²(x+p)(x²+p²−1)+3, so `final_exponentiation` returns FE(f)³ exactly
-as the JAX package does. The CUDA kernels (csrc/bls12_381.cuh) run the
-same steps, so a Miller-loop value agrees exactly between kernel, plain
-version and the JAX package.
+as the JAX package does. The CUDA kernels run the same steps as warp
+programs generated from these formulas (gpu/finish_programs.py,
+csrc/finish_tail.cuh), so a Miller-loop value agrees exactly between
+kernel, plain version and the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from grandine_tpu_torch.crypto.constants import X
@@ -199,19 +201,36 @@ def miller_loop_pairs_plain(rpk, msg, pair_inf):
     return L.to_words(miller_loop(P_jac, Q, pair_inf))
 
 
+#: the most warps (pairs) a `miller_loop_pairs` block takes
+MILLER_MAX_WARPS = 4
+
+
+def miller_warps(n: int, sms: int = 132) -> int:
+    """Warps a block of a `miller_loop_pairs` launch over n pairs on a card
+    of `sms` SMs: one pair a warp is one dependent chain, so the pairs
+    spread over the SMs first (one warp a block up to one pair an SM),
+    then fill each SM's four schedulers (⌈n / sms⌉ warps a block), at
+    most four."""
+    return max(1, min(MILLER_MAX_WARPS, -(-n // sms)))
+
+
 def miller_loop_pairs(rpk, msg, pair_inf):
     """One Miller loop per (rᵢ·apkᵢ, H(mᵢ)) pair. CUDA kernel
     `miller_loop_pairs` (csrc/pairing.cu) on CUDA tensors,
     `miller_loop_pairs_plain` on CPU tensors.
 
     Replaces grandine_tpu/tpu/pairing.py miller_loop inside the JAX verify
-    programs (tpu/bls.py `_rlc_pairing_check`). One thread per pair.
-    Bound: operations — 63 doubling and 5 addition steps, each an Fp12
-    square and one or two Fp12 line products (~10,700 Fp products a pair)
-    against 576 bytes out; at M = 192 pairs the card holds two warps per
-    SM at most, so the kernel is latency-bound and its per-thread Fp12
-    state spills to local memory (L1-resident). A later PR spreads one
-    pair over a warp."""
+    programs (tpu/bls.py `_rlc_pairing_check`). One warp a pair, 1–4
+    warps a block (`miller_warps`): the warp runs P's coefficient program,
+    then 63 doubling and 5 addition warp programs (csrc/finish_tail.cuh
+    `miller_pair`; tables generated by gpu/finish_programs.py, the
+    formulas `rlc_finish`'s tail runs for −g1), each a few rounds of up to
+    32 Fp products, one a lane, over Fp12 and G2 values in shared memory.
+    Bound: operations — 63 × 126 + 5 × 88 + 3 Fp products a pair against
+    817 bytes; a pair is one warp's chain of ~320 product rounds and ~70
+    output stages, so the kernel is latency-bound on that chain while the
+    pairs fit the card's schedulers (528 warps on an H100) and bound by
+    issue past them."""
     if rpk.device.type == "cpu":
         return miller_loop_pairs_plain(rpk, msg, pair_inf)
     from grandine_tpu_torch.gpu import _build
@@ -221,10 +240,29 @@ def miller_loop_pairs(rpk, msg, pair_inf):
             pair_inf.shape != (m,):
         raise ValueError("miller_loop_pairs: shape mismatch")
     f = torch.empty((m, 2, 3, 2, 12), dtype=torch.int32, device=rpk.device)
+    warps = miller_warps(m, _sms(rpk.device))
     _build.launch("miller_loop_pairs", rpk.contiguous(), msg.contiguous(),
-                  pair_inf.contiguous(), f, ctypes.c_int(m))
+                  pair_inf.contiguous(), f, ctypes.c_int(m),
+                  ctypes.c_int(warps))
     miller_loop_pairs.launches += 1
     return f
 
 
 miller_loop_pairs.launches = 0
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def miller_loop_pairs_geometry(n: int):
+    """(blocks, threads a block, dynamic shared memory bytes, blocks one SM
+    holds at once) of the launch `miller_loop_pairs` makes over n pairs on
+    the current CUDA device. A query: it launches nothing."""
+    from grandine_tpu_torch.gpu import _build
+
+    geometry = np.zeros((4,), np.int32)
+    warps = miller_warps(n, _sms(torch.cuda.current_device()))
+    _build.launch("miller_loop_pairs_geometry", ctypes.c_int(n),
+                  ctypes.c_int(warps), ctypes.c_void_p(geometry.ctypes.data))
+    return tuple(int(v) for v in geometry)

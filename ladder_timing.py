@@ -1,32 +1,40 @@
 #!/usr/bin/env python3
-"""Time `batch_sign` and `g1_scalar_mul` of one or more checkouts of the
-port on one card, in turns, at the shapes of their paths.
+"""Time `batch_sign`, `g1_scalar_mul`, `miller_loop_pairs` and
+`aggregate_rlc_scale` of one or more checkouts of the port on one card, in
+turns, at the shapes of their paths.
 
     python3 ladder_timing.py TREE [TREE ...]   # parent change change parent
 
 Each TREE (a directory holding `grandine_tpu_torch/`) runs in a process of
 its own, in the order given. The process builds only csrc/sign.cu,
-csrc/kzg.cu and csrc/pairing.cu (which sets the stack limit; nvcc, the
-tree's own flags), prints ptxas' lines for the first two's kernels
-(registers, stack frame, spills, cumulative stack), and times by
-CUDA events, after one warm-up launch, --reps launches of
+csrc/kzg.cu, csrc/pairing.cu and csrc/aggregate.cu (nvcc, the tree's own
+flags), prints ptxas' lines for their kernels (registers, stack frame,
+spills, cumulative stack), and times by CUDA events, after one warm-up
+launch, --reps launches of
 
   batch_sign at 512 rows (the signing plane's lane batch), 2,048, 4,096,
   8,192 and 16,384 (a full bucket): H(m) of 8 seeded messages tiled,
   seeded keys below r;
   g1_scalar_mul at 1 row (one ladder alone), 32 (a batch verify at bucket
   8) and 4,096 (a setup MSM): 8 seeded multiples of G1 tiled, seeded
-  scalars below r.
+  scalars below r;
+  miller_loop_pairs at 4 pairs (a KZG batch verify), 192 (the gossip
+  slot), 1,048 (the window) and 2,048: 64 seeded Jacobian multiples of
+  G1 (Z ≠ 1) and H(m) of the 8 messages, tiled;
+  aggregate_rlc_scale at the gossip slot's 192 aggregates of 87–130
+  members gathered from 4,096 seeded keys (testing/pairing_rows.py).
 
 batch_sign is timed at each lane count `sign_lanes` chooses between (4,
 2 and 1 lanes a signature), and each geometry, and g1_scalar_mul, is held
-against its plain version on 40 rows, exactly. Prints the card's name and
+against its plain version on 40 rows, miller_loop_pairs on 40 pairs and
+aggregate_rlc_scale on its 192 aggregates, exactly. Prints the card's name and
 power limit, one line a timing and one JSON line a tree. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import random
@@ -37,6 +45,8 @@ import sys
 #: the timed shapes
 SIGN_ROWS = (512, 2048, 4096, 8192, 16384)
 KZG_ROWS = (1, 32, 4096)
+MILLER_PAIRS = (4, 192, 1048, 2048)
+SOURCES = ("sign.cu", "kzg.cu", "pairing.cu", "aggregate.cu")
 CHECK_ROWS = 40
 
 
@@ -58,13 +68,11 @@ def worker(tree: str, reps: int, seed: int) -> dict:
     from grandine_tpu_torch.gpu import bls as B
     from grandine_tpu_torch.gpu import kzg as GK
 
-    # the two sources under test and pairing.cu, which sets the stack limit
-    _build.LIBRARIES = {src: _build.LIBRARIES[src]
-                        for src in ("sign.cu", "kzg.cu", "pairing.cu")}
+    _build.LIBRARIES = {src: _build.LIBRARIES[src] for src in SOURCES}
     _build.library()
     ptxas = {src: _ptxas(open(os.path.join(
         _build.BUILD_DIR, f"lib{src[:-3]}.so.log")).read())
-        for src in ("sign.cu", "kzg.cu")}
+        for src in SOURCES}
     nvcc_s = re.findall(r"== (\S+) \((\d+\.\d) s\)", _build.build_log)
     dev = torch.device("cuda")
     rng = random.Random(seed)
@@ -98,6 +106,28 @@ def worker(tree: str, reps: int, seed: int) -> dict:
         return tuple(torch.from_numpy(a).to(dev) for a in (
             gx[idx], gy[idx], np.zeros(n, bool), k))
 
+    from grandine_tpu_torch.gpu import limbs as L
+    from grandine_tpu_torch.gpu import pairing as TP
+
+    # the aggregate rows of this script's own tree (a parent may lack them)
+    spec = importlib.util.spec_from_file_location("pairing_rows", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "grandine_tpu_torch",
+        "testing", "pairing_rows.py"))
+    PR = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(PR)
+
+    gj = []  # 64 Jacobian multiples of G1, Z ≠ 1
+    for p in [G1.mul(rng.randrange(1, R)) for _ in range(64)]:
+        x, y = p.to_affine()
+        z = rng.randrange(2, L.P)
+        gj += [x.n * z * z % L.P, y.n * z ** 3 % L.P, z]
+    gj = L.ints_to_words(gj).reshape(64, 3, 12)
+
+    def miller_args(n):
+        idx = np.arange(n)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (gj[idx % 64], h[idx % 8], idx % 7 == 6))
+
     rows, checks = [], []
     for n in SIGN_ROWS:
         args = sign_args(n)
@@ -109,6 +139,14 @@ def worker(tree: str, reps: int, seed: int) -> dict:
         args = kzg_args(n)
         rows.append({"kernel": "g1_scalar_mul", "rows": n,
                      "ms": cuda_ms(lambda: GK.g1_scalar_mul(*args))})
+    for n in MILLER_PAIRS:
+        args = miller_args(n)
+        rows.append({"kernel": "miller_loop_pairs", "rows": n,
+                     "ms": cuda_ms(lambda: TP.miller_loop_pairs(*args))})
+    agg = tuple(torch.from_numpy(a).to(dev) for a in PR.aggregate_rows(
+        PR.gossip_cases(seed), seed, 4096))
+    rows.append({"kernel": "aggregate_rlc_scale", "rows": agg[2].shape[0],
+                 "ms": cuda_ms(lambda: B.aggregate_rlc_scale(*agg))})
     # every geometry against its plain version, exactly
     args = sign_args(CHECK_ROWS)
     args[1][[3, 17]] = True
@@ -121,6 +159,12 @@ def worker(tree: str, reps: int, seed: int) -> dict:
     args[3][[0, 1]] = torch.from_numpy(GK.scalar_words([0, GK.X2])).to(dev)
     checks.append(("g1_scalar_mul", {}, torch.equal(
         GK.g1_scalar_mul(*args), GK.g1_scalar_mul_plain(*args))))
+    args = miller_args(CHECK_ROWS)
+    checks.append(("miller_loop_pairs", {}, torch.equal(
+        TP.miller_loop_pairs(*args), TP.miller_loop_pairs_plain(*args))))
+    checks.append(("aggregate_rlc_scale", {}, all(
+        torch.equal(g, w) for g, w in zip(B.aggregate_rlc_scale(*agg),
+                                          B.aggregate_rlc_scale_plain(*agg)))))
     return {"tree": tree, "ptxas": ptxas, "stack_limit": _build.stack_limit,
             "nvcc_s": dict(nvcc_s),
             "timings": rows,
@@ -161,8 +205,8 @@ def main() -> None:
         for src, lines in res["ptxas"].items():
             for line in lines:
                 print(f"{tree}: ptxas {src}: {line}")
-        print(f"{tree}: stack limit {res['stack_limit']} B (sign.cu, kzg.cu, "
-              f"pairing.cu); nvcc seconds {res['nvcc_s']}")
+        print(f"{tree}: stack limit {res['stack_limit']} B "
+              f"({', '.join(SOURCES)}); nvcc seconds {res['nvcc_s']}")
         for r in res["timings"]:
             shape = ", ".join(f"{k} {v}" for k, v in r.items()
                               if k not in ("kernel", "ms"))

@@ -25,6 +25,8 @@ from grandine_tpu_torch.gpu import pairing as TP
 from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
 from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
 from grandine_tpu_torch.runtime.verify_scheduler import VerifyItem
+from grandine_tpu_torch.testing.pairing_rows import (
+    AGGREGATE_EDGES, aggregate_rows, miller_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -124,6 +126,38 @@ def test_miller_and_finish_match_plain(world, cuda_device):
            agg_inf[keep].contiguous(), dec[3][keep].contiguous(),
            dec[7][keep].contiguous())
     assert B.rlc_finish(*fin).item() == 1
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 130, 1048])
+def test_miller_loop_pairs_matches_plain_on_edge_rows(cuda_device, n):
+    """One warp a pair at 1–4 warps a block (`miller_warps`): P with
+    Z = 1 and Z ≠ 1, −g1, Q the generator and hashed messages, pair_inf
+    rows; partial blocks at 1, 31, 33, 130; 1,048 pairs past one pair an
+    SM."""
+    rpk, msg, inf, tile = miller_rows(n, n)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a[tile])).to(
+        cuda_device) for a in (rpk, msg, inf))
+    before = TP.miller_loop_pairs.launches
+    got = TP.miller_loop_pairs(*args)
+    assert TP.miller_loop_pairs.launches == before + 1
+    _equal((got,), (TP.miller_loop_pairs_plain(*args),))
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_aggregate_rlc_scale_matches_plain_on_edge_rows(cuda_device, seeded):
+    """r0 = 0, r1 = 0, r = 1, halves 0xFFFFFFFF, an aggregate summing to
+    ∞, the same key twice, one member, 130 members, masked signatures; or
+    64 seeded aggregates of 1–130 members."""
+    g = random.Random(0xA66)
+    cases = [(sorted(g.sample(range(141), g.randint(1, 130))),
+              (g.getrandbits(32), g.getrandbits(32)), i % 5 == 4)
+             for i in range(64)] if seeded else AGGREGATE_EDGES
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in aggregate_rows(cases, 7))
+    got = B.aggregate_rlc_scale(*args)
+    _equal(got, B.aggregate_rlc_scale_plain(*args))
+    if not seeded:
+        assert got[1].tolist() == [i in (4, 8) for i in range(len(cases))]
 
 
 def test_strided_passes_match_plain(world, cuda_device):

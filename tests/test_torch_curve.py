@@ -307,3 +307,88 @@ def test_scalar_mul_glv_g2_matches_jax():
     assert got == ref
     assert got[0] == _host_affine(pts[0].mul((r0[0] + r1[0] * LAMBDA) % R))
     assert got[1] is None
+
+
+def test_aggregate_rlc_scale_plain_matches_jax():
+    """The plain `aggregate_rlc_scale` (its halves' ladders apart, joined
+    by a complete addition) against the JAX package's steps on seeded
+    inputs: the registry gather (tpu/bls.py:851-854, k-major), the member
+    tree sum_points_grouped (tpu/curve.py:361), scalar_mul_jac_glv (G1,
+    :645) and scalar_mul_glv (G2, :591) — affine points equal. Aggregates:
+    five members, one member, a key and its negation (∞), eight members
+    with a masked signature; the last RLC pair has r0 = 0."""
+    from grandine_tpu_torch.gpu import bls as TB
+
+    m, k = 4, 8
+    keys = [G1.mul(rng.randrange(1, R)) for _ in range(10)]
+    keys.append(-keys[0])
+    members = [[0, 1, 2, 3, 4], [5], [0, 10], [6, 7, 8, 9, 1, 2, 3, 4]]
+    idx = np.zeros((m, k), np.int32)
+    for i, mm in enumerate(members):
+        idx[i, :len(mm)] = mm
+    cnt = np.array([len(mm) for mm in members], np.int32)
+    live = np.arange(k)[None, :] < cnt[:, None]
+    sigs = [G2.mul(rng.randrange(1, R)) for _ in range(m)]
+    mask = np.array([False, False, False, True])
+    r0, r1 = _rlc(m)
+    # the port
+    aff = [p.to_affine() for p in keys]
+    sx = L.ints_to_words([a[0].n for a in aff])
+    sy = L.ints_to_words([a[1].n for a in aff])
+    v = []
+    for p in sigs:
+        (x, y) = p.to_affine()
+        v += [x.c0.n, x.c1.n, y.c0.n, y.c1.n]
+    g = L.ints_to_words(v).reshape(m, 2, 2, 12)
+    r01 = TB.rlc_pairs_words(list(zip(r0, r1)))
+    rpk, agg_inf, rsig = TB.aggregate_rlc_scale_plain(*(
+        torch.from_numpy(np.array(a)) for a in
+        (sx, sy, idx, cnt, g[:, 0], g[:, 1], mask, r01)))
+    got_g1 = _affine_g1(*C.jac_from_words(rpk, 1))
+    got_g2 = _affine_g2(*C.jac_from_words(rsig, 2))
+    # the JAX package
+    devs = [JC.g1_point_to_dev(p) for p in keys]
+    reg_x = np.stack([d[0] for d in devs])
+    reg_y = np.stack([d[1] for d in devs])
+    sdev = [JC.g2_point_to_dev(p) for p in sigs]
+    gx = np.stack([d[0] for d in sdev])
+    gy = np.stack([d[1] for d in sdev])
+    lo = jnp.asarray(JC.scalars_to_bits_msb(r0, 32)).T
+    hi = jnp.asarray(JC.scalars_to_bits_msb(r1, 32)).T
+
+    def jax_steps(reg_x, reg_y, idx, mem_inf, gx, gy, sig_inf, lo, hi):
+        mem = JB._g1_in(jnp.take(reg_x, JB._flat_km(idx, m, k), axis=0),
+                        jnp.take(reg_y, JB._flat_km(idx, m, k), axis=0))
+        inf_f = JB._flat_km(mem_inf, m, k)
+        one, zero = JC.FP_OPS.one_like(mem[0]), JC.FP_OPS.zeros_like(mem[0])
+        mem_jac = (JC.FP_OPS.select(inf_f, one, mem[0]),
+                   JC.FP_OPS.select(inf_f, one, mem[1]),
+                   JC.FP_OPS.select(inf_f, zero, one))
+        apk = JC.sum_points_grouped(mem_jac, k, JC.FP_OPS)
+        apk_inf = JL.is_zero_val(apk[2])
+        rpk = JC.scalar_mul_jac_glv(apk, apk_inf, lo, hi, _jax_endo(m, "g1"),
+                                    JC.FP_OPS)
+        sx, sy = JB._g2_in(gx, gy)
+        rsig = JC.scalar_mul_glv(sx, sy, sig_inf, lo, hi, _jax_endo(m, "g2"),
+                                 JC.FP2_OPS)
+        return rpk, apk_inf, rsig
+
+    j_rpk, j_inf, j_rsig = jax.jit(jax_steps)(
+        reg_x, reg_y, idx, ~live, gx, gy, jnp.asarray(mask), lo, hi)
+    ref_g1 = [_host_affine(JC.dev_to_g1_point(JL.merge_np(j_rpk[0])[i],
+                                              JL.merge_np(j_rpk[1])[i],
+                                              JL.merge_np(j_rpk[2])[i]))
+              for i in range(m)]
+    ref_g2 = []
+    for i in range(m):
+        X, Y, Z = (np.stack([JL.merge_np(c[0])[i], JL.merge_np(c[1])[i]])
+                   for c in j_rsig)
+        ref_g2.append(_host_affine(JC.dev_to_g2_point(X, Y, Z)))
+    assert agg_inf.tolist() == np.asarray(j_inf).tolist() == [
+        False, False, True, False]
+    assert got_g1 == ref_g1
+    assert got_g2 == ref_g2
+    lam = [(a + b * LAMBDA) % R for a, b in zip(r0, r1)]
+    assert got_g1[1] == _host_affine(keys[5].mul(lam[1]))
+    assert got_g2[0] == _host_affine(sigs[0].mul(lam[0]))
+    assert got_g1[2] is None and got_g2[3] is None

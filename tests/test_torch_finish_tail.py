@@ -8,10 +8,15 @@ the synchronisation points) against the port's plain versions, exact
   generator's own evaluation on seeded values.
 - Each warp-wide operation against gpu/field.py and gpu/pairing.py: the
   general Fp12 product, the Miller loop's doubling (the 36-product square
-  and the 42-product sparse line product) and addition steps, the
-  cyclotomic square on a cyclotomic value, the Euclid Fp inversion and
-  the Fp12 inversion's chain through the easy part, the whole final
+  and the 42-product sparse line product) and addition steps for −g1 and
+  for a general Jacobian P with its coefficient program, the cyclotomic
+  square on a cyclotomic value, the Euclid Fp inversion and the Fp12
+  inversion's chain through the easy part, the whole final
   exponentiation.
+- `miller_loop_pairs`' launch (one warp a pair, four warps a block, its
+  blocks and warps in turn) against `miller_loop_pairs_plain` at 1, 31,
+  33 and 130 pairs: Z = 1 and Z ≠ 1, −g1, the generator and hashed
+  messages, pair_inf rows.
 - Whole launches (the kernel's blocks in turn): the tail's Fp12 value of
   each live group against `final_exponentiation` of the plain product and
   Miller loop, and the verdicts against `rlc_finish_plain` — valid,
@@ -43,6 +48,7 @@ from grandine_tpu_torch.gpu import finish_programs as FP
 from grandine_tpu_torch.gpu import limbs as L
 from grandine_tpu_torch.gpu import msm
 from grandine_tpu_torch.gpu import pairing as TP
+from grandine_tpu_torch.testing.pairing_rows import miller_rows
 
 HARNESS = r"""
 #include <vector>
@@ -74,23 +80,14 @@ void tail_zero_form(uint32_t* out, int off, int len) {
   uint32_t* const g[4] = {z.data(), z.data(), z.data(), z.data()};
   fp_store(out, tail::eval_form(g, z.data(), off, len));
 }
-// the Miller loops of n (Jacobian G1, affine G2) pairs, canonical words in
-// and out: csrc's one-thread miller_loop, which miller_loop_pairs runs
-void tail_miller(uint32_t* f, const uint32_t* rpk, const uint32_t* msg, int n,
-                 const uint32_t* K) {
-  for (int i = 0; i < n; i++) {
-    jac<fp> P;
-    P.x = mont_in(rpk + 36 * i, K);
-    P.y = mont_in(rpk + 36 * i + 12, K);
-    P.z = mont_in(rpk + 36 * i + 24, K);
-    jac<fp2> Q;
-    Q.x = mont_in2(msg + 48 * i, K);
-    Q.y = mont_in2(msg + 48 * i + 24, K);
-    f_one(Q.z, K);
-    fp12 out;
-    miller_loop(out, P, Q, K);
-    fp12_out(f + 144 * i, out);
-  }
+// miller_loop_pairs' launch over n (Jacobian G1, affine G2) pairs at
+// `warps` warps a block, its blocks in turn (each block's warps in turn):
+// canonical words in and out
+void tail_miller(uint32_t* f, const uint32_t* rpk, const uint32_t* msg,
+                 const bool* pair_inf, int n, int warps, const uint32_t* K) {
+  std::vector<uint32_t> sm(12 * tail::MILLER_WS * warps);
+  for (int b = 0; b * warps < n; b++)
+    tail::miller_block(sm.data(), warps, b, n, rpk, msg, pair_inf, f, K);
 }
 // canonical a -> a^-1 through the Montgomery inversion of the tail
 void tail_inv(uint32_t* out, const uint32_t* in, const uint32_t* K) {
@@ -277,10 +274,15 @@ def test_programs_fit_a_warp():
     counts = FP.stats()
     # the function's least work: the general product 54 Fp products, the
     # doubling step with its 36-product square and 42-product sparse line
-    # product, the cyclotomic square 18
+    # product (the step itself 46 for −g1's constant coefficients, 48 for a
+    # general P's: zP³ scales the line), the addition step's line product
+    # 42 (the step 46 for an affine Q), the cyclotomic square 18
     assert counts["MUL"] == (54, 2)
     assert counts["CYC_SQ"] == (18, 1)
-    assert counts["DBL"][0] == 36 + 42 + 47
+    assert counts["DBL"][0] == 36 + 42 + 46
+    assert counts["DBL_P"][0] == 36 + 42 + 48
+    assert counts["ADD_P"][0] == 42 + 46
+    assert counts["PCOEF"] == (3, 2)
 
 
 def test_general_product_and_miller_steps(lib):
@@ -314,6 +316,47 @@ def test_general_product_and_miller_steps(lib):
     T3, line = TP.add_step(Tt, Qt, g1c)
     assert fo == _plain_ints(F.fp12_mul(ft, TP.line_to_fp12(line)))
     assert To == _plain_ints(torch.stack(T3))
+
+
+def test_general_p_coefficients_and_miller_steps(lib):
+    """miller_loop_pairs' programs: P's coefficients (yP, zP³, −xP·zP) of a
+    Jacobian P, and the doubling and addition steps with them and an
+    affine Q, against gpu/pairing.py prepare_g1, double_step, add_step."""
+    rng = np.random.default_rng(0xF6)
+    Pj = _rand(rng, 3)
+    g1c = TP.prepare_g1(tuple(_limbs([v], (12,)) for v in Pj))
+    coeffs = _run(lib, "PCOEF", Pj, [0] * 3)[1]
+    assert coeffs == [_plain_ints(g1c[0][0])[0], _plain_ints(g1c[2])[0],
+                      _plain_ints(g1c[1])[0]]
+    f, T, Q = _rand(rng, 12), _rand(rng, 6), _rand(rng, 4)
+    ft = _limbs(f, (2, 3, 2, 12))
+    Tt = tuple(_limbs(T, (3, 2, 12)))
+    Qt = (*_limbs(Q, (2, 2, 12)), F.fp2_one(()))
+    fo, To, _, _ = _run(lib, "DBL_P", f, T, Q, coeffs)
+    T2, line = TP.double_step(Tt, g1c)
+    assert fo == _plain_ints(F.fp12_mul(F.fp12_sq(ft),
+                                        TP.line_to_fp12(line)))
+    assert To == _plain_ints(torch.stack(T2))
+    fo, To, _, _ = _run(lib, "ADD_P", f, T, Q, coeffs)
+    T3, line = TP.add_step(Tt, Qt, g1c)
+    assert fo == _plain_ints(F.fp12_mul(ft, TP.line_to_fp12(line)))
+    assert To == _plain_ints(torch.stack(T3))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 130])
+def test_miller_pairs_equal_plain(lib, n):
+    """miller_loop_pairs' launch over n pairs at four warps a block (a
+    partial last block for 1, 31, 33 and 130), its blocks and warps in
+    turn, against miller_loop_pairs_plain: canonical words, exact."""
+    rpk, msg, inf, tile = miller_rows(n, n)
+    want = TP.miller_loop_pairs_plain(*(torch.from_numpy(a)
+                                        for a in (rpk, msg, inf)))
+    rpk, msg, inf = (np.ascontiguousarray(a[tile]) for a in (rpk, msg, inf))
+    out = np.zeros((n, 2, 3, 2, 12), np.uint32)
+    lib.tail_miller(_ptr(out), _ptr(rpk), _ptr(msg), _ptr(inf), n, 4, _ptr(K))
+    assert np.array_equal(out.view(np.int32), want.numpy()[tile])
+    if n > 3:  # the pair_inf row: Fp12 one
+        assert _ints(out[3].reshape(-1)) == [1] + [0] * 11
 
 
 def test_cyclotomic_square_inversion_and_final_exponentiation(lib):
@@ -371,12 +414,14 @@ def launches(lib):
     pairs_p = rpk + [Pk, -Pk]
     pairs_q = H + [Qk, Qk]
     msg = np.stack([B.g2_affine_words(q)[0] for q in pairs_q])
-    # the f terms by the kernels' Miller loop compiled as C++ (the card's
-    # tests hold miller_loop_pairs equal to miller_loop_pairs_plain)
+    # the f terms by miller_loop_pairs' warp programs compiled as C++ (held
+    # against miller_loop_pairs_plain by test_miller_pairs_equal_plain)
     rpk_w = _words([v for p in pairs_p for v in _g1_jac(p)])
     msg_w = np.ascontiguousarray(msg.astype(np.uint32))
     ml = np.zeros((len(pairs_p), 2, 3, 2, 12), np.uint32)
-    lib.tail_miller(_ptr(ml), _ptr(rpk_w), _ptr(msg_w), len(pairs_p), _ptr(K))
+    no_inf = np.zeros(len(pairs_p), bool)
+    lib.tail_miller(_ptr(ml), _ptr(rpk_w), _ptr(msg_w), _ptr(no_inf),
+                    len(pairs_p), 2, _ptr(K))
     ml = torch.from_numpy(ml.astype(np.int32))
     fv, kzg = ml[:n], ml[n:]
     sig = [_g2_jac(s) for s in rsig]

@@ -1,7 +1,8 @@
-"""The two lane-split ladders on the CPU: csrc/sign.cu (`batch_sign`) and
-csrc/kzg.cu (`g1_scalar_mul`) compiled as plain C++, a row's lanes run in
-turn and the warp's shuffle tree emulated, against the port's plain
-versions, exact (canonical words).
+"""The lane-split ladders on the CPU: csrc/sign.cu (`batch_sign`),
+csrc/kzg.cu (`g1_scalar_mul`) and csrc/aggregate.cu
+(`aggregate_rlc_scale`) compiled as plain C++, a row's lanes (or a
+block's threads and warps) run in turn and the warp's shuffle tree
+emulated, against the port's plain versions, exact (canonical words).
 
 - `batch_sign` at one, two and four lanes a signature: sk = 1, |x| − 1, |x|,
   |x|², |x|³, r − 2, r − 1, keys with zero digits, a seeded key and an ∞
@@ -11,6 +12,11 @@ versions, exact (canonical words).
   halves whose windows take the table's extreme digits ±16 and ±15; and
   seeded scalars — against `g1_scalar_mul_plain`.
 - The lane's long division k = k1·x² + k0 against Python's divmod.
+- `aggregate_rlc_scale` (the strided sum and tree, the G1 halves on two
+  lanes, the G2 halves as warp programs and their join) on its edges:
+  r0 = 0, r1 = 0, r = 1, halves 0xFFFFFFFF, an aggregate summing to ∞,
+  the same key twice, one member, 130 members, masked signatures, and
+  seeded rows — against `aggregate_rlc_scale_plain`.
 
 The harness builds with g++ into the git-ignored csrc/build/; without g++
 the tests skip (decided in the fixture).
@@ -34,11 +40,29 @@ from grandine_tpu_torch.gpu import _build
 from grandine_tpu_torch.gpu import bls as B
 from grandine_tpu_torch.gpu import kzg as GK
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.testing.pairing_rows import (
+    AGGREGATE_EDGES, aggregate_rows)
 
 HARNESS = r"""
+#include <vector>
 #include "sign.cu"
 #include "kzg.cu"
+#include "aggregate.cu"
 extern "C" {
+// aggregate_rlc_scale over m aggregates: each block's threads, lanes and
+// warps in turn
+void ladders_aggregate(const uint32_t* src_x, const uint32_t* src_y,
+                       const int32_t* idx, const int32_t* cnt, int m, int k,
+                       const uint32_t* sig_x, const uint32_t* sig_y,
+                       const bool* sig_mask, const uint32_t* r01,
+                       uint32_t* rpk, bool* agg_inf, uint32_t* rsig,
+                       const uint32_t* K) {
+  std::vector<uint32_t> sm(AGG_SMEM_WORDS);
+  for (int i = 0; i < m; i++)
+    aggregate_block(sm.data(), i, src_x, src_y, idx, cnt, k, sig_x, sig_y,
+                    sig_mask, r01, rpk, agg_inf, rsig, K, nullptr);
+}
+
 // batch_sign over n rows: each row's lanes in turn, then the shuffle tree
 // (lane l adds lane l + m at level m, as __shfl_xor_sync gives it)
 void ladders_sign(const uint32_t* msg, const bool* inf, const uint32_t* d,
@@ -79,7 +103,7 @@ void ladders_split(const uint32_t* k, int n, uint32_t* out) {
 """
 
 FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-I", _build.CSRC]
-SOURCES = ("sign.cu", "kzg.cu")
+SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu")
 ABS_X = -X
 X2 = X * X
 rng = random.Random(0x1AD)
@@ -216,3 +240,30 @@ def test_kzg_split_equals_divmod(lib):
     assert got == [divmod(v, X2)[::-1] for v in ks]
     halves = GK.scalar_halves(torch.from_numpy(k)).numpy().astype(np.uint32)
     assert np.array_equal(halves, out)
+
+
+AGG_CASES = {
+    "edges": AGGREGATE_EDGES,
+    "seeded": [(sorted(rng.sample(range(141), rng.randint(1, 130))),
+                (rng.getrandbits(32), rng.getrandbits(32)), i % 4 == 3)
+               for i in range(8)],
+}
+
+
+@pytest.mark.parametrize("rows", sorted(AGG_CASES))
+def test_aggregate_lanes_equal_plain(lib, rows):
+    args = aggregate_rows(AGG_CASES[rows], len(rows))
+    m, k = args[2].shape
+    rpk = np.zeros((m, 3, 12), np.uint32)
+    agg_inf = np.zeros(m, bool)
+    rsig = np.zeros((m, 3, 2, 12), np.uint32)
+    lib.ladders_aggregate(*(_ptr(a) for a in args[:4]), m, k,
+                          *(_ptr(a) for a in args[4:]), _ptr(rpk),
+                          _ptr(agg_inf), _ptr(rsig), _ptr(K))
+    want = B.aggregate_rlc_scale_plain(*(torch.from_numpy(a) for a in args))
+    assert np.array_equal(rpk.view(np.int32), want[0].numpy())
+    assert np.array_equal(agg_inf, want[1].numpy())
+    assert np.array_equal(rsig.view(np.int32), want[2].numpy())
+    if rows == "edges":
+        assert agg_inf.tolist() == [i in (4, 8) for i in range(m)]
+        assert not rsig[7, 2].any() and not rsig[8, 2].any()  # masked
