@@ -20,9 +20,9 @@ Phases (any failure raises and exits non-zero):
      130 members, masked signatures), EDGE_REPEATS launches each, every
      launch equal to
      the plain version, with each shape's geometry and CUDA-event time;
-     ptxas' stack need of the pairing, aggregate and ladder kernels
-     against STACK_CEILING and the warp rounds of a group's tail and of a
-     pair's Miller loop;
+     ptxas' stack need and registers of the pairing, aggregate, ladder,
+     comb and Ed25519 kernels against STACK_CEILING, and the warp rounds
+     of a group's tail and of a pair's Miller loop;
   3. the main path at real size: a 50,000-validator registry ingested on
      the card, then one slot of gossip aggregates (12 committees × 16
      aggregators = 192 aggregates of 87–130 members) through
@@ -157,7 +157,9 @@ Phases (any failure raises and exits non-zero):
      aggregate_fast_verify_kernel and grouped_multi_verify_msm_packed_kernel,
      and the port's entry.py): batch_pubkey, g1_normalize, g2_normalize and
      unpack_words against their plain versions on edge rows (sk = 1, r − 1,
-     r − 2, both sign masks; ∞ rows, Z = ±1, a non-residue Z; N = 1; 0,
+     r − 2, both sign masks; the comb's edges: a zero half, lanes summing
+     to ∞, all-15 digits, a join that doubles and one that gives ∞; ∞
+     rows, Z = ±1, a non-residue Z; N = 1; 0,
      p − 1, p, 2^384 − 1, 2^390 − 1, bits above 390); the registry's first
      16,384 keys derived on the card (batch_pubkey, g1_normalize,
      compression) byte for byte the registry's; g2_normalize reading back
@@ -526,10 +528,23 @@ class OpModel:
         return total
 
     def pubkey(self, k):
-        """batch_pubkey at the function's least work: per key the
+        """batch_pubkey at the function's least work, the fixed-base comb:
+        per key (the nonzero 4-bit digits of both GLV halves − 1) mixed
+        additions of table entries, all of which one accumulator can do
+        as mixed additions (the lanes' join is one of them, done as a
+        complete addition), and the output conversion; no doubling (the
+        table holds every window's multiples of g1 and [λ]g1)."""
+        total = 0
+        for row in k:
+            digits = sum(((int(w) & 0xFFFFFFFF) >> s) & 15 != 0
+                         for w in row.reshape(-1) for s in range(0, 32, 4))
+            total += self.madd1 * max(0, digits - 1) + 3
+        return total
+
+    def pubkey_ladder(self, k):
+        """The bound of the dual GLV ladder the comb replaced: per key the
         endomorphism (2 products), 128 doublings and popcount(k0) +
-        popcount(k1) − 1 mixed additions in G1, the output conversion; the
-        branchless ladder's discarded candidates are not charged."""
+        popcount(k1) − 1 mixed additions, the output conversion."""
         total = 0
         for row in k:
             adds = sum(bin(int(w) & 0xFFFFFFFF).count("1")
@@ -748,18 +763,21 @@ def check_pairing_launches(torch, B, TP, recs, same, dev):
             f"aggregates, in {time.perf_counter() - t0:.1f} s")
 
 
-def kernel_stack(log, name):
-    """ptxas' cumulative stack size (bytes) of the entry whose name holds
-    `name`, from a build log."""
-    entry, sizes = None, {}
+def kernel_ptxas(log, name):
+    """(registers, cumulative stack bytes) of the entry whose name holds
+    `name`, from a build log; ptxas prints no stack for an entry that
+    calls nothing, which needs none (0). None when no entry matches."""
+    entry, found = None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
-        m = re.search(r"(\d+) bytes cumulative stack size", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            sizes[entry] = int(m.group(1))
-    return max((v for k, v in sizes.items() if name in k), default=None)
+            st = re.search(r"(\d+) bytes cumulative stack size", line)
+            found[entry] = (int(m.group(1)), int(st.group(1)) if st else 0)
+    hits = [v for k, v in found.items() if name in k]
+    return max(hits, key=lambda v: v[1]) if hits else None
 
 
 def finish_operands(f, rsig, agg_inf, sig_ok, sig_sub, f_off=None,
@@ -2848,6 +2866,7 @@ def reference_phase(c):
     from grandine_tpu_torch.crypto.curves import G1, g2_infinity
     from grandine_tpu_torch.crypto.fields import Fq2
     from grandine_tpu_torch.gpu import limbs as L
+    from grandine_tpu_torch.testing import pubkey_rows as PKR
     from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
     from grandine_tpu_torch.runtime.verify_scheduler import (
         VerifyItem, host_check_item)
@@ -2882,8 +2901,17 @@ def reference_phase(c):
             fail("edge scalars: a sign mask of a half never set or cleared")
         pk_e = B.batch_pubkey(*up((k_e, neg_e)))
         pk_1 = B.batch_pubkey(*up((k_e[:1], neg_e[:1])))
+        pk_c = B.batch_pubkey(*up(PKR.halves_operands(PKR.COMB_EDGES)))
         notes["batch_pubkey"] += ["edge rows (sk = 1, r − 1, r − 2, both "
-                                  "sign masks), N = 32", "N = 1"]
+                                  "sign masks), N = 32", "N = 1",
+                                  "comb edges (a zero half, lanes summing "
+                                  "to ∞, all-15 digits, a join that doubles "
+                                  "and one that gives ∞), N = 6"]
+        live = [i for i in range(len(PKR.COMB_EDGES))
+                if i != PKR.COMB_INF_ROW]
+        if (pk_c[PKR.COMB_INF_ROW, 2].abs().sum().item()
+                or not pk_c[live, 2].abs().sum(-1).all().item()):
+            fail("batch_pubkey comb edges: the ∞ join or a live row's Z")
         gx, gy = G1.to_affine()
         lam = 2
         while pow(lam, (P - 1) // 2, P) != P - 1:
@@ -2979,6 +3007,13 @@ def reference_phase(c):
             f"{same_keys} {at}")
         if not same_keys:
             fail("keys derived on the card differ from the registry's")
+        comb_ms, ladder_ms = (bound_ms(ops, n_keys * 178, c.sms,
+                                       c.clock_hz)[0]
+                              for ops in (c.ops.pubkey(k_k),
+                                          c.ops.pubkey_ladder(k_k)))
+        log(f"  batch_pubkey bound, registry keys: the comb's least work "
+            f"{comb_ms:.4f} ms (the dual GLV ladder's {ladder_ms:.4f} ms) "
+            f"{at}")
 
         # -- readback: the full signing bucket's affine words ----------------
         n_sig = sign_words.shape[0]
@@ -3749,16 +3784,20 @@ def main() -> None:
                        ("aggregate", ("aggregate_rlc_scale_kernel",)),
                        ("sign", ("batch_sign_kernelILi4",
                                  "batch_sign_kernelILi2",
-                                 "batch_sign_kernelILi1")),
-                       ("kzg", ("g1_scalar_mul_kernel",))):
+                                 "batch_sign_kernelILi1",
+                                 "batch_pubkey_kernel")),
+                       ("kzg", ("g1_scalar_mul_kernel",)),
+                       ("ed25519", ("ed25519_ladder_kernel",
+                                    "ed25519_tree_kernel"))):
         with open(os.path.join(_build.BUILD_DIR, f"lib{lib}.so.log")) as fh:
             blog = fh.read()
-        needs.update({k: kernel_stack(blog, k) for k in names})
-    log("ptxas stack: " + ", ".join(f"{k} {v} B" for k, v in needs.items())
-        + f"; the card-wide limit {limit} B")
+        needs.update({k: kernel_ptxas(blog, k) for k in names})
     if None in needs.values():
-        fail("a kernel's stack need is missing from its ptxas log")
-    if max(needs.values()) > STACK_CEILING:
+        fail("a kernel's entry is missing from its ptxas log")
+    log("ptxas stack: " + ", ".join(f"{k} {v[1]} B ({v[0]} registers)"
+                                    for k, v in needs.items())
+        + f"; the card-wide limit {limit} B")
+    if max(v[1] for v in needs.values()) > STACK_CEILING:
         fail(f"a kernel's stack need rose above the {STACK_CEILING} B "
              f"ceiling")
     rounds, stages = FPG.tail_depth()
@@ -4518,8 +4557,8 @@ def main() -> None:
         backend=backend, registry=registry, msgs=msgs, sigs=sigs,
         members=members, h_of=h_of, unagg=(u_msgs, u_sigs, u_keys),
         sync=(s_msgs, s_sigs, s_keys), nonsub=nonsub,
-        full_sign=sign_ctx.full_sign, count_reset=count_reset,
-        count_read=count_read))
+        full_sign=sign_ctx.full_sign, sms=sms, clock_hz=clock_hz,
+        count_reset=count_reset, count_read=count_read))
 
     # 14. timings: the main-path operands of every kernel (phase 13 takes
     # the gossip, block and window signature planes from here too) --------

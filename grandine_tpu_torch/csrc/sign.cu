@@ -27,12 +27,21 @@
 // one; the lane index and the row count are public. The field arithmetic
 // of bls12_381.cuh keeps its data-dependent conditional reductions, so
 // this is branchless on the secret, not hardened against physical side
-// channels (the caveat of the JAX kernel it replaces). batch_pubkey keeps
-// the dual 128-bit GLV ladder from the generator.
+// channels (the caveat of the JAX kernel it replaces).
 //
-// sign_lane, point_add_ct, sign_store and pubkey_row also compile as plain
-// C++ (no __CUDACC__), so a row's lanes can be run in turn on a host, the
-// shuffle tree emulated, against the plain PyTorch versions.
+// batch_pubkey is a fixed-base comb from the generator: with the GLV halves
+// sk = +-k0 +- k1*lambda (each below 2^128), k_h = sum d_j 16^j over 32
+// 4-bit windows, and [sk]g1 = sum_h sum_j [+-d_j](16^j lambda^h g1), each
+// term a lookup in a table of T[h][j][d-1] = [d 16^j lambda^h]g1 (960
+// affine points, gpu/_build.py comb_table). PUBKEY_LANES lanes a key each
+// add up 64 / PUBKEY_LANES windows by mixed additions on fpc, then meet in
+// the same shuffle tree of complete additions; no doubling at all. Every
+// lane reads all 15 entries of its window and selects by masks, so no
+// branch, loop bound or address depends on a digit.
+//
+// sign_lane, pubkey_lane, point_add_ct, sign_store and pubkey_store also
+// compile as plain C++ (no __CUDACC__), so a row's lanes can be run in turn
+// on a host, the shuffle tree emulated, against the plain PyTorch versions.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -42,7 +51,12 @@
 using namespace bls;
 
 #define SIGN_DIGIT_BITS 64  // bits of each base-|x| digit (gpu/bls.py)
-#define SIGN_BITS 128  // bits of each GLV half of batch_pubkey (SIGN_HALF_BITS)
+#define PUBKEY_WINDOWS 32  // windows of a GLV half (_build.py COMB_SHAPE)
+#define PUBKEY_DIGITS 15   // entries of a window: the nonzero digits
+// lanes a key (gpu/bls.py PUBKEY_LANES): the fastest at a full bucket of
+// 16,384 keys, where the warps share the schedulers' issue slots and each
+// level of the join costs every lane a complete addition
+#define PUBKEY_LANES 2
 
 // all ones when every word of a is zero, else 0: no branch
 template <class T>
@@ -173,32 +187,61 @@ BLS_HD void sign_store(uint32_t* out, const jac<fp2>& st, bool inf,
   mont_out2(out + 48, r.z);
 }
 
-// [±k0 ± k1*lambda] g1 for one row: the dual 128-bit GLV ladder from the
-// generator, g1 = (x, -y) of the table's -g1; k = |k0|, |k1| as 4 + 4
-// little-endian words, neg = their signs; writes the Jacobian result (3 x
-// 12 canonical words).
-BLS_NI void pubkey_row(const uint32_t* k, const bool* neg, uint32_t* out,
-                       const uint32_t* K) {
-  fp qx = fp_load(K + 12 * K_NEG_G1_X);
-  fp qy = fp_neg(fp_load(K + 12 * K_NEG_G1_Y));
-  fp q2x = fp_mul(qx, fp_load(K + 12 * K_G1_BX));
-  fp q2y = fp_mul(qy, fp_load(K + 12 * K_G1_BY));
-  qy = ct_select(0u - (uint32_t)neg[0], fp_neg(qy), qy);
-  q2y = ct_select(0u - (uint32_t)neg[1], fp_neg(q2y), q2y);
-  fp one;
+// Lane `lane` of PUBKEY_LANES of one key: k = |k0|, |k1| as 4 + 4
+// little-endian words, neg their signs, T the comb table (2 x 32 x 15
+// affine Montgomery points, 24 words each). The lane takes half h = lane /
+// HL (HL = PUBKEY_LANES / 2) and its W = 32 / HL windows j = j0 .. j0 + W
+// - 1, j0 = W * (lane % HL), in ascending order: each step selects entry d - 1 of window j (d
+// the window's digit) from all 15 by masks, negates y by the half's sign
+// mask, and adds it by the mixed addition under the "started" mask
+// (ladder_slot); a zero digit keeps the accumulator. Returns the lane's
+// sum, infinity when every digit of its windows is zero.
+//
+// Its mixed additions never meet P = +-Q, nor an infinite accumulator once
+// started. With B = +-lambda^h g1, before window j the accumulator is [c]B
+// with c = sum_{j0 <= i < j} d_i 16^i < 16^j <= d 16^j, and the entry is
+// [d 16^j]B, so c != d 16^j; c + d 16^j < 16^(j + 1) <= 2^128 < r, so
+// c != -d 16^j mod r; and c = 0 only before the first nonzero digit, which
+// the mask covers.
+BLS_HD jac<fpc> pubkey_lane(const uint32_t* k, const bool* neg, int lane,
+                            const uint32_t* T, const uint32_t* K) {
+  constexpr int HL = PUBKEY_LANES / 2;        // lanes of a half
+  constexpr int W = PUBKEY_WINDOWS / HL;      // windows of a lane
+  int h = lane / HL, j0 = W * (lane % HL);
+  const uint32_t* kh = k + 4 * h;
+  uint32_t sign = 0u - (uint32_t)neg[h];
+  fpc one;
   f_one(one, K);
-  jac<fp> st = jac_inf<fp>(K);
+  jac<fpc> st = jac_inf<fpc>(K);
   uint32_t started = 0;
-  for (int s = SIGN_BITS - 1; s >= 0; s--) {  // fixed trip count
-    uint32_t b0 = 0u - ((k[s >> 5] >> (s & 31)) & 1u);
-    uint32_t b1 = 0u - ((k[4 + (s >> 5)] >> (s & 31)) & 1u);
-    st = point_double(st);
-    ladder_slot(st, started, b0, qx, qy, one);
-    ladder_slot(st, started, b1, q2x, q2y, one);
+#pragma unroll 1
+  for (int s = 0; s < W; s++) {  // fixed trip count
+    int j = j0 + s;
+    uint32_t d = (kh[j >> 3] >> (4 * (j & 7))) & 15u;
+    const uint32_t* win = T + 24 * PUBKEY_DIGITS * (PUBKEY_WINDOWS * h + j);
+    fpc qx, qy;
+    qx.v = fp_zero();
+    qy.v = fp_zero();
+#pragma unroll
+    for (int e = 0; e < PUBKEY_DIGITS; e++) {
+      uint32_t m = 0u - (uint32_t)(d == (uint32_t)(e + 1));
+#pragma unroll
+      for (int w = 0; w < 12; w++) {
+        qx.v.l[w] |= win[24 * e + w] & m;
+        qy.v.l[w] |= win[24 * e + 12 + w] & m;
+      }
+    }
+    qy.v = ct_select(sign, fp_neg(qy.v), qy.v);
+    ladder_slot(st, started, 0u - (uint32_t)(d != 0), qx, qy, one);
   }
-  mont_out(out, st.x);
-  mont_out(out + 12, st.y);
-  mont_out(out + 24, st.z);
+  return st;
+}
+
+// a key's result (3 x 12 canonical words)
+BLS_HD void pubkey_store(uint32_t* out, const jac<fpc>& st) {
+  mont_out(out, st.x.v);
+  mont_out(out + 12, st.y.v);
+  mont_out(out + 24, st.z.v);
 }
 
 #ifdef __CUDACC__
@@ -224,14 +267,24 @@ batch_sign_kernel(const uint32_t* msg, const bool* msg_inf, const uint32_t* d,
     sign_store(out + 72 * (size_t)row, st, msg_inf[row], K);
 }
 
-// --- batch_pubkey: one thread per key, one warp a block ---------------------
+// --- batch_pubkey: PUBKEY_LANES lanes a key, one warp a block --------------
 
+// Thread t runs lane t % PUBKEY_LANES of key t / PUBKEY_LANES; lanes past
+// the last key run its comb again (every lane of the warp takes part in
+// the shuffles) and store nothing. The tree adds lane m's sum into lane
+// 0's side at each level (m = 1, ...): lane 0 ends with P0 + P1.
 __global__ void __launch_bounds__(32)
 batch_pubkey_kernel(const uint32_t* k, const bool* neg, int n, uint32_t* out,
-                    const uint32_t* K) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  pubkey_row(k + 8 * (size_t)i, neg + 2 * i, out + 36 * (size_t)i, K);
+                    const uint32_t* T, const uint32_t* K) {
+  int t = blockIdx.x * 32 + threadIdx.x;
+  int row = t / PUBKEY_LANES, lane = t % PUBKEY_LANES;
+  int r = row < n ? row : n - 1;
+  jac<fpc> st = pubkey_lane(k + 8 * (size_t)r, neg + 2 * (size_t)r, lane, T,
+                            K);
+#pragma unroll
+  for (int m = 1; m < PUBKEY_LANES; m <<= 1)
+    st = point_add_ct(st, shfl_xor_words(st, m), K);
+  if (lane == 0 && row < n) pubkey_store(out + 36 * (size_t)row, st);
 }
 
 // --- C interface --------------------------------------------------------
@@ -278,11 +331,13 @@ int bls_batch_sign_geometry(int n, int lanes, int32_t* geometry,
 }
 
 int bls_batch_pubkey(const uint32_t* k, const bool* neg, int n, uint32_t* out,
-                     const uint32_t* K, cudaStream_t stream) {
-  // one warp a block: a full bucket of 16,384 keys is 512 one-warp blocks
-  // over every SM
+                     const uint32_t* T, const uint32_t* K,
+                     cudaStream_t stream) {
+  // one warp a block, 32 / PUBKEY_LANES keys a warp: a full bucket of
+  // 16,384 keys is 1,024 one-warp blocks, ~7.8 warps an SM
+  int blocks = (int)(((long long)n * PUBKEY_LANES + 31) / 32);
   if (n > 0)
-    batch_pubkey_kernel<<<(n + 31) / 32, 32, 0, stream>>>(k, neg, n, out, K);
+    batch_pubkey_kernel<<<blocks, 32, 0, stream>>>(k, neg, n, out, T, K);
   return (int)cudaGetLastError();
 }
 

@@ -93,7 +93,7 @@ SIGNATURES = {
                    _vp],
     "rlc_finish_geometry": [_i, _i, _i, _i, _vp],
     "rlc_partial": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
-    "batch_pubkey": [_vp, _vp, _i, _vp],
+    "batch_pubkey": [_vp, _vp, _i, _vp, _vp],
     "g1_normalize": [_vp, _i, _vp, _vp],
     "g2_normalize": [_vp, _i, _vp, _vp],
     "unpack_words": [_vp, _i, _vp],
@@ -270,6 +270,50 @@ def constant_table(device) -> torch.Tensor:
     return t
 
 
+#: (GLV halves, 4-bit windows of a 128-bit half, nonzero digits) of the
+#: batch_pubkey comb table (csrc/sign.cu)
+COMB_SHAPE = (2, 32, 15)
+_comb_ints: "list[int] | None" = None
+
+
+def comb_table_ints() -> "list[int]":
+    """The batch_pubkey comb as ints in table order: the affine x, y of
+    T[h][j][d − 1] = [d·16ʲ·λʰ]g1 (λ = x² mod r), Montgomery form. Half 0
+    by additions along each window (16ʲ·g1 by four doublings a window),
+    half 1 by the endomorphism φ = [λ] on G1, (βx·x, βy·y); once a
+    process."""
+    global _comb_ints
+    if _comb_ints is None:
+        P, R = L.P, L.R_MONT
+        bx, by = curves.endo_constants()["g1"]
+        halves, windows, digits = COMB_SHAPE
+        pts, base = [], G1
+        for _ in range(windows):
+            acc = base
+            for _ in range(digits):
+                pts.append(acc.to_affine())
+                acc = acc + base
+            for _ in range(4):
+                base = base.double()
+        xy = [(x.n, y.n) for x, y in pts]
+        xy += [(bx * x % P, by * y % P) for x, y in xy]
+        _comb_ints = [v * R % P for pair in xy for v in pair]
+    return _comb_ints
+
+
+def comb_table(device) -> torch.Tensor:
+    """The batch_pubkey comb (`comb_table_ints`) as (2, 32, 15, 2, 12)
+    int32 words on `device`, built at first use and kept beside the
+    constant table (92,160 bytes)."""
+    key = ("comb", str(device))
+    t = _tables.get(key)
+    if t is None:
+        t = torch.from_numpy(L.ints_to_words(comb_table_ints()).reshape(
+            *COMB_SHAPE, 2, L.NWORDS).copy()).to(device)
+        _tables[key] = t
+    return t
+
+
 def launch(name: str, *args) -> None:
     """Call C entry `bls_<name>` with tensors as device pointers (on the
     current device when none is given)."""
@@ -302,4 +346,5 @@ def launch(name: str, *args) -> None:
 
 
 __all__ = ["build", "library", "launch", "constant_table",
-           "constant_table_ints", "source_hash", "build_log"]
+           "constant_table_ints", "comb_table", "comb_table_ints",
+           "source_hash", "build_log"]

@@ -96,6 +96,11 @@ MAX_BUCKET = 1 << 14
 #: never meet a degenerate case only while both stay below 2¹²⁸
 #: (grandine_tpu/tpu/curve.py:604-609)
 SIGN_HALF_BITS = 128
+#: lanes a key of a `batch_pubkey` launch (csrc/sign.cu PUBKEY_LANES): the
+#: fastest at the full bucket of 16,384 keys, the one shape the port
+#: launches at (ladder_timing.py, H100 80GB HBM3 at 700 W: 2 / 4 / 8 lanes
+#: 1.045 / 1.294 / 1.908 ms)
+PUBKEY_LANES = 2
 
 #: |x|, the BLS parameter's magnitude: −ψ acts on G2 as [|x|], and a secret
 #: below r < |x|⁴ has four base-|x| digits (`sign_digits_host`)
@@ -491,8 +496,47 @@ batch_sign.launches = 0
 
 
 def batch_pubkey_plain(k, neg):
-    """Plain version of `batch_pubkey`: the G1 twin of `batch_sign_plain`,
-    the 128-bit dual GLV ladder from the generator with the sign masks."""
+    """Plain version of `batch_pubkey`, in the kernel's steps: the comb
+    table (gpu/_build.py `comb_table`), lane l of PUBKEY_LANES adding its
+    windows of half l // (PUBKEY_LANES / 2) in ascending order by mixed
+    additions under the "started" mask, the lanes in turn as one batch
+    axis, then the lanes' sums added pairwise as the kernel's shuffle tree
+    adds them."""
+    from grandine_tpu_torch.gpu import _build
+
+    n, dev = k.shape[0], k.device
+    lanes = PUBKEY_LANES
+    hl = lanes // 2
+    per = _build.COMB_SHAPE[1] // hl
+    lane = torch.arange(lanes, device=dev)
+    h, j0 = lane // hl, per * (lane % hl)
+    table = L.words_to_limbs(_build.comb_table(dev))  # Montgomery already
+    kh = (k.to(torch.int64) & 0xFFFFFFFF)[:, h]  # (n, lanes, 4)
+    sign = neg[:, h]
+    one = L.one_fp((n, lanes), dev)
+    st = (one, one, torch.zeros_like(one))
+    started = torch.zeros((n, lanes), dtype=torch.bool, device=dev)
+    for s in range(per):
+        j = j0 + s
+        d = (kh[:, lane, j >> 3] >> (4 * (j & 7))) & 15  # (n, lanes)
+        ent = table[h, j][lane, (d - 1).clamp(min=0)]  # (n, lanes, 2, 24)
+        qx, qy = ent[..., 0, :], ent[..., 1, :]
+        qy = L.select(sign, L.neg_mod(qy), qy)
+        bit = d != 0
+        added = C.point_madd_unsafe(st, qx, qy, C.FP_OPS)
+        st = C._sel3(bit, C._sel3(started, added, (qx, qy, one)), st)
+        started = started | bit
+    parts = [tuple(c[:, i] for c in st) for i in range(lanes)]
+    while len(parts) > 1:
+        parts = [C.point_add_complete(parts[i], parts[i + 1], C.FP_OPS)
+                 for i in range(0, len(parts), 2)]
+    return C.jac_to_words(parts[0], 1)
+
+
+def batch_pubkey_glv_plain(k, neg):
+    """The same points as `batch_pubkey` by another computation, kept as
+    a test oracle: the 128-bit dual GLV ladder from the generator with the
+    sign masks (gpu/curve.py scalar_mul_glv, the JAX kernel's steps)."""
     n = k.shape[0]
     dev = k.device
     w = k.to(torch.int64) & 0xFFFFFFFF
@@ -513,17 +557,22 @@ def batch_pubkey(k, neg):
     `batch_pubkey` (csrc/sign.cu) on CUDA tensors, the plain version on
     CPU tensors.
 
-    Replaces grandine_tpu/tpu/bls.py batch_pubkey_kernel (:961) with
-    curve.py scalar_mul_glv on FP_OPS. The G1 twin of `batch_sign`: one
-    thread a key, one warp a block, exactly 128 steps of one doubling and
-    both mixed additions from the fixed base g1 and [λ]g1, the bits and
-    the "started" state choosing by mask selects. Bound: operations — 128
-    doublings (7 Fp products) and popcount(k0) + popcount(k1) ≈ 128 mixed
-    additions (11) of the function, ~2,300 Fp products a key (the
-    branchless ladder computes both candidates, ~3,700), against 178
-    bytes a key; each key is one thread's dependent chain, so the kernel
-    is latency-bound on one ladder, and a full bucket (16,384 keys, 512
-    one-warp blocks) fills the card.
+    Replaces grandine_tpu/tpu/bls.py batch_pubkey_kernel (:961), the dual
+    GLV ladder curve.py scalar_mul_glv on FP_OPS, by a fixed-base comb of
+    the same product: each half is 32 windows of 4 bits, and the table
+    (gpu/_build.py `comb_table`, built once a device) holds [d·16ʲ·λʰ]g1
+    for every half h, window j and digit d, so the key is a sum of 64
+    table entries with no doubling. One warp a block, PUBKEY_LANES (2)
+    lanes a key: each lane adds the 32 windows of one half by mixed
+    additions on `fpc`, reading all 15 entries of a window and choosing
+    by masks (no branch, loop bound or address depends on a digit), then
+    the lanes' sums meet in a shuffle tree of complete additions that
+    select by masks too. Bound: operations — at the function's least work
+    (nonzero digits − 1) mixed additions (11 Fp products) and the output
+    conversion, ~690 Fp products a key, against 178 bytes a key; a full
+    bucket (16,384 keys, 1,024 one-warp blocks, ~7.8 warps an SM) is
+    bound by the schedulers' issue rate, so it takes two lanes, the
+    fewest join levels.
 
     NOTE (as the JAX kernel says): secret scalars live on the card; the
     kernel is branchless on the scalar (fixed trip count, select-based)
@@ -539,7 +588,7 @@ def batch_pubkey(k, neg):
 
     out = torch.empty((n, 3, 12), dtype=torch.int32, device=k.device)
     _build.launch("batch_pubkey", k.contiguous(), neg.contiguous(),
-                  ctypes.c_int(n), out)
+                  ctypes.c_int(n), out, _build.comb_table(k.device))
     batch_pubkey.launches += 1
     return out
 
@@ -2439,6 +2488,7 @@ __all__ = [
     "g2_group_sum", "g2_group_sum_plain", "g2_aggregate_groups",
     "g1_aggregate_groups", "g2_points_from_words", "g1_points_from_words",
     "jacobian_rows", "launch_geometry", "batch_pubkey", "batch_pubkey_plain",
+    "batch_pubkey_glv_plain", "PUBKEY_LANES",
     "g1_normalize", "g1_normalize_plain", "g2_normalize",
     "g2_normalize_plain", "unpack_words", "unpack_words_plain",
     "multi_verify_kernel", "grouped_multi_verify_kernel",

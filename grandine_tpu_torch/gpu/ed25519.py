@@ -26,7 +26,8 @@ the card evaluates ONE multi-scalar multiplication
 
 as a 253-step MSB-first ladder per row, a sum tree (stride n/2 first, the
 result in row 0), three unified doublings ([8]T) and the identity test
-X ≡ 0 ∧ Y ≡ Z: `ed25519_verify`, one launch (csrc/ed25519.cu). Reducing
+X ≡ 0 ∧ Y ≡ Z: `ed25519_verify`, one call (csrc/ed25519.cu: a ladder
+kernel, four lanes a row, and a tree kernel). Reducing
 zᵢkᵢ mod L is sound only because the ×8 follows the sum; the host twin
 (crypto/ed25519.py) is cofactored for the same reason.
 """
@@ -238,16 +239,21 @@ def ed25519_verify(px, py, pt, k):
     on CPU tensors.
 
     Replaces the JAX program ed25519_verify (grandine_tpu/tpu/ed25519.py:298
-    `verify_kernel`). One block a batch, one thread a row: each thread
-    runs its row's ladder (253 doublings, an addition at each set bit —
-    the scalars are public RLC values, so the ladder branches on them),
-    the block sums the rows in the JAX tree's order through shared memory,
-    and thread 0 clears the cofactor and tests for the identity. Bound:
-    operations — about 3,400 field products a row of 145 32-bit multiplies
-    each, against 128 bytes in and 128 out a row; each row is one thread's
-    dependent chain, so the kernel is latency-bound on one ladder plus the
-    log₂B tree levels. Several threads a ladder, a fixed-base table for
-    [c_B]B and a Straus/Pippenger MSM are the queued speed-ups."""
+    `verify_kernel`). Two kernels on one stream. The ladders: one warp a
+    block, one row a warp on four lanes. The scalars are public RLC
+    values, so each row's ladder branches on its own bits (253 doublings,
+    an addition of the base at each set bit), and a row's unified
+    addition spreads its products over the four lanes: a doubling is
+    three product latencies (round 1: a, b, z₁z₂, t₁t₂; round 2: c =
+    2d·t₁t₂; round 3: X, Y, Z, T), an addition of the base two (t·2d
+    precomputed once a row). The tree: one block of B/2 four-lane groups
+    sums the rows in the JAX tree's order through shared memory, then
+    group 0 clears the cofactor and tests for the identity. Bound:
+    operations — about 3,400 field products a row of 145 32-bit
+    multiplies each, against 128 bytes in and 128 out a row; each row is
+    a chain of ~1,040 product latencies on its group, so the kernel is
+    latency-bound on one ladder plus the log₂B tree levels, with the rows
+    over B SMs. The launch counts once for both kernels."""
     n = px.shape[0]
     if n not in BUCKETS or any(a.shape != (n, NWORDS) or a.dtype != torch.int32
                                for a in (px, py, pt, k)):

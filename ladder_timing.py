@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Time `batch_sign`, `g1_scalar_mul`, `miller_loop_pairs` and
-`aggregate_rlc_scale` of one or more checkouts of the port on one card, in
-turns, at the shapes of their paths.
+"""Time `batch_sign`, `g1_scalar_mul`, `miller_loop_pairs`,
+`aggregate_rlc_scale`, `ed25519_verify` and `batch_pubkey` of one or more
+checkouts of the port on one card, in turns, at the shapes of their paths.
 
     python3 ladder_timing.py TREE [TREE ...]   # parent change change parent
 
 Each TREE (a directory holding `grandine_tpu_torch/`) runs in a process of
 its own, in the order given. The process builds only csrc/sign.cu,
-csrc/kzg.cu, csrc/pairing.cu and csrc/aggregate.cu (nvcc, the tree's own
-flags), prints ptxas' lines for their kernels (registers, stack frame,
-spills, cumulative stack), and times by CUDA events, after one warm-up
-launch, --reps launches of
+csrc/kzg.cu, csrc/pairing.cu, csrc/aggregate.cu and csrc/ed25519.cu
+(nvcc, the tree's own flags), prints ptxas' lines for their kernels
+(registers, stack frame, spills, cumulative stack), and times by CUDA
+events, after one warm-up launch, --reps launches of
 
   batch_sign at 512 rows (the signing plane's lane batch), 2,048, 4,096,
   8,192 and 16,384 (a full bucket): H(m) of 8 seeded messages tiled,
@@ -22,12 +22,18 @@ launch, --reps launches of
   slot), 1,048 (the window) and 2,048: 64 seeded Jacobian multiples of
   G1 (Z ≠ 1) and H(m) of the 8 messages, tiled;
   aggregate_rlc_scale at the gossip slot's 192 aggregates of 87–130
-  members gathered from 4,096 seeded keys (testing/pairing_rows.py).
+  members gathered from 4,096 seeded keys (testing/pairing_rows.py);
+  ed25519_verify at B = 8, 32 and 128 on rows shaped as the ed25519
+  lane's (Ed25519Backend.prepare): the base point under a 253-bit
+  scalar, (B − 1) // 2 seeded points under 128-bit z and as many under
+  253-bit z·k, identity pads with scalar 0;
+  batch_pubkey at 512, 4,096 and 16,384 (a full bucket) seeded keys.
 
 batch_sign is timed at each lane count `sign_lanes` chooses between (4,
-2 and 1 lanes a signature), and each geometry, and g1_scalar_mul, is held
-against its plain version on 40 rows, miller_loop_pairs on 40 pairs and
-aggregate_rlc_scale on its 192 aggregates, exactly. Prints the card's name and
+2 and 1 lanes a signature); each geometry, and g1_scalar_mul, is held
+against its plain version on 40 rows, miller_loop_pairs on 40 pairs,
+aggregate_rlc_scale on its 192 aggregates, ed25519_verify on the B = 128
+rows and batch_pubkey on 40 keys, exactly. Prints the card's name and
 power limit, one line a timing and one JSON line a tree. Needs a card.
 """
 
@@ -46,7 +52,9 @@ import sys
 SIGN_ROWS = (512, 2048, 4096, 8192, 16384)
 KZG_ROWS = (1, 32, 4096)
 MILLER_PAIRS = (4, 192, 1048, 2048)
-SOURCES = ("sign.cu", "kzg.cu", "pairing.cu", "aggregate.cu")
+ED_ROWS = (8, 32, 128)
+PUBKEY_KEYS = (512, 4096, 16384)
+SOURCES = ("sign.cu", "kzg.cu", "pairing.cu", "aggregate.cu", "ed25519.cu")
 CHECK_ROWS = 40
 
 
@@ -147,7 +155,47 @@ def worker(tree: str, reps: int, seed: int) -> dict:
         PR.gossip_cases(seed), seed, 4096))
     rows.append({"kernel": "aggregate_rlc_scale", "rows": agg[2].shape[0],
                  "ms": cuda_ms(lambda: B.aggregate_rlc_scale(*agg))})
+    from grandine_tpu_torch.crypto import ed25519 as HE
+    from grandine_tpu_torch.gpu import ed25519 as E
+
+    def ed_args(b):
+        """Rows shaped as Ed25519Backend.prepare's: [c_B]B, [z](−R),
+        [z·k](−A), identity pads."""
+        n = (b - 1) // 2
+        pts = [HE.BASE] + [HE.point_mul(rng.randrange(1, HE.L), HE.BASE)
+                           for _ in range(2 * n)]
+        aff = []
+        for p in pts:
+            zi = pow(p[2], HE.P - 2, HE.P)
+            aff.append((p[0] * zi % HE.P, p[1] * zi % HE.P))
+        aff += [(0, 1)] * (b - len(aff))
+        ks = ([rng.randrange(HE.L)] + [rng.getrandbits(128) | 1
+                                       for _ in range(n)]
+              + [rng.randrange(HE.L) for _ in range(n)])
+        ks += [0] * (b - len(ks))
+        return tuple(torch.from_numpy(E.ints_to_words(v)).to(dev) for v in (
+            [x for x, _ in aff], [y for _, y in aff],
+            [x * y % HE.P for x, y in aff], ks))
+
+    for b in ED_ROWS:
+        args = ed_args(b)
+        rows.append({"kernel": "ed25519_verify", "rows": b,
+                     "ms": cuda_ms(lambda: E.ed25519_verify(*args))})
+    for n in PUBKEY_KEYS:
+        args = tuple(torch.from_numpy(a).to(dev) for a in B.sign_scalars_host(
+            [rng.randrange(1, R) for _ in range(n)]))
+        rows.append({"kernel": "batch_pubkey", "rows": n,
+                     "ms": cuda_ms(lambda: B.batch_pubkey(*args))})
     # every geometry against its plain version, exactly
+    args = ed_args(128)
+    checks.append(("ed25519_verify", {}, all(
+        torch.equal(g, x) for g, x in zip(E.ed25519_verify(*args),
+                                          E.ed25519_verify_plain(*args)))))
+    args = tuple(torch.from_numpy(a).to(dev) for a in B.sign_scalars_host(
+        [1, R - 1, R - 2] + [rng.randrange(1, R)
+                             for _ in range(CHECK_ROWS - 3)]))
+    checks.append(("batch_pubkey", {}, torch.equal(
+        B.batch_pubkey(*args), B.batch_pubkey_plain(*args))))
     args = sign_args(CHECK_ROWS)
     args[1][[3, 17]] = True
     for lanes in (4, 2, 1):

@@ -793,6 +793,19 @@ def test_batch_pubkey_matches_plain(cuda_device):
     assert B.batch_pubkey.launches == before + 1
 
 
+def test_batch_pubkey_comb_edges_match_plain(cuda_device):
+    """The comb's edge halves (testing/pubkey_rows.py: a zero half, a
+    lane summing to ∞, a join that doubles and one that gives ∞, all-15
+    digits)."""
+    from grandine_tpu_torch.testing import pubkey_rows as PKR
+
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in PKR.halves_operands(PKR.COMB_EDGES))
+    got = B.batch_pubkey(*args)
+    _equal((got,), (B.batch_pubkey_plain(*args),))
+    assert got[PKR.COMB_INF_ROW, 2].abs().sum().item() == 0  # λ·g1 − λ·g1
+
+
 def _normalize_rows(k, dev):
     """Jacobian rows with Z ≠ 1 (ladder outputs), an ∞ row, Z = 1 and
     Z = −1 (X, −Y, −1) of one point."""

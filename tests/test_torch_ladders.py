@@ -1,8 +1,9 @@
-"""The lane-split ladders on the CPU: csrc/sign.cu (`batch_sign`),
-csrc/kzg.cu (`g1_scalar_mul`) and csrc/aggregate.cu
-(`aggregate_rlc_scale`) compiled as plain C++, a row's lanes (or a
-block's threads and warps) run in turn and the warp's shuffle tree
-emulated, against the port's plain versions, exact (canonical words).
+"""The lane-split ladders on the CPU: csrc/sign.cu (`batch_sign`,
+`batch_pubkey`), csrc/kzg.cu (`g1_scalar_mul`), csrc/aggregate.cu
+(`aggregate_rlc_scale`) and csrc/ed25519.cu (`ed25519_verify`) compiled
+as plain C++, a row's lanes (or a block's threads and warps) run in turn
+and the warp's shuffles emulated, against the port's plain versions,
+exact (canonical words).
 
 - `batch_sign` at one, two and four lanes a signature: sk = 1, |x| − 1, |x|,
   |x|², |x|³, r − 2, r − 1, keys with zero digits, a seeded key and an ∞
@@ -17,6 +18,14 @@ emulated, against the port's plain versions, exact (canonical words).
   r0 = 0, r1 = 0, r = 1, halves 0xFFFFFFFF, an aggregate summing to ∞,
   the same key twice, one member, 130 members, masked signatures, and
   seeded rows — against `aggregate_rlc_scale_plain`.
+- `batch_pubkey`'s comb at its two lanes a key: sk = 1, r − 1, r − 2;
+  seeded keys; a zero half (a lane's sum ∞), halves below 2⁶⁴, halves of
+  all-15 digits, halves (λ, 1) with equal signs (the join doubles) and
+  opposite signs (the join gives ∞) — against `batch_pubkey_plain`.
+- `ed25519_verify`'s four-lane unified addition (a doubling, a general
+  addition, an addition of a row's base) against the plain `ed_add`, and
+  a bucket's ladders, tree and cofactor on chip_smoke's edge rows and on
+  seeded rows against `ed25519_verify_plain`.
 
 The harness builds with g++ into the git-ignored csrc/build/; without g++
 the tests skip (decided in the fixture).
@@ -33,22 +42,80 @@ import numpy as np
 import pytest
 import torch
 
+from grandine_tpu_torch.crypto import ed25519 as HE
 from grandine_tpu_torch.crypto.constants import DST_SIGNATURE, R, X
 from grandine_tpu_torch.crypto.curves import G1, g1_infinity
 from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
 from grandine_tpu_torch.gpu import _build
 from grandine_tpu_torch.gpu import bls as B
+from grandine_tpu_torch.gpu import ed25519 as E
 from grandine_tpu_torch.gpu import kzg as GK
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.testing import pubkey_rows as PKR
 from grandine_tpu_torch.testing.pairing_rows import (
     AGGREGATE_EDGES, aggregate_rows)
 
 HARNESS = r"""
+#include <string.h>
 #include <vector>
 #include "sign.cu"
 #include "kzg.cu"
 #include "aggregate.cu"
+#include "ed25519.cu"
 extern "C" {
+// batch_pubkey over n keys: each key's lanes in turn, then the shuffle tree
+void ladders_pubkey(const uint32_t* k, const bool* neg, int n, uint32_t* out,
+                    const uint32_t* T, const uint32_t* K) {
+  for (int row = 0; row < n; row++) {
+    jac<fpc> p[PUBKEY_LANES];
+    for (int l = 0; l < PUBKEY_LANES; l++)
+      p[l] = pubkey_lane(k + 8 * row, neg + 2 * row, l, T, K);
+    for (int m = 1; m < PUBKEY_LANES; m <<= 1)
+      for (int l = 0; l < PUBKEY_LANES; l += 2 * m)
+        p[l] = point_add_ct(p[l], p[l + m], K);
+    pubkey_store(out + 36 * row, p[0]);
+  }
+}
+
+// one four-lane unified addition p + q (4 x 8 words each); with base, q is
+// a row's base (x, y, 1, t) and its t is multiplied by 2d first, as
+// ladder_row does
+void ladders_ed_add(const uint32_t* p, const uint32_t* q, int base,
+                    uint32_t* out) {
+  ed::SerialLanes lanes;
+  ed::point a, b;
+  memcpy(&a, p, sizeof a);
+  memcpy(&b, q, sizeof b);
+  if (base) {
+    const ed::fe k2d = {ED_K2D};
+    b.t = ed::fe_mul(b.t, k2d);
+    ed::ed_add_lanes<true>(a, b, lanes);
+  } else {
+    ed::ed_add_lanes<false>(a, b, lanes);
+  }
+  memcpy(out, &a, sizeof a);
+}
+
+// ed25519_verify over a bucket of n rows: each row's ladder (its group's
+// four lanes in turn), then the tree kernel's levels and group 0's
+// cofactor and identity test
+void ladders_ed25519(const uint32_t* px, const uint32_t* py,
+                     const uint32_t* pt, const uint32_t* k, int n,
+                     bool* verdict, uint32_t* rows, uint32_t* total) {
+  ed::SerialLanes lanes;
+  std::vector<ed::point> sh(n);
+  for (int i = 0; i < n; i++) {
+    sh[i] = ed::ladder_row(px + 8 * i, py + 8 * i, pt + 8 * i, k + 8 * i,
+                           lanes);
+    memcpy(rows + 32 * i, &sh[i], sizeof sh[i]);
+  }
+  for (int s = n >> 1; s > 0; s >>= 1)
+    for (int g = 0; g < s; g++)
+      ed::ed_add_lanes<false>(sh[g], sh[g + s], lanes);
+  verdict[0] = ed::cofactor_identity(sh[0], lanes);
+  memcpy(total, &sh[0], sizeof sh[0]);
+}
+
 // aggregate_rlc_scale over m aggregates: each block's threads, lanes and
 // warps in turn
 void ladders_aggregate(const uint32_t* src_x, const uint32_t* src_y,
@@ -103,7 +170,7 @@ void ladders_split(const uint32_t* k, int n, uint32_t* out) {
 """
 
 FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-I", _build.CSRC]
-SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu")
+SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu", "ed25519.cu")
 ABS_X = -X
 X2 = X * X
 rng = random.Random(0x1AD)
@@ -267,3 +334,92 @@ def test_aggregate_lanes_equal_plain(lib, rows):
     if rows == "edges":
         assert agg_inf.tolist() == [i in (4, 8) for i in range(m)]
         assert not rsig[7, 2].any() and not rsig[8, 2].any()  # masked
+
+
+# --- batch_pubkey: the comb --------------------------------------------------
+
+
+def _pubkey_rows(kind):
+    """The ends sk = 1, r − 1, r − 2; four seeded keys; or the comb's
+    edge halves (testing/pubkey_rows.py, row COMB_INF_ROW sums to ∞)."""
+    if kind == "edges":
+        return PKR.halves_operands(PKR.COMB_EDGES)
+    seeded = random.Random(0x9B)
+    return B.sign_scalars_host(
+        [1, R - 1, R - 2] if kind == "ends"
+        else [seeded.randrange(1, R) for _ in range(4)])
+
+
+@pytest.mark.parametrize("kind", ["ends", "seeded", "edges"])
+def test_pubkey_comb_lanes_equal_plain(lib, kind):
+    k, neg = _pubkey_rows(kind)
+    n = k.shape[0]
+    table = np.ascontiguousarray(_build.comb_table("cpu").numpy())
+    out = np.zeros((n, 3, 12), np.uint32)
+    lib.ladders_pubkey(_ptr(k), _ptr(neg), n, _ptr(out), _ptr(table),
+                       _ptr(K))
+    want = B.batch_pubkey_plain(torch.from_numpy(k), torch.from_numpy(neg))
+    assert np.array_equal(out.view(np.int32), want.numpy())
+    # only the edge row λ·g1 − λ·g1 is ∞
+    inf = np.arange(n) == (PKR.COMB_INF_ROW if kind == "edges" else -1)
+    assert not out[inf, 2].any()
+    assert out[~inf, 2].any(-1).all()
+
+
+# --- ed25519_verify: four lanes a row ----------------------------------------
+
+
+def _ed_affine(p):
+    zinv = pow(p[2], HE.P - 2, HE.P)
+    return p[0] * zinv % HE.P, p[1] * zinv % HE.P
+
+
+def _ed_rows(kind):
+    """A bucket of 8 rows: chip_smoke's edge rows (zero scalars, k = 1,
+    2²⁵³ − 1, L − 1, 8; the identity, the order-2 point, x = 0 negated,
+    the base point, a torsion-carrying R) or seeded ones."""
+    if kind == "edges":
+        r_t = HE.point_add(HE.point_mul(rng.randrange(1, HE.L), HE.BASE),
+                           HE.ORDER2)
+        pts = [(0, 1), _ed_affine(HE.ORDER2), _ed_affine(HE.BASE),
+               (0, HE.P - 1), _ed_affine(r_t), _ed_affine(HE.BASE),
+               _ed_affine(HE.point_neg(r_t)), (0, 1)]
+        ks = [0, 1, (1 << 253) - 1, HE.L - 1, rng.getrandbits(128),
+              HE.L - 1, 8, 0]
+    else:
+        pts = [_ed_affine(HE.point_mul(rng.randrange(1, HE.L), HE.BASE))
+               for _ in range(8)]
+        ks = [rng.getrandbits(253) for _ in range(8)]
+    return tuple(E.ints_to_words(v) for v in (
+        [x for x, _ in pts], [y for _, y in pts],
+        [x * y % HE.P for x, y in pts], ks))
+
+
+def test_ed25519_add_lanes_equal_plain(lib):
+    """A doubling, a general addition and an addition of a base (Z = 1)
+    on four lanes, against the plain `ed_add`, word for word."""
+    pts = [HE.point_mul(rng.randrange(1, HE.L), HE.BASE) for _ in range(2)]
+    a = [tuple(c) for c in pts]
+    base = _ed_affine(HE.point_mul(rng.randrange(1, HE.L), HE.BASE))
+    b = (base[0], base[1], 1, base[0] * base[1] % HE.P)
+    for p, q, is_base in ((a[0], a[0], 0), (a[0], a[1], 0), (a[1], b, 1)):
+        pw, qw = E.ints_to_words(p), E.ints_to_words(q)
+        out = np.zeros((4, 8), np.int32)
+        lib.ladders_ed_add(_ptr(pw), _ptr(qw), is_base, _ptr(out))
+        want = E.ed_add(E.words_to_limbs(torch.from_numpy(pw)),
+                        E.words_to_limbs(torch.from_numpy(qw)))
+        assert np.array_equal(out, E.limbs_to_words(want).numpy())
+
+
+@pytest.mark.parametrize("kind", ["edges", "seeded"])
+def test_ed25519_lanes_equal_plain(lib, kind):
+    args = _ed_rows(kind)
+    verdict = np.zeros(1, bool)
+    rows = np.zeros((8, 4, 8), np.int32)
+    total = np.zeros((4, 8), np.int32)
+    lib.ladders_ed25519(*(_ptr(a) for a in args), 8, _ptr(verdict),
+                         _ptr(rows), _ptr(total))
+    want = E.ed25519_verify_plain(*(torch.from_numpy(a) for a in args))
+    assert verdict.tolist() == want[0].tolist()
+    assert np.array_equal(rows, want[1].numpy())
+    assert np.array_equal(total, want[2].numpy())

@@ -3,7 +3,10 @@
 `g1_normalize_plain`, compressed, equals the JAX host anchor's
 `SecretKey.public_key()` byte for byte on the edge scalars (1, 2, r − 1,
 r − 2, λ and its neighbours, seeded ones, both sign masks on each half);
-and — marked kernel and slow — the plain version against the JAX program
+the comb (`batch_pubkey_plain`) against the dual GLV ladder it replaced
+(`batch_pubkey_glv_plain`), the same affine points and both the host
+anchor's keys; and — marked kernel and slow — the plain version against
+the JAX program
 batch_pubkey_kernel jitted on the CPU with the same halves. Every
 comparison is exact (bytes, canonical ints)."""
 
@@ -56,6 +59,17 @@ def test_batch_pubkey_plain_matches_jax_public_keys():
     assert not inf.any()
     assert _compressed(xy, inf) == [JA.SecretKey(s).public_key().to_bytes()
                                     for s in SCALARS]
+
+
+def test_comb_equals_the_glv_ladder_and_the_anchor():
+    k, neg = (torch.from_numpy(a) for a in B.sign_scalars_host(SCALARS))
+    comb = B.g1_normalize_plain(B.batch_pubkey_plain(k, neg))
+    ladder = B.g1_normalize_plain(B.batch_pubkey_glv_plain(k, neg))
+    assert torch.equal(comb[0], ladder[0])
+    assert not comb[1].any() and not ladder[1].any()
+    want = [JA.SecretKey(s).public_key().to_bytes() for s in SCALARS]
+    assert _compressed(*comb) == _compressed(*ladder) == want
+    assert [PA.SecretKey(s).public_key().to_bytes() for s in SCALARS] == want
 
 
 def test_batch_pubkey_rejects_wrong_operands():
