@@ -21,7 +21,8 @@ Phases (any failure raises and exits non-zero):
      launch equal to
      the plain version, with each shape's geometry and CUDA-event time;
      ptxas' stack need and registers of the pairing, aggregate, ladder,
-     comb and Ed25519 kernels against STACK_CEILING, and the warp rounds
+     comb, Ed25519 and multi.cu kernels against STACK_CEILING (multi.cu's
+     four entries each on a line with their spills), and the warp rounds
      of a group's tail and of a pair's Miller loop;
   3. the main path at real size: a 50,000-validator registry ingested on
      the card, then one slot of gossip aggregates (12 committees × 16
@@ -37,7 +38,13 @@ Phases (any failure raises and exits non-zero):
      SignatureInvalid at host decompression — and the same sets through
      multi_verify_compressed (outside G2 → False) and multi_verify_indexed;
      the new kernels against their plain versions on edge rows (∞ and
-     non-G2 rows, registry rows 0 and 49,999, N = 1);
+     non-G2 rows, registry rows 0 and 49,999, N = 1); multi_rlc_scale on
+     its edge sets (r0 = 0, r1 = 0, r = 1, r = 0, halves 0xFFFFFFFF, a
+     masked signature, one key in three sets), and both group sums on
+     their plan edges (testing/group_rows.py: empty
+     and all-∞ groups, one row, GROUP_CHUNK rows and one more, a group
+     spanning two passes, P and −P, a doubling, groups of 4), each with
+     its launch geometry;
   5. a replay window of 8 such blocks (1,048 sets) through
      runtime.replay.dispatch_window (g2_subgroup_check_batch_async +
      multi_verify_async): valid → True, a forged set in block 5 or a
@@ -206,9 +213,15 @@ Phases (any failure raises and exits non-zero):
      PyTorch computation gives the same function, that one's;
      end-to-end p50 of the gossip batch, the block and the window with
      the hash-to-G2 cache warm and cold, host prep kept apart from
-     device time; then every miller_loop_pairs and aggregate_rlc_scale
-     launch of phases 3-14 (the timing table's aside, checked there),
-     recorded as it ran, against batched plain calls.
+     device time; then every miller_loop_pairs, aggregate_rlc_scale,
+     multi_rlc_scale, g1_group_sum and g2_group_sum launch of phases 3-14,
+     recorded as it ran, against batched plain calls (sets stacked; groups
+     stacked with their offsets shifted) — the timing table's own launches
+     are checked in the table, or there at a kernel's later shapes; the
+     full bucket's batch_sign launch gives again the words of its phase-7
+     launch on the same operands, held there against the plain version.
+     The edge sets of phase 4, the timing table and these checks each log
+     their seconds.
 Prints the card's name and power limit, one `kernels` JSON line, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -262,6 +275,9 @@ HBM_BYTES_PER_S = 3.35e12
 GROUPED_LAUNCHES = {"msm_lane_scan": 2, "msm_bucket_reduce": 2,
                     "msm_horner": 2, "g2_subgroup_check": 1,
                     "miller_loop_pairs": 1, "rlc_finish": 1}
+#: csrc/multi.cu's kernels as ptxas names them (phase 1's lines)
+MULTI_KERNELS = ("multi_rlc_scale_kernelILi0E", "multi_rlc_scale_kernelILi1E",
+                 "group_sum_lanes_kernel", "group_sum_warps_kernel")
 #: the per-thread stack ceiling: no kernel's ptxas stack need may pass it
 #: (the limit the build sets is the deepest need rounded up to 1 KiB;
 #: 5,120 B since rlc_finish's warp tail, 264 MiB of device memory per KiB)
@@ -273,7 +289,11 @@ MILLER_EDGE = (1, 32, 33, 192, 1048, 2048)
 #: rows a batched plain call of the pairing launch checks takes at most
 #: (Miller pairs, aggregates), and the narrowest gather width the
 #: aggregates are padded to (a plain call costs ~5 s whatever its size)
-PLAIN_CHUNK_PAIRS, PLAIN_CHUNK_AGGS, PLAIN_AGG_WIDTH = 32768, 4096, 130
+PLAIN_CHUNK_PAIRS, PLAIN_CHUNK_AGGS, PLAIN_AGG_WIDTH = 32768, 2048, 130
+#: sets a batched plain call of the multi_rlc_scale launch checks takes at
+#: most (16,384 sets took ~5.6 s a call; the plain version holds ~0.4 MB a
+#: set at its peak), and rows a batched plain call of the group-sum checks
+PLAIN_CHUNK_SETS, PLAIN_CHUNK_ROWS = 32768, 65536
 #: 32-bit integer multiply / multiply-add results per clock per SM for
 #: compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 #: instruction throughput table)
@@ -345,12 +365,34 @@ def slot_committees(rng, n):
     return [slot[i::count] for i in range(count)]
 
 
+def sign_root(job):
+    """[k]·H(root) as compressed signature bytes, for job (root, k)."""
+    from grandine_tpu_torch.crypto import bls as A
+    from grandine_tpu_torch.crypto.constants import DST_SIGNATURE
+    from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
+
+    root, k = job
+    return A.g2_to_bytes(hash_to_g2(root, DST_SIGNATURE).mul(k))
+
+
+def sign_roots(jobs):
+    """sign_root over jobs on the host's cores: set-up of the window's
+    blocks (~70 ms of Python a signature), in spawned processes that the
+    pool stops before this returns."""
+    import multiprocessing
+
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        return pool.map(sign_root, jobs, chunksize=16)
+
+
 def make_block(rng, n, sks, R, sign):
     """One block's signature sets as (signing root, signer indices,
     signature): 128 attestation aggregates of 87–130 members, each over
     its own attestation data root; the proposer's block signature and
     RANDAO reveal; a 512-member sync aggregate. Signer indices avoid the
-    last key (r − sk₀)."""
+    last key (r − sk₀). `sign` maps [(root, k), …] to the signatures'
+    bytes."""
     sets = []
     for _ in range(ATTESTATIONS_PER_BLOCK):
         sets.append((rng.randbytes(32),
@@ -359,8 +401,8 @@ def make_block(rng, n, sks, R, sign):
     sets += [(rng.randbytes(32), [proposer]), (rng.randbytes(32), [proposer]),
              (rng.randbytes(32),
               sorted(rng.sample(range(n - 1), SYNC_COMMITTEE_SIZE)))]
-    return [(root, mem, sign(root, sum(sks[i] for i in mem) % R))
-            for root, mem in sets]
+    sigs = sign([(root, sum(sks[i] for i in mem) % R) for root, mem in sets])
+    return [(root, mem, sig) for (root, mem), sig in zip(sets, sigs)]
 
 
 # --- the bound of each kernel (operation counts at this run's shapes) ----
@@ -763,6 +805,107 @@ def check_pairing_launches(torch, B, TP, recs, same, dev):
             f"aggregates, in {time.perf_counter() - t0:.1f} s")
 
 
+def multi_operands(src_x, src_y, idx, sig_x, sig_y, sig_mask, r01):
+    """A Recorder's `operands` for multi_rlc_scale: each set's key row
+    gathered and cloned, the rest cloned."""
+    rows = idx.long()
+    return (src_x[rows].clone(), src_y[rows].clone(), sig_x.clone(),
+            sig_y.clone(), sig_mask.clone(), r01.clone())
+
+
+def group_operands(rows, offsets):
+    """A Recorder's `operands` for g1_group_sum / g2_group_sum."""
+    return rows.clone(), [int(v) for v in offsets]
+
+
+def group_geometry(B, k, offsets):
+    """The launches of a g1_group_sum (k = 1) or g2_group_sum (k = 2) call
+    over `offsets`: its plan's passes, each one launch."""
+    plan = B.group_sum_plan(offsets, B.group_tile(k))
+    geos = [B.launch_geometry(f"g{k}_group_sum", t.shape[0]) for t in plan]
+    # the plan's tile is the kernel's (csrc/multi.cu G2_GROUP_WARPS)
+    if k == 2 and any(g[1] != 32 * B.group_tile(2) for g in geos):
+        fail(f"g2_group_sum: the kernel's tile {geos[0][1]} threads, the "
+             f"plan's {B.group_tile(2)} warps")
+    return "; ".join(
+        f"pass {i + 1}: {t.shape[0]} tiles, geometry (blocks, threads, "
+        f"shared bytes, blocks an SM) {g}"
+        for i, (t, g) in enumerate(zip(plan, geos)))
+
+
+def check_group_launches(torch, B, recs, same, dev):
+    """Every recorded launch of multi_rlc_scale, g1_group_sum and
+    g2_group_sum against the plain version: sets are independent, and a
+    group's sum does not depend on the groups beside it (a group done
+    before the plan's last pass passes its one row through unchanged), so
+    the launches' sets are stacked (at most PLAIN_CHUNK_SETS a plain call)
+    and their groups stacked with the offsets shifted (at most
+    PLAIN_CHUNK_ROWS rows a plain call)."""
+    started = time.perf_counter()
+    for rec in recs:
+        if not rec.calls:
+            fail(f"{rec.name}: no launch recorded")
+        t0 = time.perf_counter()
+        if rec.name == "multi_rlc_scale":
+            ins = [torch.cat([a[i].to(dev) for a, _ in rec.calls])
+                   for i in range(6)]
+            outs = [torch.cat([o[i].to(dev) for _, o in rec.calls])
+                    for i in range(2)]
+            n, step = outs[0].shape[0], PLAIN_CHUNK_SETS
+            for c0 in range(0, n, step):
+                mx, my, gx, gy, mask, r01 = (a[c0:c0 + step] for a in ins)
+                idx = torch.arange(mx.shape[0], dtype=torch.int32,
+                                   device=dev)
+                same(rec.name, tuple(o[c0:c0 + step] for o in outs),
+                     B.multi_rlc_scale_plain(mx, my, idx, gx, gy, mask, r01),
+                     f"every launch of phases 3-14: {len(rec.calls)} "
+                     f"launches, sets {c0}-{min(n, c0 + step) - 1} of {n}")
+            log(f"check {rec.name}: {len(rec.calls)} launches, {n} sets, in "
+                f"{time.perf_counter() - t0:.1f} s")
+            continue
+        plain = getattr(B, rec.name + "_plain")
+        batches, cur = [], []
+        for call in rec.calls:
+            if cur and sum(c[0][0].shape[0] for c in cur) + \
+                    call[0][0].shape[0] > PLAIN_CHUNK_ROWS:
+                batches.append(cur)
+                cur = []
+            cur.append(call)
+        batches.append(cur)
+        groups = 0
+        for calls in batches:
+            rows = torch.cat([r.to(dev) for (r, _), _ in calls])
+            off, base = [0], 0
+            for (r, o), _ in calls:
+                off += [base + v for v in o[1:]]
+                base += r.shape[0]
+            got = torch.cat([out.to(dev) for _, out in calls])
+            groups += got.shape[0]
+            same(rec.name, got, plain(rows, off),
+                 f"every launch of phases 3-14: {len(calls)} launches "
+                 f"stacked, {rows.shape[0]} rows in {got.shape[0]} groups")
+        log(f"check {rec.name}: {len(rec.calls)} launches, {groups} groups, "
+            f"in {time.perf_counter() - t0:.1f} s")
+    log(f"check_group_launches: {time.perf_counter() - started:.1f} s")
+
+
+def kernel_spills(log, name):
+    """(spill store bytes, spill load bytes) of the entries whose names
+    hold `name`, summed, from a build log; None when none matches."""
+    entry, found = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            found[entry] = (int(m.group(1)), int(m.group(2)))
+    hits = [v for k, v in found.items() if name in k]
+    return (sum(v[0] for v in hits), sum(v[1] for v in hits)) if hits \
+        else None
+
+
 def kernel_ptxas(log, name):
     """(registers, cumulative stack bytes) of the entry whose name holds
     `name`, from a build log; ptxas prints no stack for an entry that
@@ -810,14 +953,25 @@ def progression_points(h, a, d, indices, R):
     return out
 
 
+class HeldLaunch(SimpleNamespace):
+    """A timing row's stand-in for its plain call: `words`, the result of
+    a launch on the row's operands that its phase already held against
+    the plain version (`where`), so the row's launch must give them
+    again. Only for a later shape of a kernel (its kernels-line entry
+    timed at an earlier row)."""
+
+
 class Recorder:
     """Stands in for a kernel wrapper of gpu/bls.py while a `with` block
     runs (the backend looks its wrappers up as module globals at call
     time) and keeps each call as (its operands normalised by `operands`,
-    its result). The launch count stays the wrapped function's."""
+    its result, normalised by `result` when given: a copy, where the
+    caller writes into the result). The launch count stays the wrapped
+    function's."""
 
-    def __init__(self, module, name, operands):
+    def __init__(self, module, name, operands, result=None):
         self.module, self.name, self.operands = module, name, operands
+        self.result = result
         self.fn = getattr(module, name)
         self.calls = []
 
@@ -826,7 +980,8 @@ class Recorder:
 
     def __call__(self, *args, **kwargs):
         out = self.fn(*args, **kwargs)
-        self.calls.append((self.operands(*args, **kwargs), out))
+        self.calls.append((self.operands(*args, **kwargs),
+                           out if self.result is None else self.result(out)))
         return out
 
     def __enter__(self):
@@ -1097,6 +1252,8 @@ def signing_phase(c):
     def geometry(name, n):
         if dev.type != "cuda":
             return "geometry not measured (no card)"
+        if name.endswith("group_sum"):  # n: the offsets
+            return group_geometry(B, 1 + name.startswith("g2"), n)
         blocks, threads, smem, per_sm = B.launch_geometry(name, n)
         waves = -(-blocks // (per_sm * c.sms)) if per_sm else 0
         lanes = (f"{B.sign_lanes(n)} lanes a signature, "
@@ -1307,7 +1464,7 @@ def signing_phase(c):
         log(f"aggregate construction, {where}: {len(grp)} groups of "
             f"{min(map(len, grp))}-{max(map(len, grp))} equal the host "
             f"aggregates; {secs * 1e3:.1f} ms through the seam = {split}; "
-            f"{name} launch: {geometry(name, len(ops_r[1]) - 1)} {at}")
+            f"{name} launch: {geometry(name, ops_r[1])} {at}")
     log(f"launches of aggregate construction: {json.dumps(agg_launches)}")
     if agg_launches["g2_group_sum"] != 2 or agg_launches["g1_group_sum"] != 1:
         fail(f"aggregate construction launches {agg_launches}")
@@ -1396,7 +1553,10 @@ def signing_phase(c):
             f"{at}")
         rows.append((
             "batch_sign", where, lambda a=ops_s: B.batch_sign(*a),
-            lambda a=ops_s: B.batch_sign_plain(*a), 3,
+            HeldLaunch(words=full_rec.calls[0][1],
+                       where="the phases 7-9 check of every batch_sign "
+                       "launch") if ops_s is not lane_ops
+            else (lambda a=ops_s: B.batch_sign_plain(*a)), 3,
             c.ops.sign(d_s, live_s),
             n * 513, "grandine_tpu/tpu/bls.py:896", n_l, "batch_sign"))
     for (where, (_, grp, _)), (ops_r, _) in zip(agg_rows.items(),
@@ -3709,6 +3869,7 @@ def main() -> None:
     from grandine_tpu_torch.gpu import pairing as TP
     from grandine_tpu_torch.gpu import spans as GS
     from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
+    from grandine_tpu_torch.testing import group_rows as GR
     from grandine_tpu_torch.testing import pairing_rows as PR
     from grandine_tpu_torch.consensus.verifier import (
         SignatureInvalid, TorchVerifier)
@@ -3788,10 +3949,18 @@ def main() -> None:
                                  "batch_pubkey_kernel")),
                        ("kzg", ("g1_scalar_mul_kernel",)),
                        ("ed25519", ("ed25519_ladder_kernel",
-                                    "ed25519_tree_kernel"))):
+                                    "ed25519_tree_kernel")),
+                       ("multi", MULTI_KERNELS)):
         with open(os.path.join(_build.BUILD_DIR, f"lib{lib}.so.log")) as fh:
             blog = fh.read()
         needs.update({k: kernel_ptxas(blog, k) for k in names})
+        if lib == "multi":
+            for k in names:
+                regs, stack = needs[k] or (None, None)
+                spills = kernel_spills(blog, k)
+                log(f"ptxas {k}: {regs} registers, {stack} B cumulative "
+                    f"stack (ceiling {STACK_CEILING} B), spill stores / "
+                    f"loads {spills} B")
     if None in needs.values():
         fail("a kernel's entry is missing from its ptxas log")
     log("ptxas stack: " + ", ".join(f"{k} {v[1]} B ({v[0]} registers)"
@@ -3965,7 +4134,13 @@ def main() -> None:
     # recorded and held against the plain version at the end
     pair_recs = [Recorder(TP, "miller_loop_pairs", miller_operands),
                  Recorder(B, "aggregate_rlc_scale", aggregate_operands)]
-    for r in pair_recs:
+    # copies of the results: the grouped program zeroes rpk's Z of its ∞
+    # members after the launch
+    group_recs = [Recorder(B, "multi_rlc_scale", multi_operands,
+                           lambda out: tuple(t.clone() for t in out)),
+                  Recorder(B, "g1_group_sum", group_operands, torch.clone),
+                  Recorder(B, "g2_group_sum", group_operands, torch.clone)]
+    for r in pair_recs + group_recs:
         r.__enter__()
     backend = B.TorchBlsBackend()
     registry = DevicePubkeyRegistry()
@@ -4056,9 +4231,7 @@ def main() -> None:
     # 4. the block-verify path ------------------------------------------------
     brng = random.Random(20261019)
     t0 = time.perf_counter()
-    blocks = [make_block(brng, N_VALIDATORS, sks, R,
-                         lambda m, k: A.g2_to_bytes(
-                             hash_to_g2(m, DST_SIGNATURE).mul(k)))
+    blocks = [make_block(brng, N_VALIDATORS, sks, R, sign_roots)
               for _ in range(WINDOW_BLOCKS)]
     block = blocks[0]
     # the validators' keys as the state holds them (affine, decompressed
@@ -4207,6 +4380,30 @@ def main() -> None:
     same("g1_group_sum", B.g1_group_sum(rpk8, off_e),
          B.g1_group_sum_plain(rpk8, off_e),
          f"offsets {off_e}: empty groups, 8 rows of multi_rlc_scale")
+    # multi_rlc_scale's edge sets and the group sums' plan edges
+    # (testing/group_rows.py), each with its launch geometry
+    t_edges = time.perf_counter()
+    m_args = tuple(torch.from_numpy(a).to(dev)
+                   for a in GR.multi_rows(GR.MULTI_EDGES, 20261022))
+    same("multi_rlc_scale", B.multi_rlc_scale(*m_args),
+         B.multi_rlc_scale_plain(*m_args), "edge sets: r0 = 0, r1 = 0, "
+         "r = 1, r = 0, halves 0xFFFFFFFF, a masked signature, one key in "
+         "three sets")
+    for n_m in (len(GR.MULTI_EDGES), n_sets, len(blocks) * n_sets):
+        log(f"multi_rlc_scale, {n_m} sets: geometry (blocks, threads, "
+            f"shared bytes, blocks an SM) "
+            f"{B.launch_geometry('multi_rlc_scale', n_m)} {at}")
+    for k in (1, 2):
+        name = f"g{k}_group_sum"
+        rows_g, off_g, names_g = GR.group_rows(k, 20261023 + k,
+                                               B.group_tile(k))
+        rows_g = torch.from_numpy(rows_g).to(dev)
+        same(name, getattr(B, name)(rows_g, off_g),
+             getattr(B, name + "_plain")(rows_g, off_g),
+             f"plan edges: {', '.join(dict.fromkeys(names_g))}")
+        log(f"{name}, plan edges: {group_geometry(B, k, off_g)} {at}")
+    log(f"multi_rlc_scale and group-sum edges: "
+        f"{time.perf_counter() - t_edges:.1f} s")
     e_keys = [[keys[j] for j in members[i]] for i in range(6)]
     e_keys[3] = []
     e_sigs = [A.Signature.from_bytes(sigs[i]) for i in range(6)]
@@ -4691,7 +4888,7 @@ def main() -> None:
              ops.subgroup(sum(live)), n * (96 + 96 + 1 + 1),
              "grandine_tpu/tpu/bls.py:919"),
             ("multi_rlc_scale", where, lambda a=scale: B.multi_rlc_scale(*a),
-             lambda a=scale: B.multi_rlc_scale_plain(*a), 5,
+             partial(B.multi_rlc_scale_plain, *scale), 5,
              ops.multi(fl_pairs, live), n * (4 + 96 + 96 + 1 + 8 + 144 + 288),
              "grandine_tpu/tpu/bls.py:592"),
         ]
@@ -4699,7 +4896,7 @@ def main() -> None:
             timed += [
                 ("miller_loop_pairs", where,
                  lambda a=ml: TP.miller_loop_pairs(*a),
-                 lambda a=ml: TP.miller_loop_pairs_plain(*a), 5,
+                 partial(TP.miller_loop_pairs_plain, *ml), 5,
                  ops.miller * n, n * (144 + 96 + 1 + 576),
                  "grandine_tpu/tpu/pairing.py:208"),
                 ("rlc_finish", where, lambda a=fin_f: B.rlc_finish(*a),
@@ -4749,14 +4946,16 @@ def main() -> None:
         for where, (ops_r, verdict_r) in finish_records
         if where not in timed_finish]
 
-    for r in pair_recs:  # the table times the wrappers themselves
+    for r in pair_recs + group_recs:  # the table times the wrappers
         r.__exit__(None, None, None)
+    later = {r.name: r for r in pair_recs + group_recs}
     report = []
     sources = {name: src for src, names in _build.LIBRARIES.items()
                for name in names}
     sources.update({name: "msm.cu" for name in ("msm_lane_scan",
                                                 "msm_bucket_reduce",
                                                 "msm_horner")})
+    t_table = time.perf_counter()
     for row in timed:
         name, where, kern, plain, reps, fp_muls, nbytes, replaces = row[:8]
         source = sources[name]
@@ -4768,6 +4967,24 @@ def main() -> None:
         n_l = row[8] if len(row) > 8 else (
             launches if where == gossip else block_launches)[name]
         entry = row[9] if len(row) > 9 else name
+        if isinstance(plain, HeldLaunch) and entry in errs:
+            same(name, got, plain.words, f"main-path operands, {where}: "
+                 f"the words of the launch held in {plain.where}")
+            log(f"time {name} ({where}): kernel {ms:.3f} ms, plain in "
+                f"{plain.where}, bound {b_ms:.4f} ms ({b_by}; {fp_muls} "
+                f"field products, {nbytes} B), library none, launches on "
+                f"its path {n_l} {at}")
+            continue
+        rec = later.get(name)
+        if rec is not None and entry in errs and isinstance(plain, partial):
+            # a later shape of a recorded kernel: its plain call joins the
+            # batched checks of the recorded launches at the end
+            rec.calls.append((rec.operands(*plain.args), got))
+            log(f"time {name} ({where}): kernel {ms:.3f} ms, plain in the "
+                f"batched check at the end, bound {b_ms:.4f} ms ({b_by}; "
+                f"{fp_muls} field products, {nbytes} B), library none, "
+                f"launches on its path {n_l} {at}")
+            continue
         if name == "rlc_finish" and entry in errs:
             finish_checks.append((f"main-path operands, {where}",
                                   plain.args, got))
@@ -4807,7 +5024,9 @@ def main() -> None:
     log(f"rlc_finish: {len(finish_checks)} calls held against batched "
         f"plain calls over their {sum(r.shape[0] for r in refs)} groups in "
         f"{time.perf_counter() - t0:.1f} s")
-    for r in pair_recs:
+    log(f"timing table: {len(timed)} rows with their checks in "
+        f"{time.perf_counter() - t_table:.1f} s")
+    for r in pair_recs + group_recs:
         r.__enter__()
 
     # end to end: host prep apart from device time --------------------------
@@ -4892,9 +5111,10 @@ def main() -> None:
         f"{sum(window_cold) * 1e3:.1f} ms {at}")
     if not all(v is True for v, _, _ in rows):
         fail("a valid window did not verify")
-    for r in pair_recs:
+    for r in pair_recs + group_recs:
         r.__exit__(None, None, None)
     check_pairing_launches(torch, B, TP, pair_recs, same, dev)
+    check_group_launches(torch, B, group_recs, same, dev)
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the "
         f"build included")
     log(json.dumps({"kernels": report}))

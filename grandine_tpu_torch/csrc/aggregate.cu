@@ -23,118 +23,21 @@
 // (bls12_381.cuh: the Fp product as a call). The RLC scalars are the
 // verifier's own draw, so the ladders branch on their bits.
 //
-// agg_g1_lane, agg_g2_half, agg_g2_join and aggregate_block also compile as
-// plain C++ (no __CUDACC__): a block's threads, lanes and warps then run in
-// turn, so a host harness reproduces the kernel's words exactly.
+// agg_g1_lane, agg_g2_half and agg_g2_join (csrc/glv_halves.cuh, shared
+// with multi_rlc_scale) and aggregate_block also compile as plain C++ (no
+// __CUDACC__): a block's threads, lanes and warps then run in turn, so a
+// host harness reproduces the kernel's words exactly.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
-#include "finish_tail.cuh"
+#include "glv_halves.cuh"
 
 using namespace bls;
-
-// Fp values of a G2 warp's buffers: its half's state S (6), its base Q
-// (affine, 4), the join's output O (6) and side values X (4, G2ADD's H
-// and r), then its scratch
-enum AggBuf { A_S = 0, A_Q = 6, A_O = 10, A_X = 16, A_SCRATCH = 20,
-              AGG_WS = A_SCRATCH + AGG_SCRATCH };
 
 // Shared memory of a block, in 32-bit words: BLS_TREE Jacobian G1 partial
 // sums, then the two G2 warps' buffers
 #define AGG_SMEM_WORDS (36 * BLS_TREE + 2 * 12 * AGG_WS)
-
-// One G1 lane: [r]B for half 0, [r]phi(B) for half 1, B Jacobian: from
-// infinity, 32 steps of a doubling and, where r's bit is set, a complete
-// addition of the base (gpu/bls.py aggregate_rlc_scale_plain's order).
-BLS_HD jac<fpc> agg_g1_lane(const jac<fpc>& b, uint32_t r, int half,
-                            const uint32_t* K) {
-  jac<fpc> base = b;
-  if (half) {
-    base.x = f_mul(b.x, fpc{fp_load(K + 12 * K_G1_BX)});
-    base.y = f_mul(b.y, fpc{fp_load(K + 12 * K_G1_BY)});
-  }
-  jac<fpc> st = jac_inf<fpc>(K);
-  for (int i = 31; i >= 0; i--) {
-    st = point_double(st);
-    if ((r >> i) & 1) st = point_add_complete(st, base, K);
-  }
-  return st;
-}
-
-// One G2 half by the calling warp, into buf[A_S..]: [r]Q for half 0,
-// [r]psi'(Q) for half 1, Q affine (sig_x, sig_y: 2 x 12 canonical words
-// each): from infinity, 32 steps of a doubling (G2DBL) and, where r's bit
-// is set, the base itself before the first set bit, a mixed addition
-// (G2MADD) after it.
-BLS_HD void agg_g2_half(uint32_t* buf, const uint32_t* sig_x,
-                        const uint32_t* sig_y, uint32_t r, int half,
-                        const uint32_t* K) {
-  uint32_t *S = buf + 12 * A_S, *Q = buf + 12 * A_Q,
-           *scratch = buf + 12 * A_SCRATCH;
-  tail::warp_each([&](int lane) {
-    if (lane < 4) {  // x0, x1, y0, y1
-      fp v = mont_in((lane < 2 ? sig_x : sig_y) + 12 * (lane & 1), K);
-      if (half) v = fp_mul(v, fp_load(K + 12 * (lane < 2 ? K_G2_WX : K_G2_WY)));
-      fp_store(Q + 12 * lane, v);
-    } else if (lane < 10) {  // S = infinity (1, 1, 0)
-      int c = lane - 4;
-      fp_store(S + 12 * c, c == 0 || c == 2 ? fp_load(K + 12 * K_ONE)
-                                            : fp_zero());
-    }
-  });
-  bool started = false;
-  for (int i = 31; i >= 0; i--) {
-    tail::run(tail::PROG_G2DBL, S, S, nullptr, nullptr, scratch);
-    if (!((r >> i) & 1)) continue;
-    if (started) {
-      tail::run(tail::PROG_G2MADD, S, Q, S, nullptr, scratch);
-    } else {
-      tail::warp_each([&](int lane) {
-        if (lane < 6)
-          fp_store(S + 12 * lane, lane < 4 ? fp_load(Q + 12 * lane)
-                                  : lane == 4 ? fp_load(K + 12 * K_ONE)
-                                              : fp_zero());
-      });
-      started = true;
-    }
-  }
-}
-
-// a's half (p) plus b's (q) by a's warp into a[A_O..], with the cases of
-// point_add_complete in its order: p infinite -> q, q infinite -> p, the
-// generic sum (G2ADD) unless H = 0, where r = 0 doubles p (G2DBL) and
-// otherwise gives infinity (1, 1, 0)
-BLS_HD void agg_g2_join(uint32_t* a, uint32_t* b, const uint32_t* K) {
-  uint32_t *p = a + 12 * A_S, *q = b + 12 * A_S, *O = a + 12 * A_O,
-           *X = a + 12 * A_X, *scratch = a + 12 * A_SCRATCH;
-  const jac<fp2>& pj = *reinterpret_cast<const jac<fp2>*>(p);
-  const jac<fp2>& qj = *reinterpret_cast<const jac<fp2>*>(q);
-  if (fp2_is_zero(pj.z) || fp2_is_zero(qj.z)) {
-    tail::warp_copy(O, fp2_is_zero(pj.z) ? q : p, 6);
-    return;
-  }
-  tail::run(tail::PROG_G2ADD, p, q, O, X, scratch);
-  const fp2& H = *reinterpret_cast<const fp2*>(X);
-  const fp2& rr = *reinterpret_cast<const fp2*>(X + 24);
-  if (!fp2_is_zero(H)) return;
-  if (fp2_is_zero(rr)) {
-    tail::run(tail::PROG_G2DBL, p, O, nullptr, nullptr, scratch);
-  } else {
-    tail::warp_each([&](int lane) {
-      if (lane < 6)
-        fp_store(O + 12 * lane, lane == 0 || lane == 2
-                                    ? fp_load(K + 12 * K_ONE) : fp_zero());
-    });
-  }
-}
-
-// a G1 point's 3 x 12 canonical words
-BLS_HD void g1_out(uint32_t* w, const jac<fpc>& v) {
-  mont_out(w, v.x.v);
-  mont_out(w + 12, v.y.v);
-  mont_out(w + 24, v.z.v);
-}
 
 // `clocks` (null but in gpu/tail_bench.py's timing build): per block,
 // clock64 at the start, after thread 0's strided sum, after the tree,

@@ -682,8 +682,12 @@ BLS_HD void f_in(fp& r, const uint32_t* w, const uint32_t* K) {
 BLS_HD void f_in(fp2& r, const uint32_t* w, const uint32_t* K) {
   r = mont_in2(w, K);
 }
+BLS_HD void f_in(fpc& r, const uint32_t* w, const uint32_t* K) {
+  r.v = mont_in(w, K);
+}
 BLS_HD void f_out(uint32_t* w, const fp& a) { mont_out(w, a); }
 BLS_HD void f_out(uint32_t* w, const fp2& a) { mont_out2(w, a); }
+BLS_HD void f_out(uint32_t* w, const fpc& a) { mont_out(w, a.v); }
 
 BLS_HD void fp6_out(uint32_t* w, const fp6& a) {
   mont_out2(w, a.c0);
@@ -740,12 +744,6 @@ __device__ void block_tree_sum_n(jac<F>* part, const jac<F>& acc, int n,
   }
 }
 
-// block_tree_sum_n over a BLS_TREE-thread block
-template <class F>
-__device__ void block_tree_sum(jac<F>* part, const jac<F>& acc,
-                               const uint32_t* K) {
-  block_tree_sum_n(part, acc, BLS_TREE, K);
-}
 #endif
 
 }  // namespace bls

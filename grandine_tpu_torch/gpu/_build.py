@@ -36,14 +36,15 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 #: the headers every source may include (csrc/*.cuh): part of each
 #: library's hash
-HEADERS = ("bls12_381.cuh", "finish_tail.cuh", "finish_programs.cuh")
+HEADERS = ("bls12_381.cuh", "finish_tail.cuh", "finish_programs.cuh",
+           "glv_halves.cuh")
 #: source → the C entries it exports (each `bls_<name>`)
 LIBRARIES = {
     "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
                       "g2_subgroup_check", "unpack_words"),
     "aggregate.cu": ("aggregate_rlc_scale",),
     "multi.cu": ("multi_rlc_scale", "g1_group_sum", "g2_group_sum",
-                 "group_sum_geometry"),
+                 "launch_geometry"),
     "pairing.cu": ("miller_loop_pairs", "miller_loop_pairs_geometry",
                    "rlc_finish", "rlc_finish_geometry", "rlc_partial"),
     "sign.cu": ("batch_sign", "batch_sign_geometry", "batch_pubkey"),
@@ -77,7 +78,8 @@ SIGNATURES = {
     "g2_subgroup_check": [_vp, _vp, _vp, _vp, _i],
     "aggregate_rlc_scale": [_vp, _vp, _vp, _vp, _i, _i, _vp, _vp, _vp,
                             _vp, _vp, _vp, _vp],
-    "multi_rlc_scale": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp],
+    "multi_rlc_scale": [_vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp, _vp,
+                        _vp],
     "miller_loop_pairs": [_vp, _vp, _vp, _vp, _i, _i],
     "miller_loop_pairs_geometry": [_i, _i, _vp],
     "g1_group_sum": [_vp, _vp, _i, _vp],
@@ -88,7 +90,7 @@ SIGNATURES = {
     "g1_scalar_mul_geometry": [_i, _vp],
     "ed25519_verify": [_vp, _vp, _vp, _vp, _i, _vp, _vp, _vp],
     "span_update_grid": [_vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
-    "group_sum_geometry": [_i, _i, _vp],
+    "launch_geometry": [_i, _i, _i, _vp],
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                    _vp],
     "rlc_finish_geometry": [_i, _i, _i, _i, _vp],

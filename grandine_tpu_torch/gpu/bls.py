@@ -210,45 +210,75 @@ aggregate_rlc_scale.launches = 0
 
 # --- multi_rlc_scale --------------------------------------------------------
 
+#: `multi_g2_lanes`: the most sets whose G2 halves run as warp programs
+#: (two warps a set); past it, one thread a half (two lanes a set). Warp
+#: programs take ~1.2 ms up to a wave of blocks and grow past it, one
+#: thread a half takes ~3.6 ms at every width (ladder_timing.py, H100 80GB
+#: HBM3 at 700 W, device ms: 1.939 / 3.580 at 512 sets, 2.520 / 3.590 at
+#: 768, 3.597–3.626 / 3.591–3.632 at 1,048, 4.563–4.678 / 3.581–3.597 at
+#: 1,562). The forms tie at the window's 1,048 sets (within the runs'
+#: spread); the threshold sits just below the tie because past it the
+#: warp form's time grows with each wave of blocks and the lane form's
+#: stays flat.
+MULTI_G2_WARP_SETS = 1024
+
+
+def multi_g2_lanes(n: int) -> bool:
+    """The G2 form of a `multi_rlc_scale` launch over n sets: False for
+    warp programs (two warps a set), True for one thread a half (two
+    lanes a set). Both give the same words."""
+    return n > MULTI_G2_WARP_SETS
+
 
 def multi_rlc_scale_plain(src_x, src_y, idx, sig_x, sig_y, sig_mask, r01):
-    """Plain version of `multi_rlc_scale`: rᵢ·pkᵢ with pkᵢ = src[idx[i]]
-    and rᵢ·sigᵢ, both by the mixed-add GLV ladder."""
+    """Plain version of `multi_rlc_scale`, in the kernel's steps: rᵢ·pkᵢ
+    (pkᵢ = src[idx[i]], Z = 1) and rᵢ·sigᵢ, each as its two GLV halves'
+    ladders apart joined by one complete addition — G1 by complete
+    additions (`C.scalar_mul_jac_glv`, the G1 lanes of
+    `aggregate_rlc_scale_plain`), G2 by mixed additions
+    (`C.scalar_mul_glv_split`)."""
     n = idx.shape[0]
     dev = idx.device
     rows = idx.long()
     r = r01.to(torch.int64) & 0xFFFFFFFF
-    rpk = C.scalar_mul_glv(L.from_words(src_x[rows]), L.from_words(src_y[rows]),
-                           torch.zeros((n,), dtype=torch.bool, device=dev),
-                           r[:, 0], r[:, 1], C.g1_endo(dev), C.FP_OPS)
-    rsig = C.scalar_mul_glv(L.from_words(sig_x), L.from_words(sig_y),
-                            sig_mask, r[:, 0], r[:, 1], C.g2_endo(dev),
-                            C.FP2_OPS)
+    pk = (L.from_words(src_x[rows]), L.from_words(src_y[rows]),
+          L.one_fp((n,), dev))
+    rpk = C.scalar_mul_jac_glv(pk, torch.zeros((n,), dtype=torch.bool,
+                                               device=dev),
+                               r[:, 0], r[:, 1], C.g1_endo(dev), C.FP_OPS)
+    rsig = C.scalar_mul_glv_split(L.from_words(sig_x), L.from_words(sig_y),
+                                  sig_mask, r[:, 0], r[:, 1], C.g2_endo(dev),
+                                  C.FP2_OPS)
     return C.jac_to_words(rpk, 1), C.jac_to_words(rsig, 2)
 
 
 def multi_rlc_scale(src_x, src_y, idx, sig_x, sig_y, sig_mask, r01):
-    """Per signature set: rᵢ·pkᵢ (G1 GLV ladder from the affine key
-    src[idx[i]]) and rᵢ·sigᵢ (G2 GLV ladder), rᵢ = r01[i, 0] + r01[i, 1]·λ.
-    src_x/src_y (rows, 12) affine canonical words (the registry, or a
-    keyed batch's uploaded keys, none ∞); idx (N,) int32; sig_x/sig_y
-    (N, 2, 12) affine with sig_mask (N,) (∞ or rejected rows); r01 (N, 2)
-    the 32-bit RLC halves. Returns rpk (N, 3, 12) and rsig (N, 3, 2, 12)
-    Jacobian, the layouts `miller_loop_pairs` and `rlc_finish` take. CUDA
-    kernel `multi_rlc_scale` (csrc/multi.cu) on CUDA tensors, the plain
-    version on CPU tensors.
+    """Per signature set: rᵢ·pkᵢ (G1, from the affine key src[idx[i]]) and
+    rᵢ·sigᵢ (G2), rᵢ = r01[i, 0] + r01[i, 1]·λ. src_x/src_y (rows, 12)
+    affine canonical words (the registry, or a keyed batch's uploaded
+    keys, none ∞); idx (N,) int32; sig_x/sig_y (N, 2, 12) affine with
+    sig_mask (N,) (∞ or rejected rows: ∞ out); r01 (N, 2) the 32-bit RLC
+    halves. Returns rpk (N, 3, 12) and rsig (N, 3, 2, 12) Jacobian, the
+    layouts `miller_loop_pairs` and `rlc_finish` take. CUDA kernel
+    `multi_rlc_scale` (csrc/multi.cu) on CUDA tensors, the plain version
+    on CPU tensors.
 
     Replaces, in the JAX programs multi_verify_msm{,_idx,_comp}
     (grandine_tpu/tpu/bls.py:592, :610, :790), the registry gather
     (:629-632), the per-signature G1 scalar_mul_glv and the G2 scalar
-    plane of `_flat_msm_verify_tail` (:556-589). One thread per ladder:
-    the first ⌈N/32⌉ warps run the G1 ladders and the warps after them
-    the G2 ladders, one warp a block, so no warp holds both branches and
-    the G1 and G2 warps land on separate SMs (N = 1,048 is 66 warps on
-    132 SMs, one wave). Bound: operations — 32 doublings and ~32 mixed
+    plane of `_flat_msm_verify_tail` (:556-589). Each ladder splits by
+    its GLV halves, as `aggregate_rlc_scale`'s do (csrc/glv_halves.cuh):
+    [r0]pk and [r1]φ(pk) on two `fpc` lanes (64 sets a 128-thread block)
+    joined by a shuffle and one complete addition; [r0]sig and [r1]ψ'(sig)
+    as G2DBL/G2MADD warp programs on two warps (2 sets a block) joined by
+    G2ADD with point_add_complete's cases — or, past MULTI_G2_WARP_SETS
+    sets (`multi_g2_lanes`), where two warps a set no longer fit one wave,
+    one thread a half on fp2 (64 sets a block); one kernel instance a
+    form. The G2 blocks come first in the grid, the G1 blocks after, so no
+    warp runs both. Bound: operations — 32 doublings and ~32 mixed
     additions on each group (~2,300 Fp products a set) against ~640 bytes
-    a set; each ladder is one thread's dependent chain, so the kernel is
-    latency-bound on the G2 ladder (3 Fp products to each of G1's)."""
+    a set; each half is a dependent chain of 32 doublings and ~16
+    additions, so the kernel is latency-bound on the G2 halves' chains."""
     if idx.device.type == "cpu":
         return multi_rlc_scale_plain(src_x, src_y, idx, sig_x, sig_y,
                                      sig_mask, r01)
@@ -264,7 +294,8 @@ def multi_rlc_scale(src_x, src_y, idx, sig_x, sig_y, sig_mask, r01):
     rpk = torch.empty((n, 3, 12), dtype=torch.int32, device=dev)
     rsig = torch.empty((n, 3, 2, 12), dtype=torch.int32, device=dev)
     _build.launch("multi_rlc_scale", src_x, src_y, idx, ctypes.c_int(n),
-                  sig_x, sig_y, sig_mask, r01, rpk, rsig)
+                  ctypes.c_int(int(multi_g2_lanes(n))), sig_x, sig_y,
+                  sig_mask, r01, rpk, rsig)
     multi_rlc_scale.launches += 1
     return rpk, rsig
 
@@ -272,7 +303,80 @@ def multi_rlc_scale(src_x, src_y, idx, sig_x, sig_y, sig_mask, r01):
 multi_rlc_scale.launches = 0
 
 
-# --- g1_group_sum ---------------------------------------------------------------
+# --- g1_group_sum, g2_group_sum -------------------------------------------------
+
+#: rows a unit of a group-sum pass adds in order (csrc/multi.cu
+#: GROUP_CHUNK, a compile-time constant there)
+GROUP_CHUNK = 2
+#: units of a lane-form tile: the lanes of a warp
+GROUP_LANES = 32
+#: warps a tile of g2_group_sum, G2ADD warp programs one warp a unit
+#: (csrc/multi.cu G2_GROUP_WARPS, a compile-time constant there)
+G2_GROUP_WARPS = 8
+
+
+def group_sum_plan(offsets, tile: int):
+    """The passes of a group sum over groups [offsets[m], offsets[m+1]),
+    from the offsets alone: each pass an (T, 2) int32 array of tiles
+    (start, count) over its input rows, a tile covering at most tile ·
+    chunk of one group's rows and giving one output row; each group's
+    tiles in order, so the next pass's groups are the tile counts. The
+    last pass has one tile a group (an empty group: one tile of count 0,
+    giving ∞). Within a tile (csrc/multi.cu gs_lanes_tile /
+    gs_warps_tile), unit u adds rows u·chunk … in order and the
+    ⌈count / chunk⌉ live partials fold pairwise (position t + s into t
+    for s = pow2ceil(k)/2 … 1, t + s < k), chunk = GROUP_CHUNK."""
+    off = np.asarray(offsets, np.int64)
+    per = tile * GROUP_CHUNK
+    passes = []
+    while True:
+        counts = np.diff(off)
+        n_t = np.maximum(1, -(-counts // per))
+        j = np.arange(int(n_t.sum())) - np.repeat(np.cumsum(n_t) - n_t, n_t)
+        start = np.repeat(off[:-1], n_t) + j * per
+        count = np.clip(np.repeat(counts, n_t) - j * per, 0, per)
+        passes.append(np.stack([start, count], 1).astype(np.int32))
+        if (n_t == 1).all():
+            return passes
+        off = np.concatenate([[0], np.cumsum(n_t)])
+
+
+def group_sum_passes_plain(points, plan, ops, tile: int):
+    """The passes of `group_sum_plan` on (N,) Jacobian points, step for
+    step as the kernel adds: each tile's units from ∞ over their rows, then
+    the fold over the live partials only (an addition skipped, not made
+    with ∞, so a partial's words stay as they are), each tile's total
+    with Z = 0 written as (1, 1, 0). Returns the last pass's rows, one a
+    group."""
+    chunk = GROUP_CHUNK
+    dev = points[0].device
+    pos = torch.arange(tile * chunk, device=dev).view(tile, chunk)
+    for tiles in plan:
+        t = torch.from_numpy(tiles.astype(np.int64)).to(dev)
+        n_t = t.shape[0]
+        if points[0].shape[0] == 0:  # every tile empty: give the gather a row
+            one = ops.one((1,), dev)
+            points = (one, one, torch.zeros_like(one))
+        live = pos < t[:, 1].view(n_t, 1, 1)
+        idx = torch.where(live, t[:, 0].view(n_t, 1, 1) + pos, 0)
+        one = ops.one((n_t, tile), dev)
+        acc = (one, one, torch.zeros_like(one))
+        for c in range(chunk):
+            q = tuple(p[idx[:, :, c]] for p in points)
+            acc = C._sel3(live[:, :, c], C.point_add_complete(acc, q, ops),
+                          acc)
+        k = (t[:, 1] + chunk - 1) // chunk
+        s = tile // 2
+        while s:
+            lo = tuple(a[:, :s] for a in acc)
+            hi = tuple(a[:, s:2 * s] for a in acc)
+            fold = (torch.arange(s, device=dev) + s) < k.view(n_t, 1)
+            lo = C._sel3(fold, C.point_add_complete(lo, hi, ops), lo)
+            acc = tuple(torch.cat([x, a[:, s:]], 1) for x, a in zip(lo, acc))
+            s //= 2
+        points = tuple(a[:, 0] for a in acc)
+        points = C._mask_inf(points, ops.is_zero(points[2]), ops)
+    return points
 
 
 def _offsets(offsets, n: int, what: str) -> np.ndarray:
@@ -295,22 +399,33 @@ def _offsets_to(off: np.ndarray, device) -> torch.Tensor:
         device, non_blocking=True)
 
 
+def group_tile(k: int) -> int:
+    """Units a tile of the group-sum plan of G1 (k = 1) or G2 (k = 2)."""
+    return G2_GROUP_WARPS if k == 2 else GROUP_LANES
+
+
+def _group_sum_plain(rows, offsets, k: int, what: str):
+    off = _offsets(offsets, rows.shape[0], what)
+    tile = group_tile(k)
+    total = group_sum_passes_plain(C.jac_from_words(rows, k),
+                                   group_sum_plan(off, tile),
+                                   C.FP_OPS if k == 1 else C.FP2_OPS, tile)
+    return C.jac_to_words(total, k)
+
+
 def g1_group_sum_plain(rows, offsets):
-    """Plain version of `g1_group_sum`: the groups' sums in the kernel's
-    order (msm.sum_points_contiguous over a BLS_TREE-thread block)."""
-    off = _offsets(offsets, rows.shape[0], "g1_group_sum")
-    total = msm.sum_points_contiguous(C.jac_from_words(rows, 1), off,
-                                      C.FP_OPS)
-    return C.jac_to_words(total, 1)
+    """Plain version of `g1_group_sum`: the passes of the kernel's plan
+    (`group_sum_plan`, 32 units a tile) in its order."""
+    return _group_sum_plain(rows, offsets, 1, "g1_group_sum")
 
 
 def g1_group_sum(rows, offsets):
     """Σ of the Jacobian G1 rows (N, 3, 12) of each group [offsets[m],
     offsets[m+1]) — offsets, M + 1 host ints, are the only way groups are
-    given — as (M, 3, 12) Jacobian words, ∞ (1, 1, 0) for an empty group;
-    a row with Z = 0 is ∞. CUDA kernel `g1_group_sum` (csrc/multi.cu, the
-    G1 instance of `group_sum<F>`) on CUDA tensors, the plain version on
-    CPU tensors.
+    given — as (M, 3, 12) Jacobian words, ∞ as (1, 1, 0) (an empty group,
+    a sum at ∞); a row with Z = 0 is ∞. CUDA kernel `g1_group_sum` (csrc/multi.cu, the G1 instance
+    of `group_sum<F>`, on `fpc`) on CUDA tensors, the plain version on CPU
+    tensors.
 
     Replaces, in grandine_tpu/tpu/bls.py grouped_multi_verify_kernel
     (:322), the per-message sum of the rᵢ·pkᵢ that `multi_rlc_scale`
@@ -318,14 +433,16 @@ def g1_group_sum(rows, offsets):
     make_sharded_multi_verify_msm (:1258) the reduce of the shards' group
     sums (reduce_over_devices, :1286-1305); and g1_aggregate_kernel
     (:1010, curve.py sum_points_contiguous) behind `g1_aggregate_groups`.
-    One block of 128 threads per group: a strided loop of complete
-    additions, then the shared-memory tree. Bound: operations — one
-    complete G1 addition (16 Fp products) a row against 144 bytes a row;
-    at M = 12 groups on 132 SMs the kernel is latency-bound on the
-    ⌈rows/128⌉ + 7 dependent additions of a group."""
+    A plan from the offsets alone (`group_sum_plan`): one lane a unit of
+    GROUP_CHUNK rows, a warp a tile of 32 units folded by shuffles over
+    its live partials only, passes until each group is one tile — 4,096
+    rows take 1 + 5 + 1 + 5 dependent additions in two passes, 8 rows 1 +
+    2 in one. Bound: operations — one complete G1 addition (16 Fp
+    products) a row against 144 bytes a row; the kernel is latency-bound
+    on a group's chain of ~log₂(rows) additions."""
     if rows.device.type == "cpu":
         return g1_group_sum_plain(rows, offsets)
-    out = _group_sum_cuda("g1_group_sum", rows, offsets, (3, 12))
+    out = _group_sum_cuda(1, rows, offsets)
     g1_group_sum.launches += 1
     return out
 
@@ -334,32 +451,30 @@ g1_group_sum.launches = 0
 
 
 def g2_group_sum_plain(rows, offsets):
-    """Plain version of `g2_group_sum`: the G2 twin of
-    `g1_group_sum_plain`."""
-    off = _offsets(offsets, rows.shape[0], "g2_group_sum")
-    total = msm.sum_points_contiguous(C.jac_from_words(rows, 2), off,
-                                      C.FP2_OPS)
-    return C.jac_to_words(total, 2)
+    """Plain version of `g2_group_sum`: the passes of the kernel's plan
+    (`group_sum_plan` at `group_tile(2)` units a tile) in its order."""
+    return _group_sum_plain(rows, offsets, 2, "g2_group_sum")
 
 
 def g2_group_sum(rows, offsets):
     """Σ of the Jacobian G2 rows (N, 3, 2, 12) of each group [offsets[m],
-    offsets[m+1]) as (M, 3, 2, 12) Jacobian words, ∞ (1, 1, 0) for an
-    empty group; a row with Z = 0 is ∞. CUDA kernel `g2_group_sum`
-    (csrc/multi.cu, the G2 instance of `group_sum<F>`) on CUDA tensors,
-    the plain version on CPU tensors.
+    offsets[m+1]) as (M, 3, 2, 12) Jacobian words, ∞ as (1, 1, 0) (an
+    empty group, a sum at ∞); a row with Z = 0 is ∞. CUDA kernel `g2_group_sum` (csrc/multi.cu) on
+    CUDA tensors, the plain version on CPU tensors.
 
     Replaces grandine_tpu/tpu/bls.py g2_aggregate_kernel (:980, curve.py
     sum_points_contiguous :374) behind `g2_aggregate_groups`: aggregate
-    construction, every committee of a slot in one launch. One block of
-    128 threads per group, as `g1_group_sum`, over 36,864 B of static
-    shared memory (128 Jacobian G2 points). Bound: operations — one
-    complete G2 addition (48 Fp products) a row against 288 bytes a row;
-    at a slot's 12–16 groups the kernel is latency-bound on the
-    ⌈rows/128⌉ + 7 dependent additions of a group."""
+    construction, every committee of a slot in one launch; and, on the
+    sharded flat route, each shard's signature sum. The plan of
+    `g1_group_sum` with a warp a unit: each complete addition a G2ADD
+    warp program (44 Fp products in 5 rounds across the lanes, with
+    point_add_complete's cases), G2_GROUP_WARPS units a block folded
+    through shared memory. Bound: operations — one complete G2 addition
+    (48 Fp products) a row against 288 bytes a row; latency-bound on a
+    group's chain of ~log₂(rows) warp-program additions."""
     if rows.device.type == "cpu":
         return g2_group_sum_plain(rows, offsets)
-    out = _group_sum_cuda("g2_group_sum", rows, offsets, (3, 2, 12))
+    out = _group_sum_cuda(2, rows, offsets)
     g2_group_sum.launches += 1
     return out
 
@@ -367,27 +482,35 @@ def g2_group_sum(rows, offsets):
 g2_group_sum.launches = 0
 
 
-def _group_sum_cuda(name, rows, offsets, point_shape):
+def _group_sum_cuda(k, rows, offsets):
+    """The plan's passes on the card: the plan built from the offsets,
+    every pass's tiles copied in one table, then one launch a pass on the
+    current stream."""
     from grandine_tpu_torch.gpu import _build
 
+    name = "g1_group_sum" if k == 1 else "g2_group_sum"
+    shape = (3, 12) if k == 1 else (3, 2, 12)
     n = rows.shape[0]
-    if rows.shape[1:] != point_shape or rows.dtype != torch.int32:
-        raise ValueError(f"{name}: rows (N, {', '.join(map(str, point_shape))})"
+    if rows.shape[1:] != shape or rows.dtype != torch.int32:
+        raise ValueError(f"{name}: rows (N, {', '.join(map(str, shape))})"
                          " int32")
     off = _offsets(offsets, n, name)
-    m = off.size - 1
-    out = torch.empty((m, *point_shape), dtype=torch.int32,
-                      device=rows.device)
-    _build.launch(name, rows.contiguous(), _offsets_to(off, rows.device),
-                  ctypes.c_int(m), out)
-    return out
+    plan = group_sum_plan(off, group_tile(k))
+    tiles = _offsets_to(np.concatenate(plan).reshape(-1), rows.device)
+    src, at = rows.contiguous(), 0
+    for t in (p.shape[0] for p in plan):
+        out = torch.empty((t, *shape), dtype=torch.int32, device=rows.device)
+        _build.launch(name, src, tiles[2 * at: 2 * (at + t)], ctypes.c_int(t),
+                      out)
+        src, at = out, at + t
+    return src
 
 
 def launch_geometry(name: str, n: int):
     """(blocks, threads a block, shared memory bytes, blocks one SM holds
     at once) of the launch that "batch_sign" (at `sign_lanes(n)` lanes a
-    row) or "g1_scalar_mul" makes over n rows,
-    or "g1_group_sum" / "g2_group_sum" over n groups, on the current CUDA
+    row), "g1_scalar_mul" or "multi_rlc_scale" makes over n rows, or of a
+    "g1_group_sum" / "g2_group_sum" pass over n tiles, on the current CUDA
     device. A query: it launches nothing."""
     from grandine_tpu_torch.gpu import _build
 
@@ -398,10 +521,13 @@ def launch_geometry(name: str, n: int):
                       ctypes.c_int(sign_lanes(n)), out)
     elif name == "g1_scalar_mul":
         _build.launch("g1_scalar_mul_geometry", ctypes.c_int(n), out)
+    elif name == "multi_rlc_scale":
+        _build.launch("launch_geometry", ctypes.c_int(0), ctypes.c_int(n),
+                      ctypes.c_int(int(multi_g2_lanes(n))), out)
     else:
-        _build.launch("group_sum_geometry",
-                      ctypes.c_int(name == "g2_group_sum"), ctypes.c_int(n),
-                      out)
+        _build.launch("launch_geometry",
+                      ctypes.c_int(1 + (name == "g2_group_sum")),
+                      ctypes.c_int(n), ctypes.c_int(0), out)
     return tuple(int(v) for v in geometry)
 
 
@@ -2471,7 +2597,9 @@ class TorchBlsBackend:
 __all__ = [
     "TorchBlsBackend", "MAX_BUCKET", "resolve_device", "aggregate_rlc_scale",
     "aggregate_rlc_scale_plain", "multi_rlc_scale", "multi_rlc_scale_plain",
-    "g1_group_sum", "g1_group_sum_plain", "rlc_finish", "rlc_finish_plain",
+    "g1_group_sum", "g1_group_sum_plain", "group_sum_plan",
+    "group_sum_passes_plain",
+    "group_tile", "multi_g2_lanes", "rlc_finish", "rlc_finish_plain",
     "rlc_sig_miller_plain", "finish_threads", "finish_groups",
     "rlc_finish_geometry", "PER_THREAD_SPAN", "partial_threads",
     "partial_groups", "finish_widths", "rlc_partial",

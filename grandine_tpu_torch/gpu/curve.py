@@ -218,8 +218,11 @@ def scalar_mul_glv_split(qx, qy, q_inf, r0, r1, endo, ops):
     two G2 warps (csrc/aggregate.cu). The same point as `scalar_mul_glv`'s
     joint ladder (grandine_tpu/tpu/curve.py scalar_mul_glv)."""
     q2x, q2y = ops.mul_many([qx, qy], list(endo))
-    lo = ladder([(qx, qy)], [_bits_msb(r0, 32)], ops)
-    hi = ladder([(q2x, q2y)], [_bits_msb(r1, 32)], ops)
+    # both halves in one ladder over a leading axis of 2: each element's
+    # steps are its own, so the words are those of two ladders apart
+    lo, hi = zip(*(c.unbind(0) for c in ladder(
+        [(torch.stack([qx, q2x]), torch.stack([qy, q2y]))],
+        [_bits_msb(torch.stack([r0, r1]), 32)], ops)))
     return _mask_inf(point_add_complete(lo, hi, ops), q_inf, ops)
 
 
@@ -244,8 +247,11 @@ def scalar_mul_jac_glv(q, q_inf, r0, r1, endo, ops):
     scalar_mul_jac_glv)."""
     Q = _mask_inf(q, q_inf, ops)
     e2x, e2y = ops.mul_many([Q[0], Q[1]], list(endo))
-    lo = jac_ladder(Q, _bits_msb(r0, 32), ops)
-    hi = jac_ladder((e2x, e2y, Q[2]), _bits_msb(r1, 32), ops)
+    # both halves in one ladder, as in scalar_mul_glv_split
+    lo, hi = zip(*(c.unbind(0) for c in jac_ladder(
+        (torch.stack([Q[0], e2x]), torch.stack([Q[1], e2y]),
+         torch.stack([Q[2], Q[2]])), _bits_msb(torch.stack([r0, r1]), 32),
+        ops)))
     return _mask_inf(point_add_complete(lo, hi, ops), q_inf, ops)
 
 

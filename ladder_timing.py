@@ -6,8 +6,13 @@ checkouts of the port on one card, in turns, at the shapes of their paths.
     python3 ladder_timing.py TREE [TREE ...]   # parent change change parent
 
 Each TREE (a directory holding `grandine_tpu_torch/`) runs in a process of
-its own, in the order given. The process builds only csrc/sign.cu,
-csrc/kzg.cu, csrc/pairing.cu, csrc/aggregate.cu and csrc/ed25519.cu
+its own, in the order given. TREE:NAME=V[,NAME=V] runs the tree with the
+compile-time constant NAME of its sources set to V (nvcc -DNAME=V, into a
+build directory of its own) and its Python mirror gpu/bls.py NAME set to
+V alike — e.g. `. .:G2_GROUP_WARPS=4 .:G2_GROUP_WARPS=4 .` times
+g2_group_sum's tile in turns. The process builds only csrc/sign.cu,
+csrc/kzg.cu, csrc/pairing.cu, csrc/aggregate.cu, csrc/ed25519.cu and
+csrc/multi.cu, or of them only those `--only` needs and pairing.cu
 (nvcc, the tree's own flags), prints ptxas' lines for their kernels
 (registers, stack frame, spills, cumulative stack), and times by CUDA
 events, after one warm-up launch, --reps launches of
@@ -27,14 +32,39 @@ events, after one warm-up launch, --reps launches of
   lane's (Ed25519Backend.prepare): the base point under a 253-bit
   scalar, (B − 1) // 2 seeded points under 128-bit z and as many under
   253-bit z·k, identity pads with scalar 0;
-  batch_pubkey at 512, 4,096 and 16,384 (a full bucket) seeded keys.
+  batch_pubkey at 512, 4,096 and 16,384 (a full bucket) seeded keys;
+  multi_rlc_scale at 64 sets (a block's shard at D = 4), 131 (a block),
+  192 (a localization pass of the gossip slot), 262, 512 (a window's
+  shard at D = 4), 768, 1,048 (the window) and 1,562 (a localization
+  pass of the unaggregated slot): 8 seeded keys and 64 seeded signatures
+  tiled, seeded halves, one in five signatures masked;
+  g1_group_sum at 1 group of 4,096 rows (a setup MSM), 4 of 8 (a KZG
+  batch verify), 12 of 256 with 131 live rows each (committee keys,
+  padded with ∞ as g1_aggregate_groups pads) and 12 of 4 (the mesh's
+  reduction at D = 4); g2_group_sum at 12 of 256 with 131 live (committee
+  aggregates), 4 of 128 (sync contributions), 1 of 64 and 1 of 512 (a
+  block and a window shard's signature sum at D = 4): 64 seeded Jacobian
+  points tiled.
+
+On a tree with both G2 forms of multi_rlc_scale (gpu/bls.py
+multi_g2_lanes) each shape is timed in both (`form` in the line; the
+form the rule does not choose through the C entry,
+testing/group_rows.py multi_launch), and both are checked. Each line gives the
+CUDA-event ms a call over back-to-back calls and the kernels' own ms a
+call from torch.profiler.
 
 batch_sign is timed at each lane count `sign_lanes` chooses between (4,
 2 and 1 lanes a signature); each geometry, and g1_scalar_mul, is held
 against its plain version on 40 rows, miller_loop_pairs on 40 pairs,
 aggregate_rlc_scale on its 192 aggregates, ed25519_verify on the B = 128
-rows and batch_pubkey on 40 keys, exactly. Prints the card's name and
-power limit, one line a timing and one JSON line a tree. Needs a card.
+rows and batch_pubkey on 40 keys, multi_rlc_scale on its edge sets and
+70 seeded ones, the group sums on their edge groups
+(testing/group_rows.py) and at the 12 × 256 shape, exactly; their lines
+carry chip_smoke.py's bound (OpModel at the least work, this tree's). `--only
+NAME[,NAME]` keeps the kernels whose names hold one of the NAMEs (e.g.
+`--only multi,group` for multi_rlc_scale and both group sums), for the
+timings and the checks. Prints the card's name and power limit, one line
+a timing and one JSON line a tree. Needs a card.
 """
 
 from __future__ import annotations
@@ -54,7 +84,16 @@ KZG_ROWS = (1, 32, 4096)
 MILLER_PAIRS = (4, 192, 1048, 2048)
 ED_ROWS = (8, 32, 128)
 PUBKEY_KEYS = (512, 4096, 16384)
-SOURCES = ("sign.cu", "kzg.cu", "pairing.cu", "aggregate.cu", "ed25519.cu")
+MULTI_SETS = (64, 131, 192, 262, 512, 768, 1048, 1562)
+#: (groups, rows a group, live rows a group)
+G1_GROUPS = ((1, 4096, 4096), (4, 8, 8), (12, 256, 131), (12, 4, 4))
+G2_GROUPS = ((12, 256, 131), (4, 128, 128), (1, 64, 64), (1, 512, 512))
+#: the source of each timed kernel
+SOURCE_OF = {"batch_sign": "sign.cu", "batch_pubkey": "sign.cu",
+             "g1_scalar_mul": "kzg.cu", "miller_loop_pairs": "pairing.cu",
+             "aggregate_rlc_scale": "aggregate.cu",
+             "ed25519_verify": "ed25519.cu", "multi_rlc_scale": "multi.cu",
+             "g1_group_sum": "multi.cu", "g2_group_sum": "multi.cu"}
 CHECK_ROWS = 40
 
 
@@ -64,7 +103,29 @@ def _ptxas(log: str) -> "list[str]":
             if any(k in line for k in keep)]
 
 
-def worker(tree: str, reps: int, seed: int) -> dict:
+def _rows_module(name: str):
+    """A module of testing/ from this script's own tree (a parent may lack
+    it), importing the tree under test's gpu.bls."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "grandine_tpu_torch",
+        "testing", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def split_tree(arg: str):
+    """TREE[:NAME=V[,NAME=V]] → (TREE, {NAME: V})."""
+    tree, _, spec = arg.partition(":")
+    defines = {}
+    for item in filter(None, spec.split(",")):
+        name, _, value = item.partition("=")
+        defines[name] = int(value)
+    return tree, defines
+
+
+def worker(arg: str, reps: int, seed: int, only: str) -> dict:
+    tree, defines = split_tree(arg)
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -76,11 +137,27 @@ def worker(tree: str, reps: int, seed: int) -> dict:
     from grandine_tpu_torch.gpu import bls as B
     from grandine_tpu_torch.gpu import kzg as GK
 
-    _build.LIBRARIES = {src: _build.LIBRARIES[src] for src in SOURCES}
+    names = [k for k in only.split(",") if k]
+
+    def wanted(kernel):
+        return not names or any(k in kernel for k in names)
+
+    # pairing.cu exports bls_set_stack_limit, which every build needs
+    sources = sorted({"pairing.cu"} | {SOURCE_OF[k] for k in SOURCE_OF
+                                       if wanted(k)})
+    _build.LIBRARIES = {src: _build.LIBRARIES[src] for src in sources}
+    for name, value in defines.items():
+        if not hasattr(B, name):
+            raise SystemExit(f"{tree}: gpu/bls.py has no {name} to mirror")
+        setattr(B, name, value)
+        _build.NVCC_FLAGS = [*_build.NVCC_FLAGS, f"-D{name}={value}"]
+    if defines:
+        _build.BUILD_DIR = os.path.join(_build.BUILD_DIR, ",".join(
+            f"{k}={v}" for k, v in sorted(defines.items())))
     _build.library()
     ptxas = {src: _ptxas(open(os.path.join(
         _build.BUILD_DIR, f"lib{src[:-3]}.so.log")).read())
-        for src in SOURCES}
+        for src in sources}
     nvcc_s = re.findall(r"== (\S+) \((\d+\.\d) s\)", _build.build_log)
     dev = torch.device("cuda")
     rng = random.Random(seed)
@@ -95,6 +172,25 @@ def worker(tree: str, reps: int, seed: int) -> dict:
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
+
+    def device_ms(fn):
+        """The kernels' own time a call (torch.profiler's CUDA activity,
+        copies left out): what CUDA events between back-to-back calls see
+        too, unless the host's calls leave the card waiting. None when
+        the profiler records no kernel."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0)
+                 for e in prof.key_averages()
+                 if not e.key.startswith(("Memcpy", "Memset"))
+                 and str(getattr(e, "device_type", "")).endswith("CUDA"))
+        return us / reps / 1e3 if us else None
 
     h = np.stack([B.g2_affine_words(hash_to_g2(b"ladder-%d" % i,
                                                DST_SIGNATURE))[0]
@@ -117,12 +213,7 @@ def worker(tree: str, reps: int, seed: int) -> dict:
     from grandine_tpu_torch.gpu import limbs as L
     from grandine_tpu_torch.gpu import pairing as TP
 
-    # the aggregate rows of this script's own tree (a parent may lack them)
-    spec = importlib.util.spec_from_file_location("pairing_rows", os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "grandine_tpu_torch",
-        "testing", "pairing_rows.py"))
-    PR = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(PR)
+    PR = _rows_module("pairing_rows")
 
     gj = []  # 64 Jacobian multiples of G1, Z ≠ 1
     for p in [G1.mul(rng.randrange(1, R)) for _ in range(64)]:
@@ -137,24 +228,26 @@ def worker(tree: str, reps: int, seed: int) -> dict:
                      for a in (gj[idx % 64], h[idx % 8], idx % 7 == 6))
 
     rows, checks = [], []
-    for n in SIGN_ROWS:
+    for n in (SIGN_ROWS if wanted("batch_sign") else ()):
         args = sign_args(n)
         for lanes in (4, 2, 1):
             ms = cuda_ms(lambda: B.batch_sign(*args, lanes=lanes))
             rows.append({"kernel": "batch_sign", "rows": n, "lanes": lanes,
                          "ms": ms})
-    for n in KZG_ROWS:
+    for n in (KZG_ROWS if wanted("g1_scalar_mul") else ()):
         args = kzg_args(n)
         rows.append({"kernel": "g1_scalar_mul", "rows": n,
                      "ms": cuda_ms(lambda: GK.g1_scalar_mul(*args))})
-    for n in MILLER_PAIRS:
+    for n in (MILLER_PAIRS if wanted("miller_loop_pairs") else ()):
         args = miller_args(n)
         rows.append({"kernel": "miller_loop_pairs", "rows": n,
                      "ms": cuda_ms(lambda: TP.miller_loop_pairs(*args))})
-    agg = tuple(torch.from_numpy(a).to(dev) for a in PR.aggregate_rows(
-        PR.gossip_cases(seed), seed, 4096))
-    rows.append({"kernel": "aggregate_rlc_scale", "rows": agg[2].shape[0],
-                 "ms": cuda_ms(lambda: B.aggregate_rlc_scale(*agg))})
+    if wanted("aggregate_rlc_scale"):
+        agg = tuple(torch.from_numpy(a).to(dev) for a in PR.aggregate_rows(
+            PR.gossip_cases(seed), seed, 4096))
+        rows.append({"kernel": "aggregate_rlc_scale",
+                     "rows": agg[2].shape[0],
+                     "ms": cuda_ms(lambda: B.aggregate_rlc_scale(*agg))})
     from grandine_tpu_torch.crypto import ed25519 as HE
     from grandine_tpu_torch.gpu import ed25519 as E
 
@@ -177,43 +270,160 @@ def worker(tree: str, reps: int, seed: int) -> dict:
             [x for x, _ in aff], [y for _, y in aff],
             [x * y % HE.P for x, y in aff], ks))
 
-    for b in ED_ROWS:
+    for b in (ED_ROWS if wanted("ed25519_verify") else ()):
         args = ed_args(b)
         rows.append({"kernel": "ed25519_verify", "rows": b,
                      "ms": cuda_ms(lambda: E.ed25519_verify(*args))})
-    for n in PUBKEY_KEYS:
+    for n in (PUBKEY_KEYS if wanted("batch_pubkey") else ()):
         args = tuple(torch.from_numpy(a).to(dev) for a in B.sign_scalars_host(
             [rng.randrange(1, R) for _ in range(n)]))
         rows.append({"kernel": "batch_pubkey", "rows": n,
                      "ms": cuda_ms(lambda: B.batch_pubkey(*args))})
+    GR = _rows_module("group_rows")
+    planned = hasattr(B, "group_sum_plan")
+    # the bounds of chip_smoke.py (OpModel at the function's least work,
+    # the card's int32 multiply rate or HBM rate), from this script's tree
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py"))
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    from grandine_tpu_torch.crypto.constants import P, X
+    ops = CS.OpModel(P, -X)
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def bound(fp_muls, nbytes):
+        return CS.bound_ms(fp_muls, nbytes, sms, clock_hz)[0]
+    multi_keys = GR.progression(G1.mul(rng.randrange(1, R)),
+                                G1.mul(rng.randrange(1, R)), 8)
+    kx, ky = B.g1_affine_words(multi_keys)
+    from grandine_tpu_torch.crypto.curves import G2
+    multi_sigs = GR.progression(G2.mul(rng.randrange(1, R)),
+                                G2.mul(rng.randrange(1, R)), 64)
+    mx, my, _ = B.g2_affine_words_many(multi_sigs)
+
+    def multi_args(n):
+        idx = np.arange(n)
+        pairs = [(rng.getrandbits(32), rng.getrandbits(32))
+                 for _ in range(n)]
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (kx, ky, (idx * 5 % 8).astype(np.int32),
+                               mx[idx % 64], my[idx % 64], idx % 5 == 4,
+                               B.rlc_pairs_words(pairs)))
+        return args, bound(ops.multi(pairs, (idx % 5 != 4).tolist()),
+                           n * (4 + 96 + 96 + 1 + 8 + 144 + 288))
+
+    def multi_forms(n):
+        """(form, call) of each G2 form: the rule's through the wrapper,
+        the other through the C entry (a parent tree: its one form)."""
+        if not planned:
+            return [("parent", B.multi_rlc_scale)]
+        rule = B.multi_g2_lanes(n)
+        return [(f"g2 {'lanes' if lanes else 'warps'}"
+                 f"{' (the rule)' if lanes == rule else ''}",
+                 B.multi_rlc_scale if lanes == rule
+                 else lambda *a, lanes=lanes: GR.multi_launch(a, lanes))
+                for lanes in (False, True)]
+
+    for n in (MULTI_SETS if wanted("multi_rlc_scale") else ()):
+        args, b_ms = multi_args(n)
+        for form, call in multi_forms(n):
+            rows.append({"kernel": "multi_rlc_scale", "rows": n,
+                         "form": form, "bound_ms": b_ms,
+                         "ms": cuda_ms(lambda: call(*args)),
+                         "device_ms": device_ms(lambda: call(*args))})
+    g_pts = {1: GR.jacobian_words(GR.progression(
+        G1.mul(rng.randrange(1, R)), G1.mul(rng.randrange(1, R)), 64), 1),
+             2: GR.jacobian_words(multi_sigs, 2)}
+
+    def group_args(k, m, width, live):
+        rows = np.zeros((m * width,) + g_pts[k].shape[1:], np.int32)
+        for g in range(m):
+            rows[g * width: g * width + live] = g_pts[k][
+                (np.arange(live) + 7 * g) % 64]
+        return (torch.from_numpy(rows).to(dev),
+                list(range(0, m * width + 1, width)))
+
+    for k, shapes in ((1, G1_GROUPS), (2, G2_GROUPS)):
+        name = f"g{k}_group_sum"
+        if not wanted(name):
+            continue
+        fn = getattr(B, name)
+        for m, width, live in shapes:
+            rows_t, off = group_args(k, m, width, live)
+
+            def run():
+                return fn(rows_t, off)
+            rows.append({"kernel": name, "groups": m, "rows": width,
+                         "live": live, "bound_ms": bound(
+                             ops.group_sum([live] * m, k),
+                             m * width * 144 * k + m * (144 * k + 4) + 4),
+                         "ms": cuda_ms(run), "device_ms": device_ms(run)})
     # every geometry against its plain version, exactly
-    args = ed_args(128)
-    checks.append(("ed25519_verify", {}, all(
-        torch.equal(g, x) for g, x in zip(E.ed25519_verify(*args),
-                                          E.ed25519_verify_plain(*args)))))
-    args = tuple(torch.from_numpy(a).to(dev) for a in B.sign_scalars_host(
-        [1, R - 1, R - 2] + [rng.randrange(1, R)
-                             for _ in range(CHECK_ROWS - 3)]))
-    checks.append(("batch_pubkey", {}, torch.equal(
-        B.batch_pubkey(*args), B.batch_pubkey_plain(*args))))
-    args = sign_args(CHECK_ROWS)
-    args[1][[3, 17]] = True
-    for lanes in (4, 2, 1):
-        checks.append(("batch_sign", {"lanes": lanes}, torch.equal(
-            B.batch_sign(*args, lanes=lanes),
-            B.batch_sign_plain(*args, lanes))))
-    args = kzg_args(CHECK_ROWS)
-    args[2][[5]] = True
-    args[3][[0, 1]] = torch.from_numpy(GK.scalar_words([0, GK.X2])).to(dev)
-    checks.append(("g1_scalar_mul", {}, torch.equal(
-        GK.g1_scalar_mul(*args), GK.g1_scalar_mul_plain(*args))))
-    args = miller_args(CHECK_ROWS)
-    checks.append(("miller_loop_pairs", {}, torch.equal(
-        TP.miller_loop_pairs(*args), TP.miller_loop_pairs_plain(*args))))
-    checks.append(("aggregate_rlc_scale", {}, all(
-        torch.equal(g, w) for g, w in zip(B.aggregate_rlc_scale(*agg),
-                                          B.aggregate_rlc_scale_plain(*agg)))))
-    return {"tree": tree, "ptxas": ptxas, "stack_limit": _build.stack_limit,
+    if wanted("ed25519_verify"):
+        args = ed_args(128)
+        checks.append(("ed25519_verify", {}, all(
+            torch.equal(g, x) for g, x in zip(E.ed25519_verify(*args),
+                                              E.ed25519_verify_plain(*args)))))
+    if wanted("batch_pubkey"):
+        args = tuple(torch.from_numpy(a).to(dev) for a in B.sign_scalars_host(
+            [1, R - 1, R - 2] + [rng.randrange(1, R)
+                                 for _ in range(CHECK_ROWS - 3)]))
+        checks.append(("batch_pubkey", {}, torch.equal(
+            B.batch_pubkey(*args), B.batch_pubkey_plain(*args))))
+    if wanted("batch_sign"):
+        args = sign_args(CHECK_ROWS)
+        args[1][[3, 17]] = True
+        for lanes in (4, 2, 1):
+            checks.append(("batch_sign", {"lanes": lanes}, torch.equal(
+                B.batch_sign(*args, lanes=lanes),
+                B.batch_sign_plain(*args, lanes))))
+    if wanted("g1_scalar_mul"):
+        args = kzg_args(CHECK_ROWS)
+        args[2][[5]] = True
+        args[3][[0, 1]] = torch.from_numpy(GK.scalar_words([0, GK.X2])).to(
+            dev)
+        checks.append(("g1_scalar_mul", {}, torch.equal(
+            GK.g1_scalar_mul(*args), GK.g1_scalar_mul_plain(*args))))
+    if wanted("miller_loop_pairs"):
+        args = miller_args(CHECK_ROWS)
+        checks.append(("miller_loop_pairs", {}, torch.equal(
+            TP.miller_loop_pairs(*args), TP.miller_loop_pairs_plain(*args))))
+    if wanted("aggregate_rlc_scale"):
+        checks.append(("aggregate_rlc_scale", {}, all(
+            torch.equal(g, w) for g, w in zip(
+                B.aggregate_rlc_scale(*agg),
+                B.aggregate_rlc_scale_plain(*agg)))))
+    if wanted("multi_rlc_scale"):
+        for cases in (GR.MULTI_EDGES, GR.seeded_multi_cases(seed, 70)):
+            args = tuple(torch.from_numpy(a).to(dev)
+                         for a in GR.multi_rows(cases, seed))
+            want = B.multi_rlc_scale_plain(*args)
+            for form, call in multi_forms(len(cases)):
+                checks.append(("multi_rlc_scale", {"sets": len(cases),
+                                                   "form": form}, all(
+                    torch.equal(g, w) for g, w in zip(call(*args), want))))
+    for k in (1, 2):
+        name = f"g{k}_group_sum"
+        if not wanted(name):
+            continue
+        fn, plain = getattr(B, name), getattr(B, f"{name}_plain")
+        cases = [("12 x 256", group_args(k, 12, 256, 131))]
+        if planned:  # the plan's edges at this tree's tile
+            rows_e, off_e, _ = GR.group_rows(k, seed, B.group_tile(k))
+            cases.append(("edges", (torch.from_numpy(rows_e).to(dev),
+                                    off_e)))
+            geo = B.launch_geometry(name, 1)
+            if k == 2 and geo[1] != 32 * B.G2_GROUP_WARPS:
+                raise SystemExit(f"{tree}: g2_group_sum's kernel runs "
+                                 f"{geo[1]} threads a tile, the plan "
+                                 f"{B.G2_GROUP_WARPS} warps")
+        for what, (r, o) in cases:
+            checks.append((name, {"rows": what}, torch.equal(
+                fn(r, o), plain(r, o))))
+    return {"tree": arg, "ptxas": ptxas, "stack_limit": _build.stack_limit,
             "nvcc_s": dict(nvcc_s),
             "timings": rows,
             "checks": [{"kernel": k, **v, "equal": ok}
@@ -225,10 +435,12 @@ def main() -> None:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=20261018)
+    ap.add_argument("--only", default="",
+                    help="comma-separated parts of the kernel names to keep")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
-        print(json.dumps(worker(a.trees[0], a.reps, a.seed)))
+        print(json.dumps(worker(a.trees[0], a.reps, a.seed, a.only)))
         return
     import torch
 
@@ -241,11 +453,14 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     failed = False
     for tree in a.trees:
+        path, defines = split_tree(tree)
+        spec = ",".join(f"{k}={v}" for k, v in defines.items())
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
-             os.path.abspath(tree), "--reps", str(a.reps), "--seed",
-             str(a.seed)], capture_output=True, text=True,
-            cwd=os.path.abspath(tree))
+             os.path.abspath(path) + (f":{spec}" if spec else ""),
+             "--reps", str(a.reps), "--seed", str(a.seed), "--only",
+             a.only], capture_output=True, text=True,
+            cwd=os.path.abspath(path))
         if proc.returncode:
             sys.stderr.write(proc.stderr)
             raise SystemExit(f"{tree}: exit {proc.returncode}")
@@ -254,12 +469,18 @@ def main() -> None:
             for line in lines:
                 print(f"{tree}: ptxas {src}: {line}")
         print(f"{tree}: stack limit {res['stack_limit']} B "
-              f"({', '.join(SOURCES)}); nvcc seconds {res['nvcc_s']}")
+              f"({', '.join(res['ptxas'])}); nvcc seconds {res['nvcc_s']}")
         for r in res["timings"]:
             shape = ", ".join(f"{k} {v}" for k, v in r.items()
-                              if k not in ("kernel", "ms"))
+                              if k not in ("kernel", "ms", "device_ms",
+                                           "bound_ms"))
+            dev_ms = ("" if "device_ms" not in r else
+                      "; device not measured" if r["device_ms"] is None
+                      else f"; device {r['device_ms']:.3f} ms (profiler)")
+            b_ms = (f"; bound {r['bound_ms']:.4f} ms" if "bound_ms" in r
+                    else "")
             print(f"{tree}: {r['kernel']} ({shape}): {r['ms']:.3f} ms "
-                  f"[{card}]", flush=True)
+                  f"(CUDA events){dev_ms}{b_ms} [{card}]", flush=True)
         for c in res["checks"]:
             print(f"{tree}: check {c}")
             failed |= not c["equal"]

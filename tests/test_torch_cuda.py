@@ -25,6 +25,7 @@ from grandine_tpu_torch.gpu import pairing as TP
 from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
 from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
 from grandine_tpu_torch.runtime.verify_scheduler import VerifyItem
+from grandine_tpu_torch.testing import group_rows as GR
 from grandine_tpu_torch.testing.pairing_rows import (
     AGGREGATE_EDGES, aggregate_rows, miller_rows)
 
@@ -521,6 +522,46 @@ def test_group_sums_match_plain(cuda_device, k):
     _equal((got,), (plain(rows_t, off),))
     assert fn.launches == before + 1
     assert got[0].tolist() == got[2].tolist()  # ∞ (1, 1, 0) words
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_group_sum_edges_match_plain(cuda_device, k):
+    """group_sum<F>'s plan edges (testing/group_rows.py) at the kernel's
+    tile: empty groups, an all-∞ group, one row, GROUP_CHUNK rows and one
+    more, a group spanning tiles (two passes), P and −P, the same point
+    twice, ∞ then P, six groups of 4; each launched twice alike."""
+    rows, off, names = GR.group_rows(k, 0xC0E0 + k, B.group_tile(k))
+    rows_t = torch.from_numpy(rows).to(cuda_device)
+    fn, plain = ((B.g1_group_sum, B.g1_group_sum_plain) if k == 1
+                 else (B.g2_group_sum, B.g2_group_sum_plain))
+    before = fn.launches
+    got = fn(rows_t, off)
+    _equal((got,), (plain(rows_t, off),))
+    _equal((fn(rows_t, off),), (got,))
+    assert fn.launches == before + 2
+    inf = ~got[:, 2].reshape(len(names), -1).any(-1).cpu()
+    assert inf.tolist() == [n in ("empty", "all ∞", "P and −P")
+                            for n in names]
+
+
+@pytest.mark.parametrize("g2_lanes", [False, True])
+@pytest.mark.parametrize("kind", ["edges", "seeded"])
+def test_multi_rlc_scale_edges_match_plain(cuda_device, kind, g2_lanes):
+    """multi_rlc_scale's edges (r0 = 0, r1 = 0, r = 1, r = 0, halves
+    0xFFFFFFFF, a masked signature, the same key in three sets) and 70
+    seeded sets (two G1 blocks, the second ragged), in both G2 forms: the
+    rule's through the wrapper, the other through the C entry."""
+    cases = (GR.MULTI_EDGES if kind == "edges"
+             else GR.seeded_multi_cases(0xC0E5, 70))
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in GR.multi_rows(cases, 0xC0E6))
+    want = B.multi_rlc_scale_plain(*args)
+    if B.multi_g2_lanes(len(cases)) == g2_lanes:
+        before = B.multi_rlc_scale.launches
+        _equal(B.multi_rlc_scale(*args), want)
+        assert B.multi_rlc_scale.launches == before + 1
+    else:
+        _equal(GR.multi_launch(args, g2_lanes), want)
 
 
 def test_aggregate_seams_and_plane_on_the_card(cuda_device):

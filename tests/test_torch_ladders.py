@@ -1,6 +1,7 @@
 """The lane-split ladders on the CPU: csrc/sign.cu (`batch_sign`,
 `batch_pubkey`), csrc/kzg.cu (`g1_scalar_mul`), csrc/aggregate.cu
-(`aggregate_rlc_scale`) and csrc/ed25519.cu (`ed25519_verify`) compiled
+(`aggregate_rlc_scale`), csrc/ed25519.cu (`ed25519_verify`) and
+csrc/multi.cu (`multi_rlc_scale`, `g1_group_sum`, `g2_group_sum`) compiled
 as plain C++, a row's lanes (or a block's threads and warps) run in turn
 and the warp's shuffles emulated, against the port's plain versions,
 exact (canonical words).
@@ -18,6 +19,15 @@ exact (canonical words).
   r0 = 0, r1 = 0, r = 1, halves 0xFFFFFFFF, an aggregate summing to ∞,
   the same key twice, one member, 130 members, masked signatures, and
   seeded rows — against `aggregate_rlc_scale_plain`.
+- `multi_rlc_scale` (the G1 halves on two lanes, the G2 halves as warp
+  programs or on two lanes, each set's join) on its edges: r0 = 0, r1 =
+  0, r = 1, r = 0, halves 0xFFFFFFFF, a masked signature, the same key in
+  three sets; and on seeded sets — against `multi_rlc_scale_plain`.
+- `g1_group_sum` and `g2_group_sum` (a plan's passes, each tile's units
+  and fold) on empty groups, an all-∞ group, one row, exactly
+  GROUP_CHUNK rows and one more, a group spanning tiles (two passes), P
+  and −P, the same point twice, ∞ then P, and six groups of 4 — against
+  the plain versions (G1 on lanes, G2 as warp programs).
 - `batch_pubkey`'s comb at its two lanes a key: sk = 1, r − 1, r − 2;
   seeded keys; a zero half (a lane's sum ∞), halves below 2⁶⁴, halves of
   all-15 digits, halves (λ, 1) with equal signs (the join doubles) and
@@ -51,6 +61,7 @@ from grandine_tpu_torch.gpu import bls as B
 from grandine_tpu_torch.gpu import ed25519 as E
 from grandine_tpu_torch.gpu import kzg as GK
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.testing import group_rows as GR
 from grandine_tpu_torch.testing import pubkey_rows as PKR
 from grandine_tpu_torch.testing.pairing_rows import (
     AGGREGATE_EDGES, aggregate_rows)
@@ -62,7 +73,39 @@ HARNESS = r"""
 #include "kzg.cu"
 #include "aggregate.cu"
 #include "ed25519.cu"
+#include "multi.cu"
 extern "C" {
+// multi_rlc_scale over n sets: each block's lanes and warps in turn
+void ladders_multi(const uint32_t* src_x, const uint32_t* src_y,
+                   const int32_t* idx, int n, int g2_lanes,
+                   const uint32_t* sig_x, const uint32_t* sig_y,
+                   const bool* sig_mask, const uint32_t* r01, uint32_t* rpk,
+                   uint32_t* rsig, const uint32_t* K) {
+  std::vector<uint32_t> sm(4 * 12 * AGG_WS);
+  for (int b = 0; b < multi_blocks(n, g2_lanes); b++)
+    multi_block(sm.data(), b, n, g2_lanes, src_x, src_y, idx, sig_x, sig_y,
+                sig_mask, r01, rpk, rsig, K);
+}
+
+// one pass of a group-sum plan over n_tiles tiles: G1 lanes (g2 = 0) or
+// G2 warp programs, G2_GROUP_WARPS a tile
+void ladders_group_sum(int g2, const uint32_t* in, const int32_t* tiles,
+                       int n_tiles, uint32_t* out, const uint32_t* K) {
+  std::vector<uint32_t> sm(12 * GS_WS * G2_GROUP_WARPS);
+  for (int t = 0; t < n_tiles; t++) {
+    if (!g2)
+      gs_lanes_tile<fpc>(in, tiles, t, out, K);
+    else
+      gs_warps_tile(sm.data(), in, tiles, t, out, K);
+  }
+}
+
+// multi.cu's compile-time group-sum constants: GROUP_CHUNK, G2_GROUP_WARPS
+void ladders_group_constants(int* out) {
+  out[0] = GROUP_CHUNK;
+  out[1] = G2_GROUP_WARPS;
+}
+
 // batch_pubkey over n keys: each key's lanes in turn, then the shuffle tree
 void ladders_pubkey(const uint32_t* k, const bool* neg, int n, uint32_t* out,
                     const uint32_t* T, const uint32_t* K) {
@@ -170,7 +213,7 @@ void ladders_split(const uint32_t* k, int n, uint32_t* out) {
 """
 
 FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-I", _build.CSRC]
-SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu", "ed25519.cu")
+SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu", "ed25519.cu", "multi.cu")
 ABS_X = -X
 X2 = X * X
 rng = random.Random(0x1AD)
@@ -423,3 +466,76 @@ def test_ed25519_lanes_equal_plain(lib, kind):
     assert verdict.tolist() == want[0].tolist()
     assert np.array_equal(rows, want[1].numpy())
     assert np.array_equal(total, want[2].numpy())
+
+
+# --- multi_rlc_scale: the GLV halves apart ----------------------------------
+
+MULTI_CASES = {"edges": GR.MULTI_EDGES,
+               "seeded": GR.seeded_multi_cases(0x3C, 10)}
+
+
+@pytest.mark.parametrize("g2_lanes", [0, 1])
+@pytest.mark.parametrize("rows", sorted(MULTI_CASES))
+def test_multi_lanes_equal_plain(lib, rows, g2_lanes):
+    """Both G2 forms give the plain version's words."""
+    args = GR.multi_rows(MULTI_CASES[rows], len(rows))
+    n = args[2].shape[0]
+    rpk = np.zeros((n, 3, 12), np.uint32)
+    rsig = np.zeros((n, 3, 2, 12), np.uint32)
+    lib.ladders_multi(*(_ptr(a) for a in args[:3]), n, g2_lanes,
+                      *(_ptr(a) for a in args[3:]), _ptr(rpk), _ptr(rsig),
+                      _ptr(K))
+    want = B.multi_rlc_scale_plain(*(torch.from_numpy(a) for a in args))
+    assert np.array_equal(rpk.view(np.int32), want[0].numpy())
+    assert np.array_equal(rsig.view(np.int32), want[1].numpy())
+    masked = args[5]
+    assert not rsig[masked, 2].any()
+    assert (rsig[masked][:, :2, 0, 0] == 1).all()
+    if rows == "edges":
+        assert not rpk[8, 2].any() and not rsig[8, 2].any()  # r = 0
+
+
+# --- g1_group_sum, g2_group_sum: a plan's passes -------------------------------
+
+#: k of each form: G1 lanes, G2 warp programs
+GROUP_FORMS = {"g1 lanes": 1, "g2 warps": 2}
+
+
+def group_sum_host(lib, rows, offsets, k):
+    """The plan's passes through the harness, each tile in turn."""
+    src = np.ascontiguousarray(rows)
+    for tiles in B.group_sum_plan(offsets, B.group_tile(k)):
+        out = np.zeros((tiles.shape[0],) + rows.shape[1:], np.int32)
+        lib.ladders_group_sum(k - 1, _ptr(src), _ptr(tiles), tiles.shape[0],
+                              _ptr(out), _ptr(K))
+        src = out
+    return src
+
+
+def test_group_sum_constants_mirror_the_kernel(lib):
+    """gpu/bls.py's GROUP_CHUNK and G2_GROUP_WARPS are multi.cu's: the
+    plan's tiles are the kernel's (a wider kernel tile would drop none,
+    a narrower one would leave units out)."""
+    got = np.zeros(2, np.int32)
+    lib.ladders_group_constants(_ptr(got))
+    assert got.tolist() == [B.GROUP_CHUNK, B.G2_GROUP_WARPS]
+    assert B.group_tile(2) == B.G2_GROUP_WARPS
+    assert B.group_tile(1) == B.GROUP_LANES == 32
+
+
+@pytest.mark.parametrize("form", sorted(GROUP_FORMS))
+def test_group_sum_tiles_equal_plain(lib, form):
+    k = GROUP_FORMS[form]
+    tile = B.group_tile(k)
+    rows, offsets, names = GR.group_rows(k, 0x6E + k, tile)
+    got = group_sum_host(lib, rows, offsets, k)
+    plain = B.g1_group_sum_plain if k == 1 else B.g2_group_sum_plain
+    want = plain(torch.from_numpy(rows), offsets).numpy()
+    assert np.array_equal(got, want)
+    z = got[:, 2].reshape(len(names), -1)
+    for name, zero, row in zip(names, ~z.any(-1), got):
+        assert zero == (name in ("empty", "all ∞", "P and −P")), name
+        if zero:  # ∞ as (1, 1, 0)
+            assert row.reshape(3, -1)[:2, 0].tolist() == [1, 1]
+            assert not row.reshape(3, -1)[:2, 1:].any()
+    assert len(B.group_sum_plan(offsets, tile)) == 2  # the spanning group
