@@ -9,7 +9,11 @@ Phases (any failure raises and exits non-zero):
   2. each of the first five kernels against its plain version on the
      card, on edge rows at a reduced size (2,048 registry rows with
      infinity and bad rows, 8 aggregates with a bad and a non-G2
-     signature, ∞ pairs): exact equality; rlc_finish's edge groups (f
+     signature, ∞ pairs; g2_decompress_subgroup also on the edge corpus
+     of testing/decompress_rows.py — G2 points with both sign bits, y²
+     with c1 = 0 on either root, a point outside G2, an x with no y, x0 ≥
+     p, x1 ≥ p, the compression flag clear, ∞ and its bad forms, the
+     all-zero row — with its launch geometry): exact equality; rlc_finish's edge groups (f
      terms only, signature terms only, an ∞ signature sum, spans 1, 8,
      9, 128 and 129, the 2,048-group per-item rung), each launched
      FINISH_REPEATS times with the same verdicts and held against the
@@ -20,9 +24,11 @@ Phases (any failure raises and exits non-zero):
      130 members, masked signatures), EDGE_REPEATS launches each, every
      launch equal to
      the plain version, with each shape's geometry and CUDA-event time;
-     ptxas' stack need and registers of the pairing, aggregate, ladder,
-     comb, Ed25519 and multi.cu kernels against STACK_CEILING (multi.cu's
-     four entries each on a line with their spills), and the warp rounds
+     ptxas' stack need and registers of the pairing, decompression,
+     aggregate, ladder, comb, Ed25519 and multi.cu kernels against
+     STACK_CEILING (DETAILED_KERNELS each on a line with their spills:
+     multi.cu's four entries, rlc_partial, g2_decompress_subgroup), and
+     the warp rounds
      of a group's tail and of a pair's Miller loop;
   3. the main path at real size: a 50,000-validator registry ingested on
      the card, then one slot of gossip aggregates (12 committees × 16
@@ -156,7 +162,8 @@ Phases (any failure raises and exits non-zero):
      block lane via DeferredVerifier over that registry, devices == 4 on
      its flight records, 0 device faults, degraded batches, breaker skips
      and retries; over distinct cards (VerifyMesh.build()) when there are
-     several; every rlc_partial launch against its plain version, exactly;
+     several; every rlc_partial launch against its plain version, exactly,
+     each launch shape with its passes' geometry;
      the sharded and single-device routes timed on the same triples, p50
      of 3 in turns, host clock and the kernels' span by CUDA events;
  12. the reference-only programs at full width (gpu.bls counterparts of
@@ -211,6 +218,8 @@ Phases (any failure raises and exits non-zero):
      G2 shapes), and its time there (CUDA events, after
      warm-up) beside the plain version's, its bound and, where one stock
      PyTorch computation gives the same function, that one's;
+     g2_decompress_subgroup's split at the gossip slot's rows (each row's
+     stage clocks: decompression against the ψ check) with its geometry;
      end-to-end p50 of the gossip batch, the block and the window with
      the hash-to-G2 cache warm and cold, host prep kept apart from
      device time; then every miller_loop_pairs, aggregate_rlc_scale,
@@ -219,9 +228,12 @@ Phases (any failure raises and exits non-zero):
      stacked with their offsets shifted) — the timing table's own launches
      are checked in the table, or there at a kernel's later shapes; the
      full bucket's batch_sign launch gives again the words of its phase-7
-     launch on the same operands, held there against the plain version.
-     The edge sets of phase 4, the timing table and these checks each log
-     their seconds.
+     launch on the same operands, held there against the plain version,
+     and ed25519_verify at B = 32 and 8 the words of the scheduler phase's
+     first launch at that bucket; the KZG batch verify's miller_loop_pairs
+     and rlc_finish join the batched checks. The edge sets of phase 4,
+     phase 2's g2_decompress_subgroup check, the split, the timing table
+     and these checks each log their seconds.
 Prints the card's name and power limit, one `kernels` JSON line, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -278,6 +290,11 @@ GROUPED_LAUNCHES = {"msm_lane_scan": 2, "msm_bucket_reduce": 2,
 #: csrc/multi.cu's kernels as ptxas names them (phase 1's lines)
 MULTI_KERNELS = ("multi_rlc_scale_kernelILi0E", "multi_rlc_scale_kernelILi1E",
                  "group_sum_lanes_kernel", "group_sum_warps_kernel")
+#: the kernels whose registers, stack and spills phase 1 logs a line each:
+#: csrc/multi.cu's and the warp forms of rlc_partial and
+#: g2_decompress_subgroup
+DETAILED_KERNELS = MULTI_KERNELS + ("rlc_partial_kernel",
+                                    "g2_decompress_subgroup_kernel")
 #: the per-thread stack ceiling: no kernel's ptxas stack need may pass it
 #: (the limit the build sets is the deepest need rounded up to 1 KiB;
 #: 5,120 B since rlc_finish's warp tail, 264 MiB of device memory per KiB)
@@ -423,8 +440,19 @@ class OpModel:
         # cyclotomic square (Granger–Scott)
         self.sq12, self.line, self.cyc = 36, 42, 18
         self.dbl1, self.madd1, self.add1 = 7, 11, 16
-        self.fq2_sqrt = 2 + 3 * self.sqrt + 2 + 2 * (self.sqrt + self.inv + 4)
-        psi = (64 * self.dbl1 + (bin(abs_x).count("1") - 1) * self.madd1
+        # y²'s root at the worse of its two branches: the norm and the
+        # candidates' t = (c0 ± √norm)/2; where c1 ≠ 0, √norm with its
+        # check and each candidate's one exponentiation u = t^((p−3)/4)
+        # giving its root u·t and its 1/(2·root) = u/2 (two products) and
+        # the three products of its checks; where c1 = 0, √c0 and √−c0
+        # with their checks. (The kernel computes √c0 and √−c0 on every
+        # row, beside √norm: work no row needs, left out of the bound.)
+        self.fq2_sqrt = 2 + 2 + max(
+            2 * self.sqrt, self.sqrt + 2 * (pw((P - 3) // 4) + 1 + 2 + 3))
+        # ψ(P) + [|x|]P: 63 doublings (the first step's doubling is of ∞)
+        # and the set bits' mixed additions in Fp2, the complete addition,
+        # ψ's two Fp2 products
+        psi = (63 * self.dbl1 + (bin(abs_x).count("1") - 1) * self.madd1
                + self.add1) * 3 + 2 * 3
         self.psi = psi
         self.g1_row = 6 + self.sqrt
@@ -1900,20 +1928,23 @@ def kzg_phase(c):
                         "370" if entry.endswith("kzg") else "150"),
                     n_l, entry))
     c.blobs, c.comms, c.proofs = blobs, comms, proofs  # for the lanes
+    # the pairing kernels at the batch verify's shape: later shapes of the
+    # gossip rows' entries, their plain calls joining the batched checks
+    # at the end of the table (check_pairing_launches, finish_plain_batched)
     ml = ver["miller_loop_pairs"]
     out.append(("miller_loop_pairs", "batch verify, 4 pairs",
                 lambda a=ml: TP.miller_loop_pairs(*a),
-                lambda a=ml: TP.miller_loop_pairs_plain(*a), 5,
+                partial(TP.miller_loop_pairs_plain, *ml), 5,
                 c.ops.miller * int((~ml[2]).sum()),
                 4 * (144 + 96 + 1 + 576), "grandine_tpu/kzg/eip4844.py:370",
-                verifier["miller_loop_pairs"], "miller_loop_pairs/kzg"))
+                verifier["miller_loop_pairs"], "miller_loop_pairs"))
     groups, nbytes = finish_shape(rec["rlc_finish"].calls[0])
     out.append(("rlc_finish", "batch verify, 1 group of 4 terms",
                 lambda a=ver["rlc_finish"]: B.rlc_finish(*a),
-                lambda a=ver["rlc_finish"]: B.rlc_finish_plain(*a), 3,
+                partial(B.rlc_finish_plain, *ver["rlc_finish"]), 3,
                 c.ops.finish(groups), nbytes,
                 "grandine_tpu/kzg/eip4844.py:370", verifier["rlc_finish"],
-                "rlc_finish/kzg"))
+                "rlc_finish"))
     return out
 
 
@@ -2365,19 +2396,24 @@ def scheduler_phase(c):
     # kernels-line rows: (name, where, kernel, plain, reps, field products,
     # bytes, replaces, launches on its path, entry, int32 multiplies a
     # product)
+    # the lane's B = 128 first, with its plain call; the bisection's
+    # buckets are later shapes of that entry, held against the words of
+    # their first recorded launch (checked above with every launch)
     out = []
-    for b in E.BUCKETS:
-        recorded = [a for a, _ in ed_calls if a[0].shape[0] == b]
-        ops_in = recorded[0] if recorded else edge[b]
+    for b in sorted(E.BUCKETS, reverse=True):
+        recorded = [(a, o) for a, o in ed_calls if a[0].shape[0] == b]
+        ops_in = recorded[0][0] if recorded else edge[b]
         where = (f"ed25519 lane, B = {b}" if recorded
                  else f"edge rows, B = {b}")
+        plain = (HeldLaunch(words=recorded[0][1], where="the phase's check "
+                            f"of every launch at B = {b}")
+                 if recorded and out else
+                 partial(E.ed25519_verify_plain, *ops_in))
         out.append(("ed25519_verify", where,
-                    lambda a=ops_in: E.ed25519_verify(*a),
-                    lambda a=ops_in: E.ed25519_verify_plain(*a), 5,
+                    lambda a=ops_in: E.ed25519_verify(*a), plain, 5,
                     ed_verify_ops(ops_in[3]), b * (4 * 32 + 128) + 128 + 1,
                     "grandine_tpu/tpu/ed25519.py:298", len(recorded),
-                    "ed25519_verify" + ("" if b == 128 else f"/b{b}"),
-                    MULS_PER_ED_MUL))
+                    "ed25519_verify", MULS_PER_ED_MUL))
     return out
 
 
@@ -2977,11 +3013,20 @@ def mesh_phase(c):
                 f"ms); sharded / single {p50['sharded'][0] / p50['single'][0]:.3f}"
                 f" — virtual shards on one card: launch and gather "
                 f"overhead, not scaling {c.at}")
-    worst = 0
+    worst, shapes = 0, {}
     for ops_r, out in rec.calls:
         for g, r in zip(out, B.rlc_partial_plain(*ops_r)):
             diff = (g.cpu().to(torch.int64) - r.cpu().to(torch.int64)).abs()
             worst = max(worst, int(diff.max()) if diff.numel() else 0)
+        f_off = ops_r[4] if len(ops_r) > 4 and ops_r[4] is not None else [
+            0, ops_r[0].shape[0]]
+        spans = tuple(np.diff(np.asarray(f_off)).tolist())
+        shapes[spans] = shapes.get(spans, 0) + 1
+    for spans, count in shapes.items():
+        log(f"rlc_partial launch, {len(spans)} groups of {min(spans)}-"
+            f"{max(spans)} terms ({count} launches): geometry of each pass "
+            f"(blocks, threads, shared bytes, blocks an SM) "
+            f"{B.rlc_partial_geometry(np.concatenate([[0], np.cumsum(spans)]))}")
     log(f"check rlc_partial (every launch of the mesh phase, "
         f"{len(rec.calls)} launches): max |kernel - plain| = {worst} (exact "
         f"required) {c.at}")
@@ -3869,6 +3914,7 @@ def main() -> None:
     from grandine_tpu_torch.gpu import pairing as TP
     from grandine_tpu_torch.gpu import spans as GS
     from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
+    from grandine_tpu_torch.testing import decompress_rows as DR
     from grandine_tpu_torch.testing import group_rows as GR
     from grandine_tpu_torch.testing import pairing_rows as PR
     from grandine_tpu_torch.consensus.verifier import (
@@ -3942,6 +3988,7 @@ def main() -> None:
     needs = {}
     for lib, names in (("pairing", ("rlc_finish_kernel", "rlc_partial_kernel",
                                     "miller_loop_pairs_kernel")),
+                       ("decompress", ("g2_decompress_subgroup_kernel",)),
                        ("aggregate", ("aggregate_rlc_scale_kernel",)),
                        ("sign", ("batch_sign_kernelILi4",
                                  "batch_sign_kernelILi2",
@@ -3954,8 +4001,8 @@ def main() -> None:
         with open(os.path.join(_build.BUILD_DIR, f"lib{lib}.so.log")) as fh:
             blog = fh.read()
         needs.update({k: kernel_ptxas(blog, k) for k in names})
-        if lib == "multi":
-            for k in names:
+        for k in names:
+            if k in DETAILED_KERNELS:
                 regs, stack = needs[k] or (None, None)
                 spills = kernel_spills(blog, k)
                 log(f"ptxas {k}: {regs} registers, {stack} B cumulative "
@@ -4037,13 +4084,26 @@ def main() -> None:
     sm = 8
     nonsub = A.g2_to_bytes(map_to_curve_g2(
         hash_to_field_fq2(b"ng-0", b"SGT", 1)[0]))
-    srows = np.frombuffer(b"".join(sigs[:sm - 2] + [nonsub, bytes([0x80]) +
-                                                    b"\x11" * 95]),
-                          np.uint8).reshape(-1, 96)
+    t_dec = time.perf_counter()
+    d_edges, d_names = DR.edge_rows()
+    srows = np.concatenate([np.frombuffer(
+        b"".join(sigs[:sm - 2] + [nonsub, bytes([0x80]) + b"\x11" * 95]),
+        np.uint8).reshape(-1, 96), d_edges])
     srows_t = torch.from_numpy(srows.copy()).to(dev)
     dec = C.g2_decompress_subgroup(srows_t)
     same("g2_decompress_subgroup", dec, C.g2_decompress_subgroup_plain(srows_t),
-         edge)
+         f"{edge}; the edge corpus of testing/decompress_rows.py: "
+         f"{', '.join(dict.fromkeys(d_names))}")
+    if list(zip(dec[3][sm:].tolist(), dec[7][sm:].tolist())) != [
+            DR.EXPECTED[n] for n in d_names]:
+        fail("g2_decompress_subgroup: the edge corpus's (ok, in_subgroup) "
+             "flags are not the corpus's")
+    log(f"g2_decompress_subgroup edge launch, {srows.shape[0]} rows: "
+        f"geometry (blocks, threads, shared bytes, blocks an SM) "
+        f"{C.g2_decompress_subgroup_geometry(srows.shape[0])}; its check "
+        f"({sm} edge rows and the corpus's {d_edges.shape[0]}, one launch "
+        f"and one plain call) in {time.perf_counter() - t_dec:.2f} s")
+    dec = tuple(t[:sm] for t in dec)
     reg_small = DevicePubkeyRegistry(device=dev)
     sub_members = [[i % (small - 2) for i in mm[:40]] for mm in members[:sm]]
     idx = np.zeros((sm, 40), np.int32)
@@ -4793,6 +4853,24 @@ def main() -> None:
     pairs = [B.TorchBlsBackend._rlc_pair(bits) for _ in range(m_aggs)]
     r01 = torch.from_numpy(B.rlc_pairs_words(pairs)).to(dev)
     dec = C.g2_decompress_subgroup(sig_rows)
+    # the kernel's split at the gossip slot's rows: each row's stage
+    # clocks (one more launch, held against the one above)
+    t_split = time.perf_counter()
+    split_out, clocks = C.g2_decompress_subgroup_split(sig_rows)
+    if not all(torch.equal(a, b) for a, b in zip(split_out, dec)):
+        fail("g2_decompress_subgroup: the split launch's outputs differ")
+    clk = clocks.cpu().numpy().astype(np.float64)
+    dec_c, psi_c = clk[:, 1] - clk[:, 0], clk[:, 2] - clk[:, 1]
+    log(f"g2_decompress_subgroup split, {m_aggs} rows, one warp a row "
+        f"(stage clocks, mean / max a row): decompression "
+        f"{dec_c.mean():.0f} / {dec_c.max():.0f} cycles "
+        f"({dec_c.mean() / clock_hz * 1e3:.3f} ms at the max SM clock), "
+        f"psi check {psi_c.mean():.0f} / {psi_c.max():.0f} cycles "
+        f"({psi_c.mean() / clock_hz * 1e3:.3f} ms); decompression's share "
+        f"{dec_c.mean() / (dec_c + psi_c).mean():.3f}; geometry (blocks, "
+        f"threads, shared bytes, blocks an SM) "
+        f"{C.g2_decompress_subgroup_geometry(m_aggs)}; the split launch and "
+        f"its check in {time.perf_counter() - t_split:.2f} s {at}")
     agg_args = (rx, ry, torch.from_numpy(idx).to(dev),
                 torch.from_numpy(cnt).to(dev), dec[0], dec[1],
                 dec[2] | ~dec[3], r01)

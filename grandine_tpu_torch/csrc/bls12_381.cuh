@@ -55,6 +55,7 @@ enum ConstIdx {
   K_G2_WX, K_G2_WY,            // G2 endomorphism, Fp scalars (Montgomery)
   K_PSI_CX0, K_PSI_CX1, K_PSI_CY0, K_PSI_CY1,  // psi constants
   K_NEG_G1_X, K_NEG_G1_Y,      // -g1 affine (Montgomery)
+  K_QR_EXP,        // (p-3)/4 (plain integer)
   K_COUNT
 };
 
@@ -307,15 +308,6 @@ BLS_HD fp2 kfp2(const uint32_t* K, int i0, int i1) {
   return {fp_load(K + 12 * i0), fp_load(K + 12 * i1)};
 }
 
-BLS_HD fp12 fp12_one(const uint32_t* K) {
-  fp12 r;
-  fp2 z = {fp_zero(), fp_zero()};
-  r.c0.c0 = {fp_load(K + 12 * K_ONE), fp_zero()};
-  r.c0.c1 = z; r.c0.c2 = z;
-  r.c1.c0 = z; r.c1.c1 = z; r.c1.c2 = z;
-  return r;
-}
-
 BLS_HD bool fp2_eq(const fp2& a, const fp2& b) {
   return fp_eq(a.c0, b.c0) && fp_eq(a.c1, b.c1);
 }
@@ -515,43 +507,6 @@ BLS_HD fp fq_sqrt(const fp& a, bool& ok, const uint32_t* K) {
   return s;
 }
 
-// The norm/half algorithm of gpu/field.py fq2_sqrt (the JAX package's),
-// evaluated with the same candidate order so the same root comes back.
-BLS_NI fp2 fq2_sqrt(const fp2& a, bool& ok, const uint32_t* K) {
-  fp ca = a.c0, cb = a.c1;
-  fp half = fp_load(K + 12 * K_HALF);
-  fp norm = fp_add(fp_sq(ca), fp_sq(cb));
-  bool ok_a, ok_na, ok_n;
-  fp sa = fq_sqrt(ca, ok_a, K);
-  fp sna = fq_sqrt(fp_neg(ca), ok_na, K);
-  fp sn = fq_sqrt(norm, ok_n, K);
-  fp2 res;
-  if (fp_is_zero(cb)) {
-    ok = ok_a || ok_na;
-    res.c0 = ok_a ? sa : fp_zero();
-    res.c1 = ok_a ? fp_zero() : sna;
-    return res;
-  }
-  fp t2[2] = {fp_mul(fp_add(ca, sn), half), fp_mul(fp_sub(ca, sn), half)};
-  bool cand_ok[2];
-  fp s2[2], c1b[2];
-  for (int k = 0; k < 2; k++) {
-    bool okk;
-    s2[k] = fq_sqrt(t2[k], okk, K);
-    okk = okk && !fp_is_zero(s2[k]);
-    fp d = fp_dbl(s2[k]);
-    fp di = fp_pow(d, K + 12 * K_INV_EXP);
-    c1b[k] = fp_mul(cb, di);
-    fp sq0 = fp_sub(fp_sq(s2[k]), fp_sq(c1b[k]));
-    fp sq1 = fp_dbl(fp_mul(s2[k], c1b[k]));
-    cand_ok[k] = okk && fp_eq(sq0, ca) && fp_eq(sq1, cb);
-  }
-  ok = ok_n && (cand_ok[0] || cand_ok[1]);
-  res.c0 = cand_ok[0] ? s2[0] : s2[1];
-  res.c1 = cand_ok[0] ? c1b[0] : c1b[1];
-  return res;
-}
-
 // 48 big-endian payload bytes (flags already masked) -> canonical limbs
 BLS_HD fp fp_from_be(const uint8_t* b) {
   fp r;
@@ -609,40 +564,6 @@ BLS_NI dec_flags g1_decompress_row(const uint8_t* row, fp& x_out, fp& y_out,
   return f;
 }
 
-// One G2 row: x, y Montgomery (zero unless live) and the decode flags.
-BLS_NI dec_flags g2_decompress_row(const uint8_t* row, fp2& x, fp2& y,
-                                   const uint32_t* K) {
-  uint8_t b[96];
-  bool pz = true;
-  for (int i = 0; i < 96; i++) {
-    b[i] = row[i];
-    if (i == 0) b[i] &= 0x1f;
-    pz = pz && (b[i] == 0);
-  }
-  fp x1c = fp_from_be(b), x0c = fp_from_be(b + 48);
-  bool lt_p = !fp_geq_p(x0c) && !fp_geq_p(x1c);
-  fp r2 = fp_load(K + 12 * K_R2);
-  x.c0 = fp_mul(x0c, r2);
-  x.c1 = fp_mul(x1c, r2);
-  fp2 b2 = {fp_load(K + 12 * K_B), fp_load(K + 12 * K_B)};
-  fp2 y2 = fp2_add(fp2_mul(fp2_sq(x), x), b2);
-  bool y_ok;
-  y = fq2_sqrt(y2, y_ok, K);
-  fp one_c = fp_zero();
-  one_c.l[0] = 1;
-  fp y0c = fp_mul(y.c0, one_c), y1c = fp_mul(y.c1, one_c);
-  fp half = fp_load(K + 12 * K_HALF_CANON);
-  bool larger = fp_geq(y1c, half) || (fp_is_zero(y1c) && fp_geq(y0c, half));
-  bool sgn = row[0] & 0x20;
-  if (sgn != larger) y = fp2_neg(y);
-  dec_flags f = decode_masks(row[0], pz, lt_p, y_ok);
-  if (!(f.ok && !f.inf)) {
-    f_zero(x);
-    f_zero(y);
-  }
-  return f;
-}
-
 // psi(P) + [|x|]P == infinity (Montgomery affine P, not infinity)
 BLS_NI bool psi_check(const fp2& x, const fp2& y, const uint32_t* K) {
   jac<fp2> xp = scalar_mul_bits<fp2>(x, y, BLS_ABS_X, 64, K);
@@ -688,25 +609,6 @@ BLS_HD void f_in(fpc& r, const uint32_t* w, const uint32_t* K) {
 BLS_HD void f_out(uint32_t* w, const fp& a) { mont_out(w, a); }
 BLS_HD void f_out(uint32_t* w, const fp2& a) { mont_out2(w, a); }
 BLS_HD void f_out(uint32_t* w, const fpc& a) { mont_out(w, a.v); }
-
-BLS_HD void fp6_out(uint32_t* w, const fp6& a) {
-  mont_out2(w, a.c0);
-  mont_out2(w + 24, a.c1);
-  mont_out2(w + 48, a.c2);
-}
-
-BLS_HD void fp12_out(uint32_t* w, const fp12& a) {
-  fp6_out(w, a.c0);
-  fp6_out(w + 72, a.c1);
-}
-
-BLS_HD fp6 fp6_in(const uint32_t* w, const uint32_t* K) {
-  return {mont_in2(w, K), mont_in2(w + 24, K), mont_in2(w + 48, K)};
-}
-
-BLS_HD fp12 fp12_in(const uint32_t* w, const uint32_t* K) {
-  return {fp6_in(w, K), fp6_in(w + 72, K)};
-}
 
 // --- block reduction ---------------------------------------------------------
 

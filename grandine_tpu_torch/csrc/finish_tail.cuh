@@ -35,7 +35,27 @@
 #endif
 #include "finish_programs.cuh"
 
+// rows a unit of a group-sum or rlc_partial tile folds in order, mirrored
+// in gpu/bls.py (its group_sum_plan) and chosen by ladder_timing.py's
+// runs; a build sets another value (-D) only for such a run
+// (ladder_timing.py TREE:NAME=V)
+#ifndef GROUP_CHUNK
+#define GROUP_CHUNK 2
+#endif
+
 namespace bls {
+
+// the live units of a plan's tile of `count` items (gpu/bls.py
+// group_sum_plan), and the first level of their fold
+BLS_HD int gs_units(int count) {
+  return (count + GROUP_CHUNK - 1) / GROUP_CHUNK;
+}
+BLS_HD int gs_top(int k) {
+  int s = 1;
+  while (s < k) s <<= 1;
+  return s >> 1;
+}
+
 namespace tail {
 
 // --- stages ----------------------------------------------------------------
@@ -377,6 +397,22 @@ BLS_HD void warp_set_one(uint32_t* dst, const uint32_t* K) {
   });
 }
 
+// One level of a product tree by the T-thread block's warps: part[t] *=
+// part[t + s] for t < s with t + s < n, warp w taking t = w, w + W, ... (a
+// MUL program a product); scratch(w) is warp w's scratch
+template <class Scratch>
+BLS_HD void warps_mul_level(int T, fp12* part, int s, int n,
+                            Scratch scratch) {
+  int W = T / 32;
+  warps_each(T, [&](int w) {
+    for (int t = w; t < s && t + s < n; t += W) {
+      uint32_t* a = reinterpret_cast<uint32_t*>(part + t);
+      run(PROG_MUL, a, reinterpret_cast<uint32_t*>(part + t + s), a, nullptr,
+          scratch(w));
+    }
+  });
+}
+
 // a <- a + b (Jacobian G2) by one warp, with the cases of
 // point_add_complete: b at infinity leaves a, a at infinity takes b; the
 // generic sum unless H = 0, where the points are equal (r = 0: a doubling
@@ -516,13 +552,8 @@ BLS_HD void finish_group(uint32_t* sm, int T, int NF, int NS, bool terms,
         if (t < s && t + s < nf) fp12_mul_to(fpart[t], fpart[t], fpart[t + s]);
       });
     } else {
-      warps_each(T, [&](int w) {
-        for (int t = w; t < s && t + s < nf; t += W) {
-          uint32_t* a = reinterpret_cast<uint32_t*>(fpart + t);
-          run(PROG_MUL, a, reinterpret_cast<uint32_t*>(fpart + t + s), a,
-              nullptr, warp_scratch(sm, l, w));
-        }
-      });
+      warps_mul_level(T, fpart, s, nf,
+                      [&](int w) { return warp_scratch(sm, l, w); });
     }
   }
   warps_each(T, [&](int w) {

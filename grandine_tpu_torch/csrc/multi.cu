@@ -25,13 +25,10 @@ using namespace bls;
 
 // threads of a multi_rlc_scale block and of a group_sum lane block
 #define MULTI_BLOCK 128
-// rows a group_sum unit adds in order, and warps a g2_group_sum tile (one
-// warp a unit), each mirrored in gpu/bls.py and chosen by
+// warps a g2_group_sum tile (one warp a unit of GROUP_CHUNK rows,
+// csrc/finish_tail.cuh), mirrored in gpu/bls.py and chosen by
 // ladder_timing.py's runs; a build sets another value (-D) only for such
 // a run (ladder_timing.py TREE:NAME=V)
-#ifndef GROUP_CHUNK
-#define GROUP_CHUNK 2
-#endif
 #ifndef G2_GROUP_WARPS
 #define G2_GROUP_WARPS 8
 #endif
@@ -183,16 +180,6 @@ TAIL_HHD int multi_blocks(int n, int g2_lanes) {
 // shuffles), 4 tiles a block. G2 (warp form): a unit is a warp running
 // G2ADD warp programs (warp_g2_join), a tile a block of G2_GROUP_WARPS
 // warps folding through shared memory.
-
-// the live units of a tile, and the first level of its fold
-BLS_HD int gs_units(int count) {
-  return (count + GROUP_CHUNK - 1) / GROUP_CHUNK;
-}
-BLS_HD int gs_top(int k) {
-  int s = 1;
-  while (s < k) s <<= 1;
-  return s >> 1;
-}
 
 template <class F>
 BLS_HD jac<F> gs_row(const uint32_t* in, size_t i, const uint32_t* K) {

@@ -1,7 +1,6 @@
 // The pairing kernels of the BLS verify path: miller_loop_pairs,
 // rlc_finish and rlc_partial (the per-shard product of the sharded
-// verify programs). miller_loop_pairs and rlc_finish run warp programs
-// (csrc/finish_tail.cuh).
+// verify programs). All three run warp programs (csrc/finish_tail.cuh).
 //
 // Behind a plain C interface loaded with ctypes (grandine_tpu_torch/gpu/
 // _build.py, one library per source, built in parallel). Every field value
@@ -11,12 +10,118 @@
 // each kernel replaces in the JAX package, what bounds it on the card and
 // what its design does about that is written beside its Python wrapper
 // (gpu/curve.py, gpu/bls.py, gpu/pairing.py).
+//
+// rlc_partial's tile (partial_tile) also compiles as plain C++ (no
+// __CUDACC__): a block's threads and warps then run in turn, so a host
+// harness reproduces the kernel's words exactly.
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 #include "bls12_381.cuh"
 #include "finish_tail.cuh"
 
 using namespace bls;
+
+// warps an rlc_partial tile (one warp a unit of GROUP_CHUNK terms), mirrored
+// in gpu/bls.py; a build sets another value (-D) only for a
+// ladder_timing.py run (TREE:NAME=V)
+#ifndef PARTIAL_WARPS
+#define PARTIAL_WARPS 8
+#endif
+
+// --- rlc_partial: a plan's tiles, a block of warps a tile -------------------
+//
+// Group g owns the Fp12 terms f[f_off[g] .. f_off[g+1]) with their agg_inf
+// flags and the signature rows [s_off[g] .. s_off[g+1]) with sig_ok and
+// sig_sub. It gets the product of its f terms (canonical words; one for
+// an empty group) and one flag byte: bit 0 any agg_inf of its terms, bit 1
+// every signature row decoded and in G2. No Miller loop of the signature
+// sum and no final exponentiation: that is the finish's, once, over every
+// shard's partial. The product runs the plan of the group sums (gpu/bls.py
+// group_sum_plan at PARTIAL_WARPS units a tile), one launch a pass: a
+// tile's block of PARTIAL_WARPS warps, warp u multiplying items u*C ..
+// (u+1)*C - 1 of the tile (C = GROUP_CHUNK; each converted into Montgomery
+// form by 12 lanes) with MUL warp programs, then the units' products folded
+// pairwise by MUL programs (finish_tail.cuh warps_mul_level, rlc_finish's
+// upper levels), one output row a tile (one for a tile of no item). The
+// last pass has one tile a group, in order, and its block also reduces
+// the group's flag byte over both of its ranges.
+
+// Shared memory of a tile's block, in 32-bit words: the warps' products
+// (Fp12), their term buffers (Fp12), their scratch, two flag words
+enum { PT_PART = 0, PT_TERM = 144 * PARTIAL_WARPS,
+       PT_SCRATCH = 2 * 144 * PARTIAL_WARPS,
+       PT_FLAG = PT_SCRATCH + 12 * FOLD_SCRATCH * PARTIAL_WARPS,
+       PT_WORDS = PT_FLAG + 4 };
+
+// the calling warp's 12 lanes: an Fp12 row's canonical words into `dst`
+// as Montgomery values
+BLS_HD void warp_fp12_in(uint32_t* dst, const uint32_t* row,
+                         const uint32_t* K) {
+  tail::warp_each([&](int lane) {
+    if (lane < 12) fp_store(dst + 12 * lane, mont_in(row + 12 * lane, K));
+  });
+}
+
+// Tile `tile` of a pass over the rows `in` (every thread of the block calls
+// this; `sm` holds PT_WORDS words, 16-byte aligned): its product to
+// out[tile]; with `flags`, the last pass, tile = group also gets its flag
+// byte.
+BLS_HD void partial_tile(uint32_t* sm, const uint32_t* in,
+                         const int32_t* tiles, int tile, uint32_t* out,
+                         const bool* agg_inf, const bool* sig_ok,
+                         const bool* sig_sub, const int32_t* f_off,
+                         const int32_t* s_off, uint8_t* flags,
+                         const uint32_t* K) {
+  constexpr int C = GROUP_CHUNK, T = 32 * PARTIAL_WARPS;
+  fp12* part = reinterpret_cast<fp12*>(sm + PT_PART);
+  auto scratch = [&](int w) { return sm + PT_SCRATCH + 12 * FOLD_SCRATCH * w; };
+  int start = tiles[2 * tile], count = tiles[2 * tile + 1];
+  int k = gs_units(count);
+  tail::warps_each(T, [&](int w) {
+    if (w >= k) return;
+    uint32_t *acc = reinterpret_cast<uint32_t*>(part + w),
+             *term = sm + PT_TERM + 144 * w;
+    int end = (w + 1) * C < count ? (w + 1) * C : count;
+    for (int i = w * C; i < end; i++) {
+      warp_fp12_in(i == w * C ? acc : term, in + 144 * (size_t)(start + i), K);
+      if (i != w * C)
+        tail::run(tail::PROG_MUL, acc, term, acc, nullptr, scratch(w));
+    }
+  });
+  for (int s = gs_top(k); s > 0; s >>= 1)
+    tail::warps_mul_level(T, part, s, k, scratch);
+  tail::warps_each(T, [&](int w) {
+    if (w != 0) return;
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(part);
+    tail::warp_each([&](int lane) {
+      if (lane < 12)
+        mont_out(out + 144 * (size_t)tile + 12 * lane,
+                 k ? fp_load(p + 12 * lane)
+                   : lane ? fp_zero() : fp_load(K + 12 * K_ONE));
+    });
+  });
+  if (!flags) return;
+  uint32_t* flag = sm + PT_FLAG;
+  tail::block_each(T, [&](int t) {
+    if (t < 2) flag[t] = 0;
+  });
+  tail::block_each(T, [&](int t) {
+    bool inf = false, bad = false;
+    for (int i = f_off[tile] + t; i < f_off[tile + 1]; i += T)
+      inf = inf || agg_inf[i];
+    for (int i = s_off[tile] + t; i < s_off[tile + 1]; i += T)
+      bad = bad || !sig_ok[i] || !sig_sub[i];
+    if (inf) flag[0] = 1;
+    if (bad) flag[1] = 1;
+  });
+  tail::block_each(T, [&](int t) {
+    if (t == 0) flags[tile] = (uint8_t)((flag[0] ? 1 : 0) | (flag[1] ? 0 : 2));
+  });
+}
+
+#ifdef __CUDACC__
 
 // --- miller_loop_pairs: one warp a pair -----------------------------------
 //
@@ -66,79 +171,16 @@ rlc_finish_kernel(const uint32_t* f, const uint32_t* rsig,
                      f_off[g + 1], s_off[g], s_off[g + 1], K, verdict + g);
 }
 
-// --- rlc_partial: one block, or one thread, per group ------------------------
-//
-// Group g owns the Fp12 terms f[f_off[g] .. f_off[g+1]) with their agg_inf
-// flags and the signature rows [s_off[g] .. s_off[g+1]) with sig_ok and
-// sig_sub. It writes the product of its f terms (canonical words; one for
-// an empty group) to out[g] and one flag byte: bit 0 any agg_inf of its
-// terms, bit 1 every signature row decoded and in G2. No Miller loop of
-// the signature sum and no final exponentiation: that is the finish's,
-// once, over every shard's partial. Every group launches (an empty one
-// writes one): per_thread == 1 runs one group a thread, else one block of
-// blockDim threads a group with the product tree over dynamic shared
-// memory (gpu/bls.py partial_threads).
+// --- rlc_partial: one pass of the plan -------------------------------------
 
-// Thread t of T multiplies the Fp12 terms f[i], i = f0 + t, f0 + t + T, ... < f1, into
-// `prod` and ORs their agg_inf flags into `inf`.
-__device__ __forceinline__ void fp12_strided_product(
-    fp12& prod, bool& inf, const uint32_t* f, const bool* agg_inf, int f0,
-    int f1, int t, int T, const uint32_t* K) {
-  fp12 fi;
-  for (int i = f0 + t; i < f1; i += T) {
-    fi = fp12_in(f + 144 * (size_t)i, K);
-    fp12_mul_to(prod, prod, fi);
-    inf = inf || agg_inf[i];
-  }
-}
-
-// Every thread of a T-thread block: its partial product into fpart[t] (T
-// Fp12 slots of shared memory), then a tree fold into fpart[0]; returns
-// `flag` ORed over the block. The fold multiplies position t + s into t
-// for s = pow2ceil(T)/2 ... 1 (t + s < T): a tree padded with ones.
-__device__ bool fp12_tree_product(fp12* fpart, const fp12& prod, bool flag,
-                                  int t, int T) {
-  fpart[t] = prod;
-  flag = __syncthreads_or(flag);
-  int s = 1;
-  while (2 * s < T) s *= 2;
-  for (; s > 0; s >>= 1) {
-    if (t < s && t + s < T) fp12_mul_to(fpart[t], fpart[t], fpart[t + s]);
-    __syncthreads();
-  }
-  return flag;
-}
-
-__global__ void __launch_bounds__(BLS_TREE)
-rlc_partial_kernel(const uint32_t* f, const bool* agg_inf,
-                   const bool* sig_ok, const bool* sig_sub,
-                   const int32_t* f_off, const int32_t* s_off, int n_groups,
-                   int per_thread, uint32_t* out, uint8_t* flags,
-                   const uint32_t* K) {
-  extern __shared__ uint4 dyn_smem[];
-  int t = 0, T = 1, g;
-  if (per_thread) {
-    g = blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= n_groups) return;
-  } else {
-    g = blockIdx.x;
-    t = threadIdx.x;
-    T = blockDim.x;
-  }
-  int f0 = f_off[g], f1 = f_off[g + 1], s0 = s_off[g], s1 = s_off[g + 1];
-  bool inf = false, bad = false;
-  for (int i = s0 + t; i < s1; i += T) bad = bad || !sig_ok[i] || !sig_sub[i];
-  fp12 prod = fp12_one(K);
-  fp12_strided_product(prod, inf, f, agg_inf, f0, f1, t, T, K);
-  if (!per_thread) {
-    fp12* fpart = reinterpret_cast<fp12*>(dyn_smem);
-    inf = fp12_tree_product(fpart, prod, inf, t, T);
-    bad = __syncthreads_or(bad);
-    if (t != 0) return;
-    prod = fpart[0];
-  }
-  fp12_out(out + 144 * (size_t)g, prod);
-  flags[g] = (uint8_t)((inf ? 1 : 0) | (bad ? 0 : 2));
+__global__ void __launch_bounds__(32 * PARTIAL_WARPS)
+rlc_partial_kernel(const uint32_t* in, const int32_t* tiles, uint32_t* out,
+                   const bool* agg_inf, const bool* sig_ok,
+                   const bool* sig_sub, const int32_t* f_off,
+                   const int32_t* s_off, uint8_t* flags, const uint32_t* K) {
+  __shared__ uint4 smem[PT_WORDS / 4];
+  partial_tile(reinterpret_cast<uint32_t*>(smem), in, tiles, blockIdx.x, out,
+               agg_inf, sig_ok, sig_sub, f_off, s_off, flags, K);
 }
 
 // --- C interface --------------------------------------------------------
@@ -187,18 +229,6 @@ int bls_miller_loop_pairs_geometry(int n, int warps, int32_t* geometry,
   return (int)err;
 }
 
-// The launch of rlc_partial over n groups at `threads` a group (1: one
-// thread a group, 32 to a block, no shared memory; else one block a group
-// with its product tree in dynamic shared memory): blocks, threads a
-// block, bytes.
-static void partial_geometry(int n, int threads, int* blocks, int* block,
-                             size_t* smem) {
-  int per_thread = threads <= 1;
-  *block = per_thread ? 32 : threads;
-  *blocks = per_thread ? (n + 31) / 32 : n;
-  *smem = per_thread ? 0 : (size_t)threads * sizeof(fp12);
-}
-
 // dynamic shared memory of an rlc_finish block: `threads` threads, the
 // widest group's f and signature terms
 static size_t finish_smem(int threads, int nf_max, int ns_max) {
@@ -231,27 +261,33 @@ int bls_rlc_finish(const uint32_t* f, const uint32_t* rsig,
   return (int)cudaGetLastError();
 }
 
-static cudaError_t partial_allow_smem() {
-  return cudaFuncSetAttribute(rlc_partial_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(BLS_TREE * sizeof(fp12)));
+// One pass of an rlc_partial plan: tiles (n_tiles x (start, count), device
+// memory) over the rows `in`, one output row a tile; the last pass (one
+// tile a group) with the flag operands and `flags`, the others with nulls
+int bls_rlc_partial(const uint32_t* in, const int32_t* tiles, int n_tiles,
+                    uint32_t* out, const bool* agg_inf, const bool* sig_ok,
+                    const bool* sig_sub, const int32_t* f_off,
+                    const int32_t* s_off, uint8_t* flags, const uint32_t* K,
+                    cudaStream_t stream) {
+  if (n_tiles > 0)
+    rlc_partial_kernel<<<n_tiles, 32 * PARTIAL_WARPS, 0, stream>>>(
+        in, tiles, out, agg_inf, sig_ok, sig_sub, f_off, s_off, flags, K);
+  return (int)cudaGetLastError();
 }
 
-int bls_rlc_partial(const uint32_t* f, const bool* agg_inf,
-                    const bool* sig_ok, const bool* sig_sub,
-                    const int32_t* f_off, const int32_t* s_off, int n_groups,
-                    int threads, uint32_t* out, uint8_t* flags,
-                    const uint32_t* K, cudaStream_t stream) {
-  int blocks, block;
-  size_t smem;
-  partial_geometry(n_groups, threads, &blocks, &block, &smem);
-  cudaError_t err = partial_allow_smem();
-  if (err != cudaSuccess) return (int)err;
-  if (blocks > 0)
-    rlc_partial_kernel<<<blocks, block, smem, stream>>>(
-        f, agg_inf, sig_ok, sig_sub, f_off, s_off, n_groups, threads <= 1,
-        out, flags, K);
-  return (int)cudaGetLastError();
+// geometry (host memory) of a pass over n tiles: blocks, threads a block,
+// shared memory bytes, and the most blocks of this shape one SM holds at
+// once. Launches nothing.
+int bls_rlc_partial_geometry(int n_tiles, int32_t* geometry,
+                             const uint32_t* K, cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, rlc_partial_kernel, 32 * PARTIAL_WARPS, 0);
+  geometry[0] = n_tiles;
+  geometry[1] = 32 * PARTIAL_WARPS;
+  geometry[2] = 4 * PT_WORDS;
+  geometry[3] = per_sm;
+  return (int)err;
 }
 
 // geometry (host memory) of the launch bls_rlc_finish makes: blocks,
@@ -283,3 +319,4 @@ int bls_set_stack_limit(size_t bytes) {
 }
 
 }  // extern "C"
+#endif

@@ -4,14 +4,16 @@
 // block's folds use, a whole final exponentiation; and of the ladder steps
 // of batch_sign and g1_scalar_mul (Fp addition and subtraction, the G1 and
 // G2 doubling and mixed addition, the G1 formulas with their products
-// inlined and as calls); and the stage clocks of aggregate_rlc_scale and
-// its lanes (csrc/aggregate.cu, included: the same kernel and launch).
-// Built and run by grandine_tpu_torch/gpu/tail_bench.py; no kernel of the
-// port calls it.
+// inlined and as calls); the stage clocks of aggregate_rlc_scale and
+// its lanes (csrc/aggregate.cu, included: the same kernel and launch);
+// and the stage clocks of g2_decompress_subgroup (csrc/decompress.cu,
+// included: the same kernel and launch). Built and run by grandine_tpu_torch/gpu/tail_bench.py; no
+// kernel of the port calls it.
 #include <cuda_runtime.h>
 
 #include "finish_tail.cuh"
 #include "aggregate.cu"
+#include "decompress.cu"
 
 using namespace bls;
 
@@ -112,4 +114,13 @@ extern "C" int tail_bench_aggregate(
   return (int)aggregate_launch(src_x, src_y, idx, cnt, m, k, sig_x, sig_y,
                                sig_mask, r01, rpk, agg_inf, rsig, K, clocks,
                                0);
+}
+
+// g2_decompress_subgroup over n rows on the default stream (the library's
+// launch); clocks null or 3 a row
+extern "C" int tail_bench_g2_decompress(const uint8_t* rows, uint32_t* xs,
+                                        uint32_t* ys, bool* flags, int n,
+                                        const uint32_t* K,
+                                        long long* clocks) {
+  return (int)g2_decompress_launch(rows, xs, ys, flags, n, K, clocks, 0);
 }

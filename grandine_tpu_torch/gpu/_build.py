@@ -41,12 +41,14 @@ HEADERS = ("bls12_381.cuh", "finish_tail.cuh", "finish_programs.cuh",
 #: source → the C entries it exports (each `bls_<name>`)
 LIBRARIES = {
     "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
-                      "g2_subgroup_check", "unpack_words"),
+                      "g2_decompress_subgroup_geometry", "g2_subgroup_check",
+                      "unpack_words"),
     "aggregate.cu": ("aggregate_rlc_scale",),
     "multi.cu": ("multi_rlc_scale", "g1_group_sum", "g2_group_sum",
                  "launch_geometry"),
     "pairing.cu": ("miller_loop_pairs", "miller_loop_pairs_geometry",
-                   "rlc_finish", "rlc_finish_geometry", "rlc_partial"),
+                   "rlc_finish", "rlc_finish_geometry", "rlc_partial",
+                   "rlc_partial_geometry"),
     "sign.cu": ("batch_sign", "batch_sign_geometry", "batch_pubkey"),
     "normalize.cu": ("g1_normalize", "g2_normalize"),
     "kzg.cu": ("g1_scalar_mul", "g1_scalar_mul_geometry"),
@@ -74,7 +76,8 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 #: constant-table pointer and stream that `launch` appends
 SIGNATURES = {
     "g1_decompress": [_vp, _vp, _vp, _vp, _i],
-    "g2_decompress_subgroup": [_vp, _vp, _vp, _vp, _i],
+    "g2_decompress_subgroup": [_vp, _vp, _vp, _vp, _i, _vp],
+    "g2_decompress_subgroup_geometry": [_i, _vp],
     "g2_subgroup_check": [_vp, _vp, _vp, _vp, _i],
     "aggregate_rlc_scale": [_vp, _vp, _vp, _vp, _i, _i, _vp, _vp, _vp,
                             _vp, _vp, _vp, _vp],
@@ -94,7 +97,8 @@ SIGNATURES = {
     "rlc_finish": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                    _vp],
     "rlc_finish_geometry": [_i, _i, _i, _i, _vp],
-    "rlc_partial": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _vp, _vp],
+    "rlc_partial": [_vp, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    "rlc_partial_geometry": [_i, _vp],
     "batch_pubkey": [_vp, _vp, _i, _vp, _vp],
     "g1_normalize": [_vp, _i, _vp, _vp],
     "g2_normalize": [_vp, _i, _vp, _vp],
@@ -258,7 +262,7 @@ def constant_table_ints() -> "list[int]":
         mont(endo["g1"][0]), mont(endo["g1"][1]),
         mont(endo["g2"][0]), mont(endo["g2"][1]),
         mont(cx0), mont(cx1), mont(cy0), mont(cy1),
-        mont(neg[0].n), mont(neg[1].n),
+        mont(neg[0].n), mont(neg[1].n), (P - 3) // 4,
     ]
 
 

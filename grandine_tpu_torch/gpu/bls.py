@@ -883,23 +883,6 @@ def finish_threads(spans) -> int:
     return min(msm.TREE, 32 * max(1, -(-widest // 32)))
 
 
-#: the widest span that `rlc_partial` runs one thread a group: a slot
-#: costs that thread ~66 Fp products in its strided loop, where a block
-#: would fold a tree of 5 levels of 54
-PER_THREAD_SPAN = 8
-
-
-def partial_threads(spans) -> int:
-    """Threads `rlc_partial` gives each group of one launch: 1 when no
-    group spans more than PER_THREAD_SPAN (one thread a group, its
-    strided loop sequential, no tree), else ⌈widest/32⌉ warps, at most
-    one 128-thread block."""
-    widest = max(spans, default=0)
-    if widest <= PER_THREAD_SPAN:
-        return 1
-    return min(msm.TREE, 32 * -(-widest // 32))
-
-
 def finish_groups(f, rsig, f_off=None, s_off=None):
     """(f_off, s_off, live group ids, threads) of an `rlc_finish` call; no
     offsets means one group over every term."""
@@ -915,10 +898,9 @@ def finish_groups(f, rsig, f_off=None, s_off=None):
 
 
 def partial_groups(f, sig_ok, f_off=None, s_off=None):
-    """(f_off, s_off, threads) of an `rlc_partial` call."""
-    fo, so, live, _ = finish_groups(f, sig_ok, f_off, s_off)
-    span = np.maximum(np.diff(fo), np.diff(so))
-    return fo, so, partial_threads(span[live].tolist())
+    """(f_off, s_off) of an `rlc_partial` call, checked."""
+    fo, so, _, _ = finish_groups(f, sig_ok, f_off, s_off)
+    return fo, so
 
 
 def finish_widths(fo, so, live):
@@ -1079,16 +1061,21 @@ def rlc_finish_geometry(f, rsig, f_off=None, s_off=None):
 
 # --- rlc_partial -----------------------------------------------------------------
 
+#: warps a tile of `rlc_partial`'s plan, a MUL warp program a product
+#: (csrc/pairing.cu PARTIAL_WARPS, a compile-time constant there)
+PARTIAL_WARPS = 8
+
 
 def rlc_partial_plain(f, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
-    """Plain version of `rlc_partial`: each group's product in the kernel's
-    order at the launch's thread count (one for an empty group) and its
-    flag byte."""
-    fo, so, threads = partial_groups(f, sig_ok, f_off, s_off)
+    """Plain version of `rlc_partial`: each group's product (one for an
+    empty group; an Fp12 product is exact, so the kernel's plan gives the
+    same words in its own order) and its flag byte."""
+    fo, so = partial_groups(f, sig_ok, f_off, s_off)
     terms = L.from_words(f)
     if f.shape[0] == 0:  # every group empty: give the gather a row
         terms = F.fp12_one((1,), f.device)
-    prod = TP.fp12_product_tree_grouped(terms, fo, threads)
+    prod = TP.fp12_product_tree_grouped(terms, fo,
+                                        max(1, int(np.diff(fo).max())))
     inf = _segment_any(agg_inf, fo[:-1], fo[1:])
     bad = _segment_any(~(sig_ok & sig_sub), so[:-1], so[1:])
     return (L.to_words(prod),
@@ -1112,14 +1099,21 @@ def rlc_partial(f, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
     make_sharded_multi_verify_msm (grandine_tpu/tpu/bls.py:1132, :1258),
     each chip's local product `TP.fp12_product_tree(TP.miller_loop(...))`
     (:1175-1177, :1368) and its subgroup fold `_fused_subgroup_mask(...)
-    .all()` (:1185-1188, :1373-1375). It is the product half that
-    `rlc_finish` had before its tail went warp-wide (the one-thread
-    strided loop and tree of csrc/pairing.cu), with its own geometry
-    (`partial_threads`): every group launches. Bound: operations
-    — 54 Fp products and one conversion a term, against 577 bytes a term;
-    a shard's 64–512 terms fold in one block's strided loop and tree, so
-    the kernel is latency-bound on ⌈terms/128⌉ + 7 dependent Fp12
-    products, far below `rlc_finish`'s tail."""
+    .all()` (:1185-1188, :1373-1375). The group sums' plan from the
+    offsets (`group_sum_plan` at PARTIAL_WARPS units a tile), one launch
+    a pass: a tile is a block of PARTIAL_WARPS warps, each multiplying
+    GROUP_CHUNK terms with the MUL warp program of `rlc_finish`'s fold (54
+    Fp products in 2 rounds across the lanes), the warps' products folded
+    pairwise by the same program; the last pass, one tile a group, also
+    reduces the flag byte. A shard's 512 terms take 3 passes and a chain
+    of 9 MUL programs, where one 128-thread block a group chained ⌈512 /
+    128⌉ + 7 one-thread Fp12 products, each as long as ~9 MUL programs;
+    groups of 1–16 terms take one pass. Bound: operations — 54 Fp
+    products and one conversion a term, against 577 bytes a term; the
+    kernel is latency-bound on its chain of MUL programs and a launch a
+    pass. `rlc_partial.launches` counts calls, as the group sums' counts
+    do: a call is one launch a pass of its plan (1–3 at the paths'
+    shapes), and adds one."""
     if f.device.type == "cpu":
         return rlc_partial_plain(f, agg_inf, sig_ok, sig_sub, f_off, s_off)
     from grandine_tpu_torch.gpu import _build
@@ -1129,21 +1123,44 @@ def rlc_partial(f, agg_inf, sig_ok, sig_sub, f_off=None, s_off=None):
             or sig_sub.shape != (n,)):
         raise ValueError("rlc_partial: f (M, 2, 3, 2, 12), agg_inf (M,), "
                          "sig_ok and sig_sub (N,)")
-    fo, so, threads = partial_groups(f, sig_ok, f_off, s_off)
+    fo, so = partial_groups(f, sig_ok, f_off, s_off)
     g = fo.size - 1
     dev = f.device
-    out = torch.empty((g, 2, 3, 2, 12), dtype=torch.int32, device=dev)
+    plan = group_sum_plan(fo, PARTIAL_WARPS)
+    table = _offsets_to(np.concatenate([fo, so, *(p.reshape(-1)
+                                                   for p in plan)]), dev)
     flags = torch.empty((g,), dtype=torch.uint8, device=dev)
-    table = _offsets_to(np.concatenate([fo, so]), dev)
-    _build.launch("rlc_partial", f.contiguous(), agg_inf.contiguous(),
-                  sig_ok.contiguous(), sig_sub.contiguous(), table[:g + 1],
-                  table[g + 1:], ctypes.c_int(g), ctypes.c_int(threads), out,
-                  flags)
+    src, at = f.contiguous(), 2 * (g + 1)
+    last = (agg_inf.contiguous(), sig_ok.contiguous(), sig_sub.contiguous(),
+            table[:g + 1], table[g + 1:at], flags)
+    none = (ctypes.c_void_p(None),) * len(last)
+    for i, t in enumerate(p.shape[0] for p in plan):
+        out = torch.empty((t, 2, 3, 2, 12), dtype=torch.int32, device=dev)
+        _build.launch("rlc_partial", src, table[at: at + 2 * t],
+                      ctypes.c_int(t), out,
+                      *(last if i == len(plan) - 1 else none))
+        src, at = out, at + 2 * t
     rlc_partial.launches += 1
-    return out, flags
+    return src, flags
 
 
 rlc_partial.launches = 0
+
+
+def rlc_partial_geometry(f_off):
+    """(blocks, threads a block, shared memory bytes, blocks one SM holds
+    at once) of each pass `rlc_partial` launches over the groups of
+    `f_off` (G + 1 host ints), on the current CUDA device. A query: it
+    launches nothing."""
+    from grandine_tpu_torch.gpu import _build
+
+    out = []
+    for tiles in group_sum_plan(np.asarray(f_off, np.int64), PARTIAL_WARPS):
+        geometry = np.zeros((4,), np.int32)
+        _build.launch("rlc_partial_geometry", ctypes.c_int(tiles.shape[0]),
+                      ctypes.c_void_p(geometry.ctypes.data))
+        out.append(tuple(int(v) for v in geometry))
+    return out
 
 
 def partial_flags(flags):
@@ -2601,7 +2618,7 @@ __all__ = [
     "group_sum_passes_plain",
     "group_tile", "multi_g2_lanes", "rlc_finish", "rlc_finish_plain",
     "rlc_sig_miller_plain", "finish_threads", "finish_groups",
-    "rlc_finish_geometry", "PER_THREAD_SPAN", "partial_threads",
+    "rlc_finish_geometry", "PARTIAL_WARPS", "rlc_partial_geometry",
     "partial_groups", "finish_widths", "rlc_partial",
     "rlc_partial_plain", "partial_flags", "make_sharded_multi_verify",
     "sharded_multi_verify", "make_sharded_multi_verify_msm",

@@ -438,15 +438,33 @@ def g2_decompress_subgroup(rows: torch.Tensor):
     Replaces grandine_tpu/tpu/curve.py g2_decompress_dev with
     grandine_tpu/tpu/field.py fq2_sqrt and grandine_tpu/tpu/bls.py
     `_psi_ladder_check` / `_fused_subgroup_mask`, which the JAX verify
-    programs run inside their body. One thread per 96-byte row. Bound:
-    operations — three stacked 381-bit exponentiations, one inversion and
-    a 64-step G2 ladder (~5,800 Fp products a row) against 96 bytes in;
-    the kernel is latency-bound at gossip batch widths (a few hundred
-    rows fill under two blocks per SM), which a later PR answers with
-    several threads per row."""
+    programs run inside their body. One warp a row, G2_DEC_WARPS
+    (csrc/decompress.cu) rows a block. The square roots of `fq2_sqrt`'s norm/half algorithm run as
+    exponentiations on pairs of lanes (one squares, one multiplies, least
+    significant bit first: a chain of one Fp product a bit), the three of
+    √c0, √−c0 and √norm at once, then both candidates at once, each by
+    one exponentiation t^((p−3)/4) that gives its root and, where it is
+    one, the root's inverse; then the ψ check runs its 64-step ladder by
+    |x| and its complete addition as G2DBL / G2MADD / G2ADD warp programs
+    (csrc/glv_halves.cuh warp_psi_check). Bound: operations — at the
+    worse of the root's two branches three 381-bit exponentiations (√norm
+    and one a candidate; √c0 and √−c0 where c1 = 0), a 63-doubling G2
+    ladder (~3,400 Fp products a row) against 96 bytes in; the kernel
+    also computes √c0 and √−c0 on every row, work no row with c1 ≠ 0
+    needs. It is latency-bound on a row's chain: two exponentiations of
+    ~379 Fp products each and ~68 warp programs."""
     rows = _check_rows(rows, 96)
     if rows.device.type == "cpu":
         return g2_decompress_subgroup_plain(rows)
+    out = _g2_decompress_cuda(rows, None)
+    g2_decompress_subgroup.launches += 1
+    return out
+
+
+g2_decompress_subgroup.launches = 0
+
+
+def _g2_decompress_cuda(rows, clocks):
     from grandine_tpu_torch.gpu import _build
 
     b = rows.shape[0]
@@ -454,12 +472,33 @@ def g2_decompress_subgroup(rows: torch.Tensor):
     x = torch.empty((b, 2, 12), dtype=torch.int32, device=dev)
     y = torch.empty((b, 2, 12), dtype=torch.int32, device=dev)
     flags = torch.empty((6, b), dtype=torch.bool, device=dev)
-    _build.launch("g2_decompress_subgroup", rows, x, y, flags, ctypes.c_int(b))
-    g2_decompress_subgroup.launches += 1
+    _build.launch("g2_decompress_subgroup", rows, x, y, flags,
+                  ctypes.c_int(b), ctypes.c_void_p(
+                      None if clocks is None else clocks.data_ptr()))
     return (x, y, *flags.unbind(0))
 
 
-g2_decompress_subgroup.launches = 0
+def g2_decompress_subgroup_split(rows: torch.Tensor):
+    """(outputs, clocks) of one `g2_decompress_subgroup` launch on CUDA
+    rows that also records each row's stage clocks (clock64 of its warp
+    at the start, after the decompression, after the ψ check's stores):
+    (B, 3) int64. A measurement: it does not count as a launch."""
+    rows = _check_rows(rows, 96)
+    clocks = torch.zeros((rows.shape[0], 3), dtype=torch.int64,
+                         device=rows.device)
+    return _g2_decompress_cuda(rows, clocks), clocks
+
+
+def g2_decompress_subgroup_geometry(n: int):
+    """(blocks, threads a block, shared memory bytes, blocks one SM holds
+    at once) of the `g2_decompress_subgroup` launch over n rows, on the
+    current CUDA device. A query: it launches nothing."""
+    from grandine_tpu_torch.gpu import _build
+
+    geometry = np.zeros((4,), np.int32)
+    _build.launch("g2_decompress_subgroup_geometry", ctypes.c_int(n),
+                  ctypes.c_void_p(geometry.ctypes.data))
+    return tuple(int(v) for v in geometry)
 
 
 def g2_subgroup_check_plain(sx, sy, s_inf):
@@ -479,7 +518,8 @@ def g2_subgroup_check(sx: torch.Tensor, sy: torch.Tensor,
     Replaces the JAX program grandine_tpu/tpu/bls.py
     g2_subgroup_check_kernel (:919, `_psi_ladder_check` :208) and, on the
     uncompressed seams, the fused `_fused_subgroup_mask` (:237). One
-    thread per row over the ψ ladder that `g2_decompress_subgroup` runs.
+    thread per row over csrc/bls12_381.cuh psi_check (the check that
+    `g2_decompress_subgroup` runs as warp programs, warp_psi_check).
     Bound: operations — a 64-step G2 ladder and two Fp2 products (~1,600
     Fp products a row) against 200 bytes a row; at block and window widths
     (131 … 1,048 rows, 3 … 17 blocks of 64) the kernel is latency-bound
@@ -538,7 +578,8 @@ __all__ = [
     "scalar_mul_jac_glv", "scalar_mul_glv_split", "jac_ladder",
     "sum_points_grouped", "psi_check",
     "g1_decompress", "g1_decompress_plain", "g2_decompress_subgroup",
-    "g2_decompress_subgroup_plain", "g2_subgroup_check",
+    "g2_decompress_subgroup_plain", "g2_decompress_subgroup_split",
+    "g2_decompress_subgroup_geometry", "g2_subgroup_check",
     "g2_subgroup_check_plain", "compressed_rows",
     "compressed_infinity_flags",
 ]

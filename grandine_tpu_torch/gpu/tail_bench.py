@@ -26,6 +26,15 @@ by CUDA events, and splits each block's time by the kernel's stage
 clocks (clock64): the gather and strided sum (thread 0), the tree, the G1
 ladder, the G2 ladder; the launch's outputs are held against the plain
 version, exactly.
+
+    python -m grandine_tpu_torch.gpu.tail_bench --decompress
+
+times `g2_decompress_subgroup` (csrc/decompress.cu, included: the same
+kernel and launch, one warp a row) at DEC_ROWS rows of seeded G2
+signatures with the edge rows of testing/decompress_rows.py among them,
+by CUDA events, and splits each row's time by the stage clocks: the
+decompression (square roots) against the ψ check; the last rows' outputs
+are held against the plain version, exactly.
 """
 
 from __future__ import annotations
@@ -67,6 +76,10 @@ PIECES = [("fp_mul (a lane)", -1, 1000), ("form (CYC_SQ output)", -2, 1000),
 #: the gossip slot's aggregates (12 committees × 16 aggregators), the
 #: keys they are gathered from, the rows' seed
 AGG_M, AGG_KEYS, AGG_SEED = 192, 4096, 20261018
+#: g2_decompress_subgroup's launched widths: a small gossip batch, the
+#: block through multi_verify_compressed, the gossip slot, the grouped
+#: compressed routes and the localization passes
+DEC_ROWS = (8, 131, 192, 512, 1562)
 
 
 def _ptr(t):
@@ -134,10 +147,90 @@ def aggregate_stages(lib, K, hz, clock, reps=5):
     return out
 
 
+def decompress_rows(n, seed):
+    """n wire rows: 32 seeded G2 signatures tiled, the edge corpus of
+    testing/decompress_rows.py in the last rows (as many as fit)."""
+    import random
+
+    from grandine_tpu_torch.crypto import bls as A
+    from grandine_tpu_torch.crypto.constants import DST_SIGNATURE, R
+    from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
+    from grandine_tpu_torch.testing import decompress_rows as DR
+
+    rng = random.Random(seed)
+    sigs = np.frombuffer(b"".join(
+        A.g2_to_bytes(hash_to_g2(b"split-%d" % i, DST_SIGNATURE).mul(
+            rng.randrange(1, R))) for i in range(32)), np.uint8).reshape(-1, 96)
+    rows = sigs[np.arange(n) % 32].copy()
+    edges = DR.edge_rows()[0]
+    k = min(n // 2, edges.shape[0])
+    rows[n - k:] = edges[:k]
+    return rows
+
+
+def decompress_stages(lib, K, hz, clock, reps=5, seed=AGG_SEED):
+    """g2_decompress_subgroup at each of DEC_ROWS: its time (CUDA events),
+    its rows' stage cycles (mean and max), and its last rows' outputs
+    against the plain version's."""
+    from grandine_tpu_torch.gpu import curve as C
+
+    out = {}
+    for n in DEC_ROWS:
+        rows = torch.from_numpy(decompress_rows(n, seed)).cuda()
+        x = torch.empty((n, 2, 12), dtype=torch.int32, device="cuda")
+        y = torch.empty_like(x)
+        flags = torch.empty((6, n), dtype=torch.bool, device="cuda")
+        clocks = torch.zeros((n, 3), dtype=torch.int64, device="cuda")
+
+        def launch(clk):
+            err = lib.tail_bench_g2_decompress(
+                _ptr(rows), _ptr(x), _ptr(y), _ptr(flags), n, _ptr(K), clk)
+            if err:
+                raise RuntimeError(f"g2_decompress_subgroup: CUDA error {err}")
+
+        launch(None)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            launch(None)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / reps
+        launch(_ptr(clocks))
+        torch.cuda.synchronize()
+        c = clocks.cpu().numpy()
+        stages = {"decompression": c[:, 1] - c[:, 0],
+                  "psi check": c[:, 2] - c[:, 1],
+                  "row": c[:, 2] - c[:, 0]}
+        res = {"ms": ms}
+        print(f"g2_decompress_subgroup, {n} rows: {ms:.3f} ms "
+              f"(CUDA events, {reps} launches)")
+        for name, v in stages.items():
+            res[name] = {"mean": float(v.mean()), "max": int(v.max())}
+            print(f"  {name}: mean {v.mean():.0f} cycles, max {v.max()} "
+                  f"({v.mean() / hz * 1e3:.3f} / {v.max() / hz * 1e3:.3f}"
+                  f" ms at {clock}); share of the row "
+                  f"{v.mean() / stages['row'].mean():.3f}")
+        check = min(n, 40)
+        want = C.g2_decompress_subgroup_plain(rows[n - check:])
+        exact = all(torch.equal(g[n - check:], w)
+                    for g, w in zip((x, y, *flags.unbind(0)), want))
+        print(f"  outputs: the last {check} rows equal the plain version's: "
+              f"{exact}")
+        if not exact:
+            raise RuntimeError("g2_decompress_subgroup: the plain version "
+                               "differs")
+        out[n] = res
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--aggregate", action="store_true",
                     help="only aggregate_rlc_scale's stage split")
+    ap.add_argument("--decompress", action="store_true",
+                    help="only g2_decompress_subgroup's stage split")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("tail_bench measures the card: no CUDA device")
@@ -155,6 +248,12 @@ def main() -> None:
         print(card)
         print(json.dumps({"card": card, "max_sm_clock": clock,
                           "aggregate_rlc_scale": aggregate_stages(
+                              lib, K, hz, clock)}))
+        return
+    if a.decompress:
+        print(card)
+        print(json.dumps({"card": card, "max_sm_clock": clock,
+                          "g2_decompress_subgroup": decompress_stages(
                               lib, K, hz, clock)}))
         return
     rng = np.random.default_rng(13)

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time `batch_sign`, `g1_scalar_mul`, `miller_loop_pairs`,
-`aggregate_rlc_scale`, `ed25519_verify` and `batch_pubkey` of one or more
-checkouts of the port on one card, in turns, at the shapes of their paths.
+`aggregate_rlc_scale`, `ed25519_verify`, `batch_pubkey`,
+`multi_rlc_scale`, the group sums, `rlc_partial` and
+`g2_decompress_subgroup` of one or more checkouts of the port on one card,
+in turns, at the shapes of their paths.
 
     python3 ladder_timing.py TREE [TREE ...]   # parent change change parent
 
 Each TREE (a directory holding `grandine_tpu_torch/`) runs in a process of
 its own, in the order given. TREE:NAME=V[,NAME=V] runs the tree with the
 compile-time constant NAME of its sources set to V (nvcc -DNAME=V, into a
-build directory of its own) and its Python mirror gpu/bls.py NAME set to
-V alike — e.g. `. .:G2_GROUP_WARPS=4 .:G2_GROUP_WARPS=4 .` times
-g2_group_sum's tile in turns. The process builds only csrc/sign.cu,
-csrc/kzg.cu, csrc/pairing.cu, csrc/aggregate.cu, csrc/ed25519.cu and
-csrc/multi.cu, or of them only those `--only` needs and pairing.cu
+build directory of its own) and its Python mirror gpu/bls.py NAME, where
+there is one, set to V alike — e.g. `.
+.:G2_GROUP_WARPS=4 .:G2_GROUP_WARPS=4 .` times g2_group_sum's tile in
+turns. The process builds only csrc/sign.cu, csrc/kzg.cu,
+csrc/pairing.cu, csrc/aggregate.cu, csrc/ed25519.cu, csrc/multi.cu and
+csrc/decompress.cu, or of them only those `--only` needs and pairing.cu
 (nvcc, the tree's own flags), prints ptxas' lines for their kernels
 (registers, stack frame, spills, cumulative stack), and times by CUDA
 events, after one warm-up launch, --reps launches of
@@ -44,7 +47,14 @@ events, after one warm-up launch, --reps launches of
   reduction at D = 4); g2_group_sum at 12 of 256 with 131 live (committee
   aggregates), 4 of 128 (sync contributions), 1 of 64 and 1 of 512 (a
   block and a window shard's signature sum at D = 4): 64 seeded Jacobian
-  points tiled.
+  points tiled;
+  rlc_partial at one group of 64, 512 and 1,048 terms (a block's and a
+  window's shard at D = 4, a whole window) and 16 groups of 1–8 terms
+  (the grouped sharded runs): 64 seeded Fp12 values tiled;
+  g2_decompress_subgroup at 8 rows, 131 (the block through
+  multi_verify_compressed), 192 (the gossip slot), 512 and 1,562 (the
+  grouped compressed routes, the localization passes): the 64 seeded
+  signatures compressed, tiled.
 
 On a tree with both G2 forms of multi_rlc_scale (gpu/bls.py
 multi_g2_lanes) each shape is timed in both (`form` in the line; the
@@ -59,7 +69,11 @@ against its plain version on 40 rows, miller_loop_pairs on 40 pairs,
 aggregate_rlc_scale on its 192 aggregates, ed25519_verify on the B = 128
 rows and batch_pubkey on 40 keys, multi_rlc_scale on its edge sets and
 70 seeded ones, the group sums on their edge groups
-(testing/group_rows.py) and at the 12 × 256 shape, exactly; their lines
+(testing/group_rows.py) and at the 12 × 256 shape, rlc_partial on 64
+mixed groups of 0–17 terms with ∞ and refused flags and at 1 × 512,
+g2_decompress_subgroup on the edge corpus of testing/decompress_rows.py
+beside 40 signatures, exactly; where the tree reports it, each line of
+the last two kernels carries its launch geometry; their lines
 carry chip_smoke.py's bound (OpModel at the least work, this tree's). `--only
 NAME[,NAME]` keeps the kernels whose names hold one of the NAMEs (e.g.
 `--only multi,group` for multi_rlc_scale and both group sums), for the
@@ -88,12 +102,17 @@ MULTI_SETS = (64, 131, 192, 262, 512, 768, 1048, 1562)
 #: (groups, rows a group, live rows a group)
 G1_GROUPS = ((1, 4096, 4096), (4, 8, 8), (12, 256, 131), (12, 4, 4))
 G2_GROUPS = ((12, 256, 131), (4, 128, 128), (1, 64, 64), (1, 512, 512))
+#: rlc_partial's groups a call (each a list of spans)
+PARTIAL_SPANS = ([64], [512], [1048], [1 + i % 8 for i in range(16)])
+DEC_ROWS = (8, 131, 192, 512, 1562)
 #: the source of each timed kernel
 SOURCE_OF = {"batch_sign": "sign.cu", "batch_pubkey": "sign.cu",
              "g1_scalar_mul": "kzg.cu", "miller_loop_pairs": "pairing.cu",
              "aggregate_rlc_scale": "aggregate.cu",
              "ed25519_verify": "ed25519.cu", "multi_rlc_scale": "multi.cu",
-             "g1_group_sum": "multi.cu", "g2_group_sum": "multi.cu"}
+             "g1_group_sum": "multi.cu", "g2_group_sum": "multi.cu",
+             "rlc_partial": "pairing.cu",
+             "g2_decompress_subgroup": "decompress.cu"}
 CHECK_ROWS = 40
 
 
@@ -135,6 +154,7 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
     from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
     from grandine_tpu_torch.gpu import _build
     from grandine_tpu_torch.gpu import bls as B
+    from grandine_tpu_torch.gpu import curve as C
     from grandine_tpu_torch.gpu import kzg as GK
 
     names = [k for k in only.split(",") if k]
@@ -147,9 +167,8 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
                                        if wanted(k)})
     _build.LIBRARIES = {src: _build.LIBRARIES[src] for src in sources}
     for name, value in defines.items():
-        if not hasattr(B, name):
-            raise SystemExit(f"{tree}: gpu/bls.py has no {name} to mirror")
-        setattr(B, name, value)
+        if hasattr(B, name):
+            setattr(B, name, value)
         _build.NVCC_FLAGS = [*_build.NVCC_FLAGS, f"-D{name}={value}"]
     if defines:
         _build.BUILD_DIR = os.path.join(_build.BUILD_DIR, ",".join(
@@ -361,6 +380,64 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
                              ops.group_sum([live] * m, k),
                              m * width * 144 * k + m * (144 * k + 4) + 4),
                          "ms": cuda_ms(run), "device_ms": device_ms(run)})
+    fp12 = L.ints_to_words([rng.randrange(L.P) for _ in range(64 * 12)]
+                           ).reshape(64, 2, 3, 2, 12)
+
+    def partial_args(spans, seed_flags=False):
+        n = sum(spans)
+        off = np.concatenate([[0], np.cumsum(spans)])
+        flags = np.random.default_rng(n)
+        bad = (lambda p: flags.random(n) < p) if seed_flags else (
+            lambda p: np.zeros(n, bool))
+        return (*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            fp12[np.arange(n) % 64], bad(0.05), ~bad(0.05), ~bad(0.05))),
+            off, off)
+
+    import time
+
+    def host_ms(fn):
+        """The host's time a call to enqueue it (no synchronisation),
+        after a warm-up, over --reps calls."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
+
+    for spans in (PARTIAL_SPANS if wanted("rlc_partial") else ()):
+        args = partial_args(spans)
+
+        def run():
+            return B.rlc_partial(*args)
+        n = sum(spans)
+        row = {"kernel": "rlc_partial", "groups": len(spans), "terms": n,
+               "bound_ms": bound(ops.partial(spans),
+                                 n * (576 + 1) + 2 * n + 8 * len(spans) + 8
+                                 + 577 * len(spans)),
+               "ms": cuda_ms(run), "device_ms": device_ms(run),
+               "host_ms": host_ms(run)}
+        if hasattr(B, "rlc_partial_geometry"):
+            row["geometry"] = B.rlc_partial_geometry(args[4])
+        rows.append(row)
+    from grandine_tpu_torch.crypto import bls as A
+
+    sig_rows = np.frombuffer(b"".join(A.g2_to_bytes(p) for p in multi_sigs),
+                             np.uint8).reshape(64, 96)
+    for n in (DEC_ROWS if wanted("g2_decompress_subgroup") else ()):
+        dec_rows = torch.from_numpy(sig_rows[np.arange(n) % 64].copy()).to(
+            dev)
+
+        def run():
+            return C.g2_decompress_subgroup(dec_rows)
+        row = {"kernel": "g2_decompress_subgroup", "rows": n,
+               "bound_ms": bound(ops.g2_row * n, n * (96 + 96 + 6)),
+               "ms": cuda_ms(run), "device_ms": device_ms(run)}
+        if hasattr(C, "g2_decompress_subgroup_geometry"):
+            row["geometry"] = C.g2_decompress_subgroup_geometry(n)
+        rows.append(row)
     # every geometry against its plain version, exactly
     if wanted("ed25519_verify"):
         args = ed_args(128)
@@ -423,6 +500,23 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
         for what, (r, o) in cases:
             checks.append((name, {"rows": what}, torch.equal(
                 fn(r, o), plain(r, o))))
+    if wanted("rlc_partial"):
+        for what, spans, seeded in (
+                ("64 mixed groups of 0-17", [(0, 1, 2, 8, 9, 16, 17, 5)[i % 8]
+                                             for i in range(64)], True),
+                ("1 x 512", [512], False)):
+            args = partial_args(spans, seeded)
+            checks.append(("rlc_partial", {"groups": what}, all(
+                torch.equal(g, w) for g, w in zip(
+                    B.rlc_partial(*args), B.rlc_partial_plain(*args)))))
+    if wanted("g2_decompress_subgroup"):
+        DR = _rows_module("decompress_rows")
+        edges = torch.from_numpy(np.concatenate(
+            [sig_rows[:CHECK_ROWS], DR.edge_rows()[0]])).to(dev)
+        checks.append(("g2_decompress_subgroup", {"rows": "edges"}, all(
+            torch.equal(g, w) for g, w in zip(
+                C.g2_decompress_subgroup(edges),
+                C.g2_decompress_subgroup_plain(edges)))))
     return {"tree": arg, "ptxas": ptxas, "stack_limit": _build.stack_limit,
             "nvcc_s": dict(nvcc_s),
             "timings": rows,
@@ -473,14 +567,20 @@ def main() -> None:
         for r in res["timings"]:
             shape = ", ".join(f"{k} {v}" for k, v in r.items()
                               if k not in ("kernel", "ms", "device_ms",
-                                           "bound_ms"))
+                                           "bound_ms", "geometry",
+                                           "host_ms"))
             dev_ms = ("" if "device_ms" not in r else
                       "; device not measured" if r["device_ms"] is None
                       else f"; device {r['device_ms']:.3f} ms (profiler)")
             b_ms = (f"; bound {r['bound_ms']:.4f} ms" if "bound_ms" in r
                     else "")
+            geo = (f"; geometry (blocks, threads, shared bytes, blocks an "
+                   f"SM) {r['geometry']}" if "geometry" in r else "")
+            host = (f"; host {r['host_ms']:.3f} ms a call to enqueue"
+                    if "host_ms" in r else "")
             print(f"{tree}: {r['kernel']} ({shape}): {r['ms']:.3f} ms "
-                  f"(CUDA events){dev_ms}{b_ms} [{card}]", flush=True)
+                  f"(CUDA events){dev_ms}{host}{b_ms}{geo} [{card}]",
+                  flush=True)
         for c in res["checks"]:
             print(f"{tree}: check {c}")
             failed |= not c["equal"]

@@ -25,6 +25,7 @@ from grandine_tpu_torch.gpu import pairing as TP
 from grandine_tpu_torch.gpu.registry import DevicePubkeyRegistry
 from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
 from grandine_tpu_torch.runtime.verify_scheduler import VerifyItem
+from grandine_tpu_torch.testing import decompress_rows as DR
 from grandine_tpu_torch.testing import group_rows as GR
 from grandine_tpu_torch.testing.pairing_rows import (
     AGGREGATE_EDGES, aggregate_rows, miller_rows)
@@ -81,10 +82,21 @@ def test_g1_decompress_matches_plain(world, cuda_device):
 
 
 def test_g2_decompress_subgroup_matches_plain(world, cuda_device):
-    rows = _sig_rows(world[3], cuda_device)
+    """The slot's signatures, three bad rows and the edge corpus of
+    testing/decompress_rows.py (c1 = 0 rows, x ≥ p, flags, ∞ forms, the
+    all-zero row), one launch, equal to the plain version."""
+    edges, names = DR.edge_rows()
+    rows = torch.cat([_sig_rows(world[3], cuda_device),
+                      torch.from_numpy(edges).to(cuda_device)])
+    before = C.g2_decompress_subgroup.launches
     out = C.g2_decompress_subgroup(rows)
+    assert C.g2_decompress_subgroup.launches == before + 1
     _equal(out, C.g2_decompress_subgroup_plain(rows))
-    assert out[7].tolist() == [True] * len(COMMITTEES) + [False, True, True]
+    n = len(COMMITTEES) + 3
+    assert out[7].tolist()[:n] == [True] * len(COMMITTEES) + [False, True,
+                                                              True]
+    assert list(zip(out[3].tolist()[n:], out[7].tolist()[n:])) == [
+        DR.EXPECTED[name] for name in names]
 
 
 def _scale_args(world, dev):
@@ -395,13 +407,14 @@ def test_grouped_and_partition_on_the_card(signer_sets, cuda_device):
 
 
 @pytest.mark.parametrize("spans", [[192], [9, 0], [0, 1, 8, 9], [0, 0],
+                                   [17, 16],
                                    [(0, 1, 8, 9)[i % 4] for i in range(63)]
                                    + [192]])
 def test_rlc_partial_matches_plain(world, cuda_device, spans):
-    """1, 2, 4 and 64 groups of spans 0, 1, 8, 9 and 192 (one thread a
-    group up to PER_THREAD_SPAN, one block a group past it), the ∞
-    aggregate's terms among them and one signature row outside G2; a
-    call whose groups are all empty writes Fp12 one."""
+    """1, 2, 4 and 64 groups of spans 0, 1, 8, 9, 16, 17 and 192 (one
+    pass up to a tile's PARTIAL_WARPS · GROUP_CHUNK terms, two past it),
+    the ∞ aggregate's terms among them and one signature row outside G2;
+    a call whose groups are all empty writes Fp12 one."""
     _, fin = _valid_terms(world, cuda_device)
     f, _, agg_inf, ok, sub = fin
     total = sum(spans)

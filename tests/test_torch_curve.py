@@ -24,6 +24,7 @@ from grandine_tpu.tpu import curve as JC
 from grandine_tpu.tpu import limbs as JL
 from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.testing import decompress_rows as DR
 
 rng = random.Random(0x70C)
 
@@ -98,7 +99,10 @@ def _g2_corpus():
     ip = bytearray(blobs[0])
     ip[0] |= 0x40
     blobs.append(bytes(ip))
-    return blobs
+    # the edge corpus the kernel's tests share: c1 = 0 rows, ∞ forms, the
+    # all-zero row
+    edges, _ = DR.edge_rows()
+    return blobs + [bytes(r) for r in edges]
 
 
 def _rows(blobs, width):
@@ -142,6 +146,10 @@ def test_g2_decompress_and_psi_check_match_jax():
     in_sub = got[7].tolist()
     assert in_sub[5:7] == [False, False]  # on E2, outside G2
     assert all(in_sub[:5])                # G2 points and ∞ pass
+    _, names = DR.edge_rows()
+    n = len(names)
+    assert list(zip(got[3].tolist()[-n:], in_sub[-n:])) == [
+        DR.EXPECTED[name] for name in names]
 
 
 # --- group law -----------------------------------------------------------------

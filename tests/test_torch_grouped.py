@@ -226,18 +226,27 @@ def test_finish_threads_follow_the_span():
     assert B.finish_threads([]) == 32
     assert B.finish_threads([1, 1, 0]) == 32
     assert B.finish_threads([4, 2]) == 32
-    assert B.finish_threads([B.PER_THREAD_SPAN + 1]) == 32
+    assert B.finish_threads([9]) == 32
     assert B.finish_threads([32]) == 32
     assert B.finish_threads([33, 4]) == 64
     assert B.finish_threads([65]) == 96
     assert B.finish_threads([1562]) == 128
-    # rlc_partial keeps one thread a group up to PER_THREAD_SPAN
-    assert B.partial_threads([]) == 1
-    assert B.partial_threads([4, 2]) == 1
-    assert B.partial_threads([B.PER_THREAD_SPAN]) == 1
-    assert B.partial_threads([B.PER_THREAD_SPAN + 1]) == 32
-    assert B.partial_threads([33, 4]) == 64
-    assert B.partial_threads([1562]) == 128
+    # rlc_partial: the group sums' plan at PARTIAL_WARPS units of
+    # GROUP_CHUNK terms a tile, a pass a launch, until each group is one
+    # tile (one a group, an empty one too, in the last pass)
+    tile = B.PARTIAL_WARPS * B.GROUP_CHUNK
+    assert tile == 16
+
+    def passes(spans):
+        off = np.concatenate([[0], np.cumsum(spans)])
+        return [p.shape[0] for p in B.group_sum_plan(off, B.PARTIAL_WARPS)]
+    assert passes([0]) == [1]
+    assert passes([4, 2, 0, 8]) == [4]
+    assert passes([tile]) == [1]
+    assert passes([tile + 1, 1]) == [3, 2]
+    assert passes([64]) == [4, 1]
+    assert passes([512]) == [32, 2, 1]
+    assert passes([1562]) == [98, 7, 1]
 
 
 # --- the grouped route end to end -----------------------------------------------

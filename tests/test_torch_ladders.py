@@ -1,10 +1,11 @@
 """The lane-split ladders on the CPU: csrc/sign.cu (`batch_sign`,
 `batch_pubkey`), csrc/kzg.cu (`g1_scalar_mul`), csrc/aggregate.cu
-(`aggregate_rlc_scale`), csrc/ed25519.cu (`ed25519_verify`) and
-csrc/multi.cu (`multi_rlc_scale`, `g1_group_sum`, `g2_group_sum`) compiled
-as plain C++, a row's lanes (or a block's threads and warps) run in turn
-and the warp's shuffles emulated, against the port's plain versions,
-exact (canonical words).
+(`aggregate_rlc_scale`), csrc/ed25519.cu (`ed25519_verify`),
+csrc/multi.cu (`multi_rlc_scale`, `g1_group_sum`, `g2_group_sum`),
+csrc/pairing.cu (`rlc_partial`) and csrc/decompress.cu
+(`g2_decompress_subgroup`) compiled as plain C++, a row's lanes (or a
+block's threads and warps) run in turn and the warp's shuffles emulated,
+against the port's plain versions, exact (canonical words).
 
 - `batch_sign` at one, two and four lanes a signature: sk = 1, |x| − 1, |x|,
   |x|², |x|³, r − 2, r − 1, keys with zero digits, a seeded key and an ∞
@@ -36,6 +37,14 @@ exact (canonical words).
   addition, an addition of a row's base) against the plain `ed_add`, and
   a bucket's ladders, tree and cofactor on chip_smoke's edge rows and on
   seeded rows against `ed25519_verify_plain`.
+- `rlc_partial`'s plan (each tile's MUL warp programs, the last pass's
+  flag bytes) on empty groups, spans 1, 2, 8, 9, 16, 17, a group
+  spanning two passes and 64 mixed groups, with ∞ and refused flags —
+  against `rlc_partial_plain`; pairing.cu's and decompress.cu's
+  compile-time constants against their Python mirrors.
+- `g2_decompress_subgroup`'s warp (the roots on lane pairs, the ψ check
+  as warp programs) on the edge corpus of testing/decompress_rows.py —
+  against `g2_decompress_subgroup_plain`.
 
 The harness builds with g++ into the git-ignored csrc/build/; without g++
 the tests skip (decided in the fixture).
@@ -58,9 +67,11 @@ from grandine_tpu_torch.crypto.curves import G1, g1_infinity
 from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
 from grandine_tpu_torch.gpu import _build
 from grandine_tpu_torch.gpu import bls as B
+from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import ed25519 as E
 from grandine_tpu_torch.gpu import kzg as GK
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.testing import decompress_rows as DR
 from grandine_tpu_torch.testing import group_rows as GR
 from grandine_tpu_torch.testing import pubkey_rows as PKR
 from grandine_tpu_torch.testing.pairing_rows import (
@@ -74,7 +85,36 @@ HARNESS = r"""
 #include "aggregate.cu"
 #include "ed25519.cu"
 #include "multi.cu"
+#include "pairing.cu"
+#include "decompress.cu"
 extern "C" {
+// one pass of an rlc_partial plan over n_tiles tiles, each block's warps
+// and threads in turn; the last pass with the flag operands, the others
+// with nulls
+void ladders_partial(const uint32_t* in, const int32_t* tiles, int n_tiles,
+                     uint32_t* out, const bool* agg_inf, const bool* sig_ok,
+                     const bool* sig_sub, const int32_t* f_off,
+                     const int32_t* s_off, uint8_t* flags, const uint32_t* K) {
+  std::vector<uint32_t> sm(PT_WORDS);
+  for (int t = 0; t < n_tiles; t++)
+    partial_tile(sm.data(), in, tiles, t, out, agg_inf, sig_ok, sig_sub,
+                 f_off, s_off, flags, K);
+}
+
+// g2_decompress_subgroup over n rows, each row's warp in turn
+void ladders_g2_decompress(const uint8_t* rows, int n, uint32_t* xs,
+                           uint32_t* ys, bool* flags, const uint32_t* K) {
+  std::vector<uint32_t> sm(12 * G2_DEC_WS);
+  for (int r = 0; r < n; r++)
+    g2_decompress_warp(sm.data(), rows, r, n, xs, ys, flags, K, nullptr);
+}
+
+// the compile-time constants of pairing.cu: PARTIAL_WARPS, GROUP_CHUNK
+void ladders_warp_constants(int* out) {
+  out[0] = PARTIAL_WARPS;
+  out[1] = GROUP_CHUNK;
+}
+
 // multi_rlc_scale over n sets: each block's lanes and warps in turn
 void ladders_multi(const uint32_t* src_x, const uint32_t* src_y,
                    const int32_t* idx, int n, int g2_lanes,
@@ -213,7 +253,8 @@ void ladders_split(const uint32_t* k, int n, uint32_t* out) {
 """
 
 FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-I", _build.CSRC]
-SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu", "ed25519.cu", "multi.cu")
+SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu", "ed25519.cu", "multi.cu",
+           "pairing.cu", "decompress.cu")
 ABS_X = -X
 X2 = X * X
 rng = random.Random(0x1AD)
@@ -539,3 +580,101 @@ def test_group_sum_tiles_equal_plain(lib, form):
             assert row.reshape(3, -1)[:2, 0].tolist() == [1, 1]
             assert not row.reshape(3, -1)[:2, 1:].any()
     assert len(B.group_sum_plan(offsets, tile)) == 2  # the spanning group
+
+
+# --- rlc_partial: a plan's tiles on MUL warp programs -------------------------
+
+#: each case's groups' f spans (the signature spans are the same rotated by
+#: one group)
+PARTIAL_SPANS = {
+    "empty groups and spans 1, 2, 8, 9": [0, 1, 2, 0, 8, 9, 0],
+    "spans 16 and 17 (a tile, a tile and one)": [16, 17],
+    "a group spanning two passes": [3, 40],
+    "64 mixed groups": [(0, 1, 2, 8, 9, 3)[i % 6] for i in range(64)],
+}
+
+
+def partial_host(lib, f, agg_inf, sig_ok, sig_sub, fo, so):
+    """The plan's passes through the harness, each tile in turn; the last
+    pass reduces the flag bytes."""
+    plan = B.group_sum_plan(fo, B.PARTIAL_WARPS)
+    fo32, so32 = fo.astype(np.int32), so.astype(np.int32)
+    flags = np.zeros(fo.size - 1, np.uint8)
+    last = (_ptr(agg_inf), _ptr(sig_ok), _ptr(sig_sub), _ptr(fo32),
+            _ptr(so32), _ptr(flags))
+    src = np.ascontiguousarray(f)
+    for i, tiles in enumerate(plan):
+        out = np.zeros((tiles.shape[0], 2, 3, 2, 12), np.int32)
+        lib.ladders_partial(_ptr(src), _ptr(tiles), tiles.shape[0],
+                            _ptr(out), *(last if i == len(plan) - 1
+                                         else (None,) * 6), _ptr(K))
+        src = out
+    return src, flags, len(plan)
+
+
+@pytest.mark.parametrize("case", sorted(PARTIAL_SPANS))
+def test_partial_tiles_equal_plain(lib, case):
+    """Seeded Fp12 terms (canonical words below p) with ∞ aggregates and
+    refused signature rows among them: each group's product and flag byte
+    equal `rlc_partial_plain`'s; an empty group gives one."""
+    spans = PARTIAL_SPANS[case]
+    seeded = np.random.default_rng(len(spans) * 31 + sum(spans))
+    nf = sum(spans)
+    vals = [int.from_bytes(seeded.bytes(48), "little") % L.P
+            for _ in range(nf * 12)]
+    f = L.ints_to_words(vals).reshape(nf, 2, 3, 2, 12).copy()
+    fo = np.concatenate([[0], np.cumsum(spans)]).astype(np.int64)
+    so = np.concatenate([[0], np.cumsum(spans[1:] + spans[:1])])
+    agg_inf = seeded.random(nf) < 0.08
+    sig_ok = seeded.random(so[-1]) < 0.95
+    sig_sub = seeded.random(so[-1]) < 0.95
+    got, flags, passes = partial_host(lib, f, agg_inf, sig_ok, sig_sub, fo,
+                                      so)
+    want = B.rlc_partial_plain(*(torch.from_numpy(a) for a in (
+        f, agg_inf, sig_ok, sig_sub)), fo, so)
+    assert np.array_equal(got, want[0].numpy())
+    assert flags.tolist() == want[1].tolist()
+    one = np.zeros((2, 3, 2, 12), np.int32)
+    one[0, 0, 0, 0] = 1
+    for g, span in enumerate(spans):
+        if span == 0:
+            assert np.array_equal(got[g], one)
+    assert passes == (2 if max(spans) > B.PARTIAL_WARPS * B.GROUP_CHUNK
+                      else 1)
+    assert {v & 1 for v in flags.tolist()} == {0, 1} or nf < 20
+    assert {v & 2 for v in flags.tolist()} == {0, 2} or nf < 20
+
+
+def test_warp_constants_mirror_the_kernels(lib):
+    """gpu/bls.py's PARTIAL_WARPS and GROUP_CHUNK are pairing.cu's (the
+    plan's tiles are the kernel's)."""
+    got = np.zeros(2, np.int32)
+    lib.ladders_warp_constants(_ptr(got))
+    assert got.tolist() == [B.PARTIAL_WARPS, B.GROUP_CHUNK]
+
+
+# --- g2_decompress_subgroup: one warp a row -----------------------------------
+
+
+def test_g2_decompress_warp_equals_plain(lib):
+    """The edge corpus of testing/decompress_rows.py, a warp a row (lanes
+    in turn): x, y and the six flag rows equal
+    `g2_decompress_subgroup_plain`'s, and the flags are the corpus's."""
+    rows, names = DR.edge_rows()
+    n = rows.shape[0]
+    x = np.zeros((n, 2, 12), np.int32)
+    y = np.zeros((n, 2, 12), np.int32)
+    flags = np.zeros((6, n), bool)
+    lib.ladders_g2_decompress(_ptr(rows), n, _ptr(x), _ptr(y), _ptr(flags),
+                              _ptr(K))
+    want = C.g2_decompress_subgroup_plain(torch.from_numpy(rows))
+    assert np.array_equal(x, want[0].numpy())
+    assert np.array_equal(y, want[1].numpy())
+    assert np.array_equal(flags, torch.stack(want[2:]).numpy())
+    assert [(bool(ok), bool(sub)) for ok, sub in zip(flags[1], flags[5])] \
+        == [DR.EXPECTED[name] for name in names]
+    for i, name in enumerate(names):  # the c1 = 0 branch's two roots
+        if name.endswith("√c0"):
+            assert not y[i, 1].any() and y[i, 0].any()
+        elif name.endswith("√−c0"):
+            assert not y[i, 0].any() and y[i, 1].any()

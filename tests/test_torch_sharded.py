@@ -73,9 +73,7 @@ def test_rlc_partial_plain_matches_jax_product_tree(spans):
     """Per group the product of its seeded Fp12 terms, exactly the JAX
     package's jitted fp12_product_tree over them (padded with ones to its
     16-term batch; an empty group is one); the flag byte is any agg_inf
-    (bit 0) and all sig_ok & sig_sub (bit 1) of the group's rows. A span
-    of 16 or 9 runs the 32-thread tree, spans up to 8 one thread a
-    group."""
+    (bit 0) and all sig_ok & sig_sub (bit 1) of the group's rows."""
     total = sum(spans)
     vals = [rng.randrange(P) for _ in range(total * 12)]
     f = torch.from_numpy(L.ints_to_words(vals).copy()).reshape(
