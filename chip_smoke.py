@@ -27,8 +27,9 @@ Phases (any failure raises and exits non-zero):
      ptxas' stack need and registers of the pairing, decompression,
      aggregate, ladder, comb, Ed25519 and multi.cu kernels against
      STACK_CEILING (DETAILED_KERNELS each on a line with their spills:
-     multi.cu's four entries, rlc_partial, g2_decompress_subgroup), and
-     the warp rounds
+     multi.cu's four entries, rlc_partial, g2_decompress_subgroup,
+     g2_subgroup_check, msm_horner's G1 and G2 kernels), and the warp
+     rounds
      of a group's tail and of a pair's Miller loop;
   3. the main path at real size: a 50,000-validator registry ingested on
      the card, then one slot of gossip aggregates (12 committees × 16
@@ -44,7 +45,10 @@ Phases (any failure raises and exits non-zero):
      SignatureInvalid at host decompression — and the same sets through
      multi_verify_compressed (outside G2 → False) and multi_verify_indexed;
      the new kernels against their plain versions on edge rows (∞ and
-     non-G2 rows, registry rows 0 and 49,999, N = 1); multi_rlc_scale on
+     non-G2 rows, registry rows 0 and 49,999, N = 1; g2_subgroup_check
+     also on testing/subgroup_rows.py's — cofactor torsion, a G2 point
+     plus it, [h_eff]Q, the decompression corpus's points — with its
+     geometry at the edge, block and window widths); multi_rlc_scale on
      its edge sets (r0 = 0, r1 = 0, r = 1, r = 0, halves 0xFFFFFFFF, a
      masked signature, one key in three sets), and both group sums on
      their plan edges (testing/group_rows.py: empty
@@ -195,8 +199,12 @@ Phases (any failure raises and exits non-zero):
      msm_bucket_reduce and msm_horner against their plain versions, G1
      and G2, on edge rows (∞ rows, a row masked on the card, P and −P
      under one scalar, duplicates, zero halves, an empty group, 40 lanes,
-     256 digits a section), each sum the host anchor's; the grouped route
-     on the unaggregated and sync slots, valid, forged and swapped, every
+     256 digits a section; msm_horner at G1 w = 4 and G2 w = 8 also on
+     testing/horner_rows.py's groups in the same launch — no entry, ∞
+     totals, equal and opposite points meeting, a sum to ∞), each sum the
+     host anchor's; msm_horner's geometry at the route's shapes; the
+     grouped route on the unaggregated and sync slots, valid, forged and
+     swapped, every
      MSM launch held against its plain version word for word and the
      valid runs' key and signature sums equal to the host anchor's affine
      points; gpu/autotune.py's window sweep at the route's four cells, ms
@@ -290,11 +298,14 @@ GROUPED_LAUNCHES = {"msm_lane_scan": 2, "msm_bucket_reduce": 2,
 #: csrc/multi.cu's kernels as ptxas names them (phase 1's lines)
 MULTI_KERNELS = ("multi_rlc_scale_kernelILi0E", "multi_rlc_scale_kernelILi1E",
                  "group_sum_lanes_kernel", "group_sum_warps_kernel")
+#: csrc/msm.cu's msm_horner kernels (G1 a thread a group, G2 a warp)
+HORNER_KERNELS = ("msm_horner_lanes_kernel", "msm_horner_warps_kernel")
 #: the kernels whose registers, stack and spills phase 1 logs a line each:
-#: csrc/multi.cu's and the warp forms of rlc_partial and
-#: g2_decompress_subgroup
-DETAILED_KERNELS = MULTI_KERNELS + ("rlc_partial_kernel",
-                                    "g2_decompress_subgroup_kernel")
+#: csrc/multi.cu's, the warp forms of rlc_partial, g2_decompress_subgroup
+#: and g2_subgroup_check, and msm_horner's two
+DETAILED_KERNELS = MULTI_KERNELS + HORNER_KERNELS + (
+    "rlc_partial_kernel", "g2_decompress_subgroup_kernel",
+    "g2_subgroup_check_kernel")
 #: the per-thread stack ceiling: no kernel's ptxas stack need may pass it
 #: (the limit the build sets is the deepest need rounded up to 1 KiB;
 #: 5,120 B since rlc_finish's warp tail, 264 MiB of device memory per KiB)
@@ -653,11 +664,13 @@ class OpModel:
             n_sec * (2 * max(0, digits - 2) * self.add1 * f + 3 * k)
 
     def msm_horner(self, k, groups, windows, w):
-        """msm_horner: per group and window w doublings, one addition and
-        the window total's conversion, and the output's conversion."""
+        """msm_horner at the function's least work: per group w doublings
+        and one addition a window below the top (the sum starts at the
+        top window's total), the conversion of each window's total, and
+        the output's conversion."""
         f = 1 if k == 1 else self.fp2
-        return groups * (windows * ((w * self.dbl1 + self.add1) * f + 3 * k)
-                         + 3 * k)
+        return groups * ((windows - 1) * (w * self.dbl1 + self.add1) * f
+                         + windows * 3 * k + 3 * k)
 
     @staticmethod
     def unpack(n):
@@ -3537,6 +3550,9 @@ def reference_phase(c):
 #: shared memory a G2 block), an empty last group
 MSM_EDGE = ((1, 37, 5, 4, 64), (1, 30, 3, 8, 40), (2, 17, 1, 5, 64),
             (2, 40, 2, 8, 64))
+#: (field, window bits) of the MSM edge cases whose msm_horner launch also
+#: takes testing/horner_rows.py's groups: the grouped route's windows
+HORNER_EDGE = ((1, 4), (2, 8))
 
 
 def msm_edge_case(c, k, n, n_groups, w, lanes, seed):
@@ -3650,6 +3666,7 @@ def msm_phase(c):
     from grandine_tpu_torch.crypto.curves import endo_constants
     from grandine_tpu_torch.crypto.fields import Fq, Fq2
     from grandine_tpu_torch.gpu import autotune
+    from grandine_tpu_torch.testing import horner_rows as HR
 
     t_phase = time.perf_counter()
     at, dev = c.at, c.dev
@@ -3668,13 +3685,24 @@ def msm_phase(c):
         totals = M.msm_bucket_reduce(emit, *arr[3:])
         c.same("msm_bucket_reduce", totals,
                M.msm_bucket_reduce_plain(emit, *arr[3:]), where)
-        out = M.msm_horner(totals, g, w)
-        c.same("msm_horner", out, M.msm_horner_plain(totals, g, w), where)
-        if words_affine(c, out, k) != want:
+        # at the grouped route's windows the Horner edge groups
+        # (testing/horner_rows.py) follow the case's own: one launch and one
+        # plain call for both
+        h_tot, h_names, h_sums = (HR.horner_totals(k, w, 0x4E00 + k)
+                                  if (k, w) in HORNER_EDGE else (None, [], []))
+        if h_names:
+            totals = torch.cat([totals, torch.from_numpy(h_tot).to(dev)])
+            where += f"; Horner edge groups: {', '.join(h_names)}"
+        g_all = g + len(h_names)
+        out = M.msm_horner(totals, g_all, w)
+        c.same("msm_horner", out, M.msm_horner_plain(totals, g_all, w), where)
+        if words_affine(c, out, k) != want + [host_affine(p, k)
+                                              for p in h_sums]:
             fail(f"msm edge rows ({where}): sums differ from the host anchor")
     log(f"msm edge rows: {len(MSM_EDGE)} cases (∞ rows, a masked row, P and "
-        f"−P, duplicates, zero halves, an empty group), every sum the host "
-        f"anchor's {at}")
+        f"−P, duplicates, zero halves, an empty group; the Horner edge "
+        f"groups at G1 w = 4 and G2 w = 8), every sum the host anchor's "
+        f"{at}")
 
     # -- the grouped route, every launch recorded -------------------------------
     (bx, by), (wx, wy) = (endo_constants()[g] for g in ("g1", "g2"))
@@ -3855,6 +3883,9 @@ def msm_phase(c):
         pieces = int(gvalid_h.sum())
         piece_adds = pieces - int(gvalid_h.any(axis=0).sum())
         n_l = route_launches[(where, k)]
+        log(f"msm_horner, {tag}, {n_groups} groups: geometry (blocks, "
+            f"threads, shared bytes, blocks an SM) "
+            f"{M.msm_horner_geometry(k, n_groups)} {at}")
         pt = 144 * k
         suffix = "" if k == 1 else "/g2"
         rows += [
@@ -3917,6 +3948,7 @@ def main() -> None:
     from grandine_tpu_torch.testing import decompress_rows as DR
     from grandine_tpu_torch.testing import group_rows as GR
     from grandine_tpu_torch.testing import pairing_rows as PR
+    from grandine_tpu_torch.testing import subgroup_rows as SR
     from grandine_tpu_torch.consensus.verifier import (
         SignatureInvalid, TorchVerifier)
     from grandine_tpu_torch.crypto.curves import (
@@ -3988,7 +4020,9 @@ def main() -> None:
     needs = {}
     for lib, names in (("pairing", ("rlc_finish_kernel", "rlc_partial_kernel",
                                     "miller_loop_pairs_kernel")),
-                       ("decompress", ("g2_decompress_subgroup_kernel",)),
+                       ("decompress", ("g2_decompress_subgroup_kernel",
+                                       "g2_subgroup_check_kernel")),
+                       ("msm", HORNER_KERNELS),
                        ("aggregate", ("aggregate_rlc_scale_kernel",)),
                        ("sign", ("batch_sign_kernelILi4",
                                  "batch_sign_kernelILi2",
@@ -4402,16 +4436,25 @@ def main() -> None:
         fail("the block did not verify through multi_verify_indexed")
 
     # the new kernels against their plain versions on edge rows -------------
+    # (g2_subgroup_check also on testing/subgroup_rows.py's, after the 8
+    # rows the multi_rlc_scale edge calls below pick from)
     edge_pts = [A.g2_from_bytes(s, subgroup_check=False)
                 for s in sigs[:6] + [nonsub]] + [g2_infinity()]
-    ex, ey, einf = (torch.from_numpy(a.copy()).to(dev)
-                    for a in B.g2_affine_words_many(edge_pts))
-    edge2 = "edge rows: 6 signatures, a point of E2 outside G2, ∞"
+    *sub_words, sub_names, sub_want = SR.edge_rows()
+    ex, ey, einf = (torch.from_numpy(np.concatenate([a, b])).to(dev)
+                    for a, b in zip(B.g2_affine_words_many(edge_pts),
+                                    sub_words))
+    edge2 = (f"edge rows: 6 signatures, a point of E2 outside G2, ∞; "
+             f"{', '.join(dict.fromkeys(sub_names))}")
     got = C.g2_subgroup_check(ex, ey, einf)
     same("g2_subgroup_check", got, C.g2_subgroup_check_plain(ex, ey, einf),
          edge2)
-    if got.tolist() != [True] * 6 + [False, True]:
+    if got.tolist() != [True] * 6 + [False, True] + sub_want:
         fail(f"g2_subgroup_check verdicts {got.tolist()}")
+    for n_g in (ex.shape[0], n_sets, len(blocks) * n_sets):
+        log(f"g2_subgroup_check, {n_g} rows: geometry (blocks, threads, "
+            f"shared bytes, blocks an SM) "
+            f"{C.g2_subgroup_check_geometry(n_g)} {at}")
     # N = 1: the last registry row with the point outside G2; N = 8:
     # rows 0 and 49,999 first, the 6 signatures, the point outside G2, ∞
     for rows_e, pick in (([N_VALIDATORS - 1], [6]),

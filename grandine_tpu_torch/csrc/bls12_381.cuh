@@ -564,17 +564,6 @@ BLS_NI dec_flags g1_decompress_row(const uint8_t* row, fp& x_out, fp& y_out,
   return f;
 }
 
-// psi(P) + [|x|]P == infinity (Montgomery affine P, not infinity)
-BLS_NI bool psi_check(const fp2& x, const fp2& y, const uint32_t* K) {
-  jac<fp2> xp = scalar_mul_bits<fp2>(x, y, BLS_ABS_X, 64, K);
-  jac<fp2> ps;
-  ps.x = fp2_mul(kfp2(K, K_PSI_CX0, K_PSI_CX1), fp2_conj(x));
-  ps.y = fp2_mul(kfp2(K, K_PSI_CY0, K_PSI_CY1), fp2_conj(y));
-  f_one(ps.z, K);
-  jac<fp2> t = point_add_complete(xp, ps, K);
-  return fp2_is_zero(t.z);
-}
-
 // --- canonical-word I/O ------------------------------------------------------
 
 BLS_HD fp mont_in(const uint32_t* w, const uint32_t* K) {

@@ -15,10 +15,11 @@
 // g2_decompress_subgroup runs one warp a row: the square roots of its
 // decompression as exponentiations on pairs of lanes, at once where they
 // are independent, then the psi check as warp programs
-// (csrc/glv_halves.cuh warp_psi_check). unpack_row and the warp's row
-// (g2_decompress_warp) also compile as plain C++ (no __CUDACC__): a warp's
-// lanes then run in turn, so a row can be run on a host against the plain
-// PyTorch version.
+// (csrc/glv_halves.cuh warp_psi_check). g2_subgroup_check runs that psi
+// check alone, one warp a row. unpack_row and the warps' rows
+// (g2_decompress_warp, g2_subgroup_warp) also compile as plain C++ (no
+// __CUDACC__): a warp's lanes then run in turn, so a row can be run on a
+// host against the plain PyTorch version.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -45,9 +46,9 @@ BLS_NI void unpack_row(const uint32_t* w, uint32_t* out, const uint32_t* K) {
   mont_out(out, m);
 }
 
-// rows a g2_decompress_subgroup block runs, one warp a row (gpu/curve.py
-// G2_DEC_WARPS); a build sets another value (-D) only for a
-// ladder_timing.py run (TREE:NAME=V)
+// rows a g2_decompress_subgroup or g2_subgroup_check block runs, one warp
+// a row; a build sets another value (-D) only for a ladder_timing.py run
+// (TREE:NAME=V)
 #ifndef G2_DEC_WARPS
 #define G2_DEC_WARPS 4
 #endif
@@ -255,6 +256,32 @@ BLS_HD void g2_decompress_warp(uint32_t* buf, const uint8_t* rows, int r,
   DEC_CLOCK(2);
 }
 
+// --- g2_subgroup_check: the warp's row ------------------------------------
+
+// Row r of the affine rows sx, sy (2 x 12 canonical words each) by the
+// calling warp: x, y into Montgomery form at buf[Y_Q..] (x0, x1, y0, y1,
+// one Fp value a lane), warp_psi_check, in_sub[r] from lane 0. A row with
+// s_inf set passes with no program (the same on every lane). `buf` holds
+// PSI_WS Fp values, 16-byte aligned.
+BLS_HD void g2_subgroup_warp(uint32_t* buf, const uint32_t* sx,
+                             const uint32_t* sy, const bool* s_inf,
+                             bool* in_sub, int r, const uint32_t* K) {
+  bool ok = true;
+  if (!s_inf[r]) {
+    uint32_t* Q = buf + 12 * Y_Q;
+    tail::warp_each([&](int lane) {
+      if (lane < 4)
+        fp_store(Q + 12 * lane,
+                 mont_in((lane < 2 ? sx : sy) + 24 * (size_t)r +
+                             12 * (lane & 1), K));
+    });
+    ok = warp_psi_check(buf, K);
+  }
+  tail::warp_each([&](int lane) {
+    if (lane == 0) in_sub[r] = ok;
+  });
+}
+
 #ifdef __CUDACC__
 
 // --- g1_decompress: one thread per 48-byte row -------------------------------
@@ -300,19 +327,17 @@ static cudaError_t g2_decompress_launch(const uint8_t* rows, uint32_t* xs,
   return cudaGetLastError();
 }
 
-// --- g2_subgroup_check: one thread per affine row ----------------------------
+// --- g2_subgroup_check: one warp a row, G2_DEC_WARPS rows a block --------
 
-__global__ void g2_subgroup_check_kernel(const uint32_t* sx,
-                                         const uint32_t* sy, const bool* s_inf,
-                                         bool* in_sub, int n,
-                                         const uint32_t* K) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool ok = true;
-  if (!s_inf[i])
-    ok = psi_check(mont_in2(sx + 24 * (size_t)i, K),
-                   mont_in2(sy + 24 * (size_t)i, K), K);
-  in_sub[i] = ok;
+__global__ void __launch_bounds__(32 * G2_DEC_WARPS)
+g2_subgroup_check_kernel(const uint32_t* sx, const uint32_t* sy,
+                         const bool* s_inf, bool* in_sub, int n,
+                         const uint32_t* K) {
+  __shared__ uint4 smem[G2_DEC_WARPS * PSI_WS * 3];
+  int w = threadIdx.x >> 5, r = blockIdx.x * G2_DEC_WARPS + w;
+  if (r >= n) return;  // the whole warp; the block's warps share nothing
+  g2_subgroup_warp(reinterpret_cast<uint32_t*>(smem) + 12 * PSI_WS * w, sx,
+                   sy, s_inf, in_sub, r, K);
 }
 
 // --- unpack_words: one thread per packed coordinate -------------------------
@@ -366,9 +391,24 @@ int bls_g2_subgroup_check(const uint32_t* sx, const uint32_t* sy,
                           const bool* s_inf, bool* in_sub, int n,
                           const uint32_t* K, cudaStream_t stream) {
   if (n > 0)
-    g2_subgroup_check_kernel<<<(n + 63) / 64, 64, 0, stream>>>(sx, sy, s_inf,
-                                                              in_sub, n, K);
+    g2_subgroup_check_kernel<<<(n + G2_DEC_WARPS - 1) / G2_DEC_WARPS,
+                               32 * G2_DEC_WARPS, 0, stream>>>(
+        sx, sy, s_inf, in_sub, n, K);
   return (int)cudaGetLastError();
+}
+
+// geometry (host memory) of the g2_subgroup_check launch over n rows, as
+// bls_g2_decompress_subgroup_geometry gives it. Launches nothing.
+int bls_g2_subgroup_check_geometry(int n, int32_t* geometry,
+                                   const uint32_t* K, cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, g2_subgroup_check_kernel, 32 * G2_DEC_WARPS, 0);
+  geometry[0] = (n + G2_DEC_WARPS - 1) / G2_DEC_WARPS;
+  geometry[1] = 32 * G2_DEC_WARPS;
+  geometry[2] = G2_DEC_WARPS * PSI_WS * 48;
+  geometry[3] = per_sm;
+  return (int)err;
 }
 
 int bls_unpack_words(const uint32_t* w, int n, uint32_t* out,

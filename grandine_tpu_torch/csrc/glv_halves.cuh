@@ -1,7 +1,9 @@
 // The GLV halves of the RLC ladders, shared by aggregate_rlc_scale
-// (csrc/aggregate.cu) and multi_rlc_scale (csrc/multi.cu); and the G2
-// ladder of the psi subgroup check as warp programs (warp_psi_check,
-// g2_decompress_subgroup's, csrc/decompress.cu).
+// (csrc/aggregate.cu) and multi_rlc_scale (csrc/multi.cu); the G2
+// ladder of the psi subgroup check as warp programs (warp_psi_check, of
+// g2_decompress_subgroup and g2_subgroup_check, csrc/decompress.cu); and
+// the complete G2 addition as warp programs (warp_g2_join, also
+// msm_horner's, csrc/msm.cu).
 //
 // A scalar r = r0 + r1*lambda (two 32-bit halves, the verifier's own draw,
 // so the ladders branch on their bits) splits [r]B into [r0]B and
@@ -138,9 +140,9 @@ enum PsiBuf { Y_S = 0, Y_Q = 6, Y_P = 10, Y_O = 16, Y_X = 22, Y_SCRATCH = 26,
               PSI_WS = Y_SCRATCH + AGG_SCRATCH };
 
 // psi(Q) + [|x|]Q == infinity for the point Q at buf[Y_Q..] (on E2, not
-// infinity) by the calling warp: bls12_381.cuh psi_check with its ladder
-// as warp programs (warp_g2_ladder by |x|) and its complete addition as
-// warp_g2_join; the same on every lane.
+// infinity) by the calling warp: gpu/curve.py psi_check's ladder by |x|
+// (point_double, point_madd_unsafe) as warp programs (warp_g2_ladder) and
+// its complete addition as warp_g2_join; the same on every lane.
 BLS_HD bool warp_psi_check(uint32_t* buf, const uint32_t* K) {
   uint32_t *S = buf + 12 * Y_S, *Q = buf + 12 * Y_Q, *Ps = buf + 12 * Y_P,
            *O = buf + 12 * Y_O;

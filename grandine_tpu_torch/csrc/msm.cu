@@ -11,14 +11,22 @@
 // replaces in the JAX package, what bounds it on the card and what its
 // design does about that is written beside its Python wrapper (gpu/msm.py).
 //
-// The per-thread bodies (msm_lane, msm_fold, msm_horner_group) also
-// compile as plain C++ (no __CUDACC__), so a lane, a digit or a group can
-// be run on a host against the plain PyTorch versions.
+// msm_horner runs a group's chain of doublings and complete additions on
+// one thread in G1, on fpc (the Fp product as a call), and on one warp in
+// G2, each doubling a G2DBL warp program and each addition warp_g2_join
+// (csrc/glv_halves.cuh: G2ADD with point_add_complete's cases); both start
+// from the top window's total, so W - 1 windows of w doublings and an
+// addition.
+//
+// The per-thread and per-warp bodies (msm_lane, msm_fold,
+// msm_horner_lane, msm_horner_warp) also compile as plain C++ (no
+// __CUDACC__): a warp's lanes then run in turn, so a lane, a digit or a
+// group can be run on a host against the plain PyTorch versions.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
-#include "bls12_381.cuh"
+#include "glv_halves.cuh"
 
 using namespace bls;
 
@@ -104,18 +112,57 @@ BLS_NI jac<F> msm_fold(const uint32_t* emit, const int32_t* gather_idx,
   return acc;
 }
 
-// Group g: acc = 2^w acc + T_win over the windows from the highest down
-// (window total of window win at totals[g*W + win]).
-template <class F>
-BLS_NI jac<F> msm_horner_group(const uint32_t* totals, int W, int w, int g,
-                               const uint32_t* K) {
-  jac<F> acc = jac_inf<F>(K);
-  for (int win = W - 1; win >= 0; win--) {
+// Group g of a G1 launch on one thread, on fpc: acc = 2^w acc + T_win over
+// the windows from the highest down (the total of window win at
+// totals[g*W + win]), point_double and point_add_complete. acc starts at
+// the top window's total: msm_horner_plain doubles (1, 1, 0) to itself
+// and adds that total to it, which gives the total's words.
+BLS_NI jac<fpc> msm_horner_lane(const uint32_t* totals, int W, int w, int g,
+                                const uint32_t* K) {
+  jac<fpc> acc = msm_load<fpc>(totals, (size_t)g * W + W - 1, K);
+  for (int win = W - 2; win >= 0; win--) {
     for (int i = 0; i < w; i++) acc = point_double(acc);
-    acc = point_add_complete(acc, msm_load<F>(totals, (size_t)g * W + win, K),
-                             K);
+    acc = point_add_complete(
+        acc, msm_load<fpc>(totals, (size_t)g * W + win, K), K);
   }
   return acc;
+}
+
+// Fp values of a G2 Horner warp's buffers: two accumulators (6 each; a
+// window's addition writes the other), the loaded window total T (6), the
+// addition's side values X (4: G2ADD's H and r), then the scratch
+enum HornerBuf { HN_ACC = 0, HN_T = 12, HN_X = 18, HN_SCRATCH = 22,
+                 HORNER_WS = HN_SCRATCH + AGG_SCRATCH };
+
+// Group g of a G2 launch by the calling warp, msm_horner_lane's chain:
+// acc starts at the top window's total, each doubling a G2DBL program,
+// each addition warp_g2_join (the cases of point_add_complete in its
+// order); the group's 3 x 2 x 12 canonical words to out[g]. `buf` holds
+// HORNER_WS Fp values, 16-byte aligned.
+BLS_HD void msm_horner_warp(uint32_t* buf, const uint32_t* totals, int W,
+                            int w, int g, uint32_t* out, const uint32_t* K) {
+  uint32_t *acc = buf + 12 * HN_ACC, *nxt = acc + 72, *T = buf + 12 * HN_T,
+           *X = buf + 12 * HN_X, *scratch = buf + 12 * HN_SCRATCH;
+  auto load = [&](uint32_t* dst, int win) {
+    const uint32_t* t = totals + 72 * ((size_t)g * W + win);
+    tail::warp_each([&](int lane) {
+      if (lane < 6) fp_store(dst + 12 * lane, mont_in(t + 12 * lane, K));
+    });
+  };
+  load(acc, W - 1);
+  for (int win = W - 2; win >= 0; win--) {
+    for (int i = 0; i < w; i++)
+      tail::run(tail::PROG_G2DBL, acc, acc, nullptr, nullptr, scratch);
+    load(T, win);
+    warp_g2_join(acc, T, nxt, X, scratch, K);
+    uint32_t* done = nxt;
+    nxt = acc;
+    acc = done;
+  }
+  tail::warp_each([&](int lane) {
+    if (lane < 6)
+      mont_out(out + 72 * (size_t)g + 12 * lane, fp_load(acc + 12 * lane));
+  });
 }
 
 #ifdef __CUDACC__
@@ -155,12 +202,21 @@ msm_bucket_reduce_kernel(const uint32_t* emit, const int32_t* gather_idx,
   if (d == 0) msm_store(totals, (size_t)sec, U[0]);
 }
 
-template <class F>
+// G1: one thread a group
 __global__ void __launch_bounds__(MSM_GROUP_THREADS)
-msm_horner_kernel(const uint32_t* totals, int G, int W, int w, uint32_t* out,
-                  const uint32_t* K) {
+msm_horner_lanes_kernel(const uint32_t* totals, int G, int W, int w,
+                        uint32_t* out, const uint32_t* K) {
   int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < G) msm_store(out, (size_t)g, msm_horner_group<F>(totals, W, w, g, K));
+  if (g < G) msm_store(out, (size_t)g, msm_horner_lane(totals, W, w, g, K));
+}
+
+// G2: one warp a group, one block a group
+__global__ void __launch_bounds__(32)
+msm_horner_warps_kernel(const uint32_t* totals, int W, int w, uint32_t* out,
+                        const uint32_t* K) {
+  __shared__ uint4 smem[HORNER_WS * 3];
+  msm_horner_warp(reinterpret_cast<uint32_t*>(smem), totals, W, w,
+                  blockIdx.x, out, K);
 }
 
 template <class F>
@@ -197,14 +253,23 @@ static int launch_bucket_reduce(const uint32_t* emit,
   return (int)cudaGetLastError();
 }
 
-template <class F>
-static int launch_horner(const uint32_t* totals, int G, int W, int w,
+// the launch over G groups: G1 (k = 1) a thread a group, G2 a block
+static void horner_shape(int k, int G, int* blocks, int* threads) {
+  *threads = k == 1 ? MSM_GROUP_THREADS : 32;
+  *blocks = k == 1 ? (G + MSM_GROUP_THREADS - 1) / MSM_GROUP_THREADS : G;
+}
+
+static int launch_horner(int k, const uint32_t* totals, int G, int W, int w,
                          uint32_t* out, const uint32_t* K,
                          cudaStream_t stream) {
-  if (G > 0)
-    msm_horner_kernel<F>
-        <<<(G + MSM_GROUP_THREADS - 1) / MSM_GROUP_THREADS, MSM_GROUP_THREADS,
-           0, stream>>>(totals, G, W, w, out, K);
+  int blocks, threads;
+  horner_shape(k, G, &blocks, &threads);
+  if (G > 0 && k == 1)
+    msm_horner_lanes_kernel<<<blocks, threads, 0, stream>>>(totals, G, W, w,
+                                                           out, K);
+  else if (G > 0)
+    msm_horner_warps_kernel<<<blocks, threads, 0, stream>>>(totals, W, w, out,
+                                                           K);
   return (int)cudaGetLastError();
 }
 
@@ -248,12 +313,31 @@ int bls_g2_msm_bucket_reduce(const uint32_t* emit, const int32_t* gather_idx,
 
 int bls_g1_msm_horner(const uint32_t* totals, int G, int W, int w,
                       uint32_t* out, const uint32_t* K, cudaStream_t stream) {
-  return launch_horner<fp>(totals, G, W, w, out, K, stream);
+  return launch_horner(1, totals, G, W, w, out, K, stream);
 }
 
 int bls_g2_msm_horner(const uint32_t* totals, int G, int W, int w,
                       uint32_t* out, const uint32_t* K, cudaStream_t stream) {
-  return launch_horner<fp2>(totals, G, W, w, out, K, stream);
+  return launch_horner(2, totals, G, W, w, out, K, stream);
+}
+
+// geometry (host memory) of the msm_horner launch over G groups of G1
+// (k = 1) or G2: blocks, threads a block, shared memory bytes, and the
+// most blocks of this shape one SM holds at once. Launches nothing.
+int bls_msm_horner_geometry(int k, int G, int32_t* geometry,
+                            const uint32_t* K, cudaStream_t stream) {
+  int blocks, threads, per_sm = 0;
+  horner_shape(k, G, &blocks, &threads);
+  cudaError_t err =
+      k == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, msm_horner_lanes_kernel, threads, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, msm_horner_warps_kernel, threads, 0);
+  geometry[0] = blocks;
+  geometry[1] = threads;
+  geometry[2] = k == 1 ? 0 : HORNER_WS * 48;
+  geometry[3] = per_sm;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -42,7 +42,7 @@ HEADERS = ("bls12_381.cuh", "finish_tail.cuh", "finish_programs.cuh",
 LIBRARIES = {
     "decompress.cu": ("g1_decompress", "g2_decompress_subgroup",
                       "g2_decompress_subgroup_geometry", "g2_subgroup_check",
-                      "unpack_words"),
+                      "g2_subgroup_check_geometry", "unpack_words"),
     "aggregate.cu": ("aggregate_rlc_scale",),
     "multi.cu": ("multi_rlc_scale", "g1_group_sum", "g2_group_sum",
                  "launch_geometry"),
@@ -56,7 +56,7 @@ LIBRARIES = {
     "spans.cu": ("span_update_grid",),
     "msm.cu": ("g1_msm_lane_scan", "g2_msm_lane_scan",
                "g1_msm_bucket_reduce", "g2_msm_bucket_reduce",
-               "g1_msm_horner", "g2_msm_horner"),
+               "g1_msm_horner", "g2_msm_horner", "msm_horner_geometry"),
 }
 #: granule of the per-thread stack limit. The limit `library()` sets is
 #: the deepest kernel's need (ptxas "cumulative stack size") rounded up to
@@ -79,6 +79,7 @@ SIGNATURES = {
     "g2_decompress_subgroup": [_vp, _vp, _vp, _vp, _i, _vp],
     "g2_decompress_subgroup_geometry": [_i, _vp],
     "g2_subgroup_check": [_vp, _vp, _vp, _vp, _i],
+    "g2_subgroup_check_geometry": [_i, _vp],
     "aggregate_rlc_scale": [_vp, _vp, _vp, _vp, _i, _i, _vp, _vp, _vp,
                             _vp, _vp, _vp, _vp],
     "multi_rlc_scale": [_vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp, _vp,
@@ -108,6 +109,7 @@ SIGNATURES = {
     **{f"g{k}_msm_bucket_reduce": [_vp, _vp, _vp, _i, _i, _i, _vp]
        for k in (1, 2)},
     **{f"g{k}_msm_horner": [_vp, _i, _i, _i, _vp] for k in (1, 2)},
+    "msm_horner_geometry": [_i, _i, _vp],
 }
 
 _lock = threading.Lock()

@@ -501,6 +501,18 @@ def g2_decompress_subgroup_geometry(n: int):
     return tuple(int(v) for v in geometry)
 
 
+def g2_subgroup_check_geometry(n: int):
+    """(blocks, threads a block, shared memory bytes, blocks one SM holds
+    at once) of the `g2_subgroup_check` launch over n rows, on the current
+    CUDA device. A query: it launches nothing."""
+    from grandine_tpu_torch.gpu import _build
+
+    geometry = np.zeros((4,), np.int32)
+    _build.launch("g2_subgroup_check_geometry", ctypes.c_int(n),
+                  ctypes.c_void_p(geometry.ctypes.data))
+    return tuple(int(v) for v in geometry)
+
+
 def g2_subgroup_check_plain(sx, sy, s_inf):
     """Plain version of `g2_subgroup_check`: `psi_check` on canonical
     words."""
@@ -517,13 +529,17 @@ def g2_subgroup_check(sx: torch.Tensor, sy: torch.Tensor,
 
     Replaces the JAX program grandine_tpu/tpu/bls.py
     g2_subgroup_check_kernel (:919, `_psi_ladder_check` :208) and, on the
-    uncompressed seams, the fused `_fused_subgroup_mask` (:237). One
-    thread per row over csrc/bls12_381.cuh psi_check (the check that
-    `g2_decompress_subgroup` runs as warp programs, warp_psi_check).
-    Bound: operations — a 64-step G2 ladder and two Fp2 products (~1,600
-    Fp products a row) against 200 bytes a row; at block and window widths
-    (131 … 1,048 rows, 3 … 17 blocks of 64) the kernel is latency-bound
-    on one thread's ladder, as the decompression kernel is."""
+    uncompressed seams, the fused `_fused_subgroup_mask` (:237). One warp
+    a row, G2_DEC_WARPS (csrc/decompress.cu) rows a block: the row's x, y
+    into Montgomery form one value a lane, then the ψ check that
+    `g2_decompress_subgroup` runs (csrc/glv_halves.cuh warp_psi_check),
+    its ladder by |x| as G2DBL / G2MADD warp programs and its complete
+    addition as G2ADD; an ∞ row runs no program. Bound: operations — 63
+    doublings and 5 mixed additions in Fp2, the complete addition and
+    ψ's two Fp2 products (~1,600 Fp products a row) against 194 bytes a
+    row. The kernel is latency-bound on a row's chain of ~70 warp
+    programs of a few rounds each; at the window's 1,048 rows (262
+    blocks) two warps share a scheduler."""
     n = s_inf.shape[0]
     if sx.shape != (n, 2, 12) or sy.shape != (n, 2, 12):
         raise ValueError("g2_subgroup_check: sx, sy must be (N, 2, 12)")
@@ -580,6 +596,6 @@ __all__ = [
     "g1_decompress", "g1_decompress_plain", "g2_decompress_subgroup",
     "g2_decompress_subgroup_plain", "g2_decompress_subgroup_split",
     "g2_decompress_subgroup_geometry", "g2_subgroup_check",
-    "g2_subgroup_check_plain", "compressed_rows",
-    "compressed_infinity_flags",
+    "g2_subgroup_check_geometry", "g2_subgroup_check_plain",
+    "compressed_rows", "compressed_infinity_flags",
 ]

@@ -13,8 +13,9 @@ hand-written kernels (csrc/msm.cu) and their plain versions:
   msm_bucket_reduce — one block a section (group·W + window), one thread
       a digit: fold the digit's J pieces, the Hillis–Steele digit suffix
       U_d = Σ_{e≥d} S_e, ∞ at digit 0, the tree sum Σ_{d≥1} U_d = Σ d·S_d;
-  msm_horner — one thread a group: the window totals from high to low,
-      w doublings and one complete addition each.
+  msm_horner — the window totals from high to low, from the top total
+      on w doublings and one complete addition each: in G1 one thread a group on `fpc` (the Fp product as a call), in G2
+      one warp a group on G2DBL and G2ADD warp programs.
 
 `msm_bucket_scan` composes them over plan arrays already on the device
 (the reference's programs take them so); `msm_bucket_sum` over an
@@ -479,11 +480,19 @@ def msm_horner(totals, n_groups: int, window_bits: int):
     plain version on CPU tensors.
 
     Replaces step 4 of grandine_tpu/tpu/msm.py msm_bucket_scan (:355-377,
-    the Horner lax.scan batched over groups). One thread a group. Bound:
-    operations — W·(w + 1) point operations a group (32 + W doublings and
-    W additions) against 144 (G1) or 288 (G2) bytes a window total; at a
-    route's 1–16 groups the kernel is one thread's dependent chain of ~40
-    point operations."""
+    the Horner lax.scan batched over groups). G1: one thread a group on
+    `fpc`, point_double and point_add_complete with the Fp product as one
+    call (inlined, a G1 formula's products run ~2.2× their parts). G2:
+    one warp a group, one block a group, each doubling a G2DBL warp
+    program and each addition `warp_g2_join` (G2ADD with
+    point_add_complete's cases: ∞ on either side, equal points doubled,
+    opposite points ∞). Both start the sum at the top window's total:
+    the plain version doubles (1, 1, 0) to itself and adds that total to
+    it, which gives the total's words. Bound: operations — (W − 1)·w
+    doublings and W − 1 complete additions a group against 144 (G1) or
+    288 (G2) bytes a window total; at a route's 1–16 groups the kernel is
+    one group's dependent chain (G1 at w = 4: 28 doublings and 7
+    additions; G2 at w = 8: 24 G2DBL programs and 3 additions)."""
     if totals.device.type == "cpu":
         return msm_horner_plain(totals, n_groups, window_bits)
     from grandine_tpu_torch.gpu import _build
@@ -503,6 +512,20 @@ def msm_horner(totals, n_groups: int, window_bits: int):
 
 
 msm_horner.launches = 0
+
+
+def msm_horner_geometry(k: int, n_groups: int):
+    """(blocks, threads a block, shared memory bytes, blocks one SM holds
+    at once) of the `msm_horner` launch over n_groups groups of G1 (k = 1)
+    or G2 (k = 2), on the current CUDA device. A query: it launches
+    nothing."""
+    from grandine_tpu_torch.gpu import _build
+
+    geometry = np.zeros((4,), np.int32)
+    _build.launch("msm_horner_geometry", ctypes.c_int(k),
+                  ctypes.c_int(n_groups),
+                  ctypes.c_void_p(geometry.ctypes.data))
+    return tuple(int(v) for v in geometry)
 
 
 def msm_bucket_scan(px, py, live, point_idx, valid, flush, gather_idx,
@@ -537,5 +560,5 @@ def msm_bucket_sum(px, py, live, plan: MsmPlan):
 __all__ = ["TREE", "strided_tree_sum", "sum_points_contiguous",
            "group_rows", "MSM_LANES", "MsmPlan", "plan_msm", "upload_plan",
            "msm_lane_scan", "msm_lane_scan_plain", "msm_bucket_reduce",
-           "msm_bucket_reduce_plain", "msm_horner", "msm_horner_plain",
-           "msm_bucket_scan", "msm_bucket_sum"]
+           "msm_bucket_reduce_plain", "msm_horner", "msm_horner_geometry",
+           "msm_horner_plain", "msm_bucket_scan", "msm_bucket_sum"]

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time `batch_sign`, `g1_scalar_mul`, `miller_loop_pairs`,
 `aggregate_rlc_scale`, `ed25519_verify`, `batch_pubkey`,
-`multi_rlc_scale`, the group sums, `rlc_partial` and
-`g2_decompress_subgroup` of one or more checkouts of the port on one card,
-in turns, at the shapes of their paths.
+`multi_rlc_scale`, the group sums, `rlc_partial`,
+`g2_decompress_subgroup`, `g2_subgroup_check` and `msm_horner` of one or
+more checkouts of the port on one card, in turns, at the shapes of their
+paths.
 
     python3 ladder_timing.py TREE [TREE ...]   # parent change change parent
 
@@ -14,8 +15,9 @@ build directory of its own) and its Python mirror gpu/bls.py NAME, where
 there is one, set to V alike — e.g. `.
 .:G2_GROUP_WARPS=4 .:G2_GROUP_WARPS=4 .` times g2_group_sum's tile in
 turns. The process builds only csrc/sign.cu, csrc/kzg.cu,
-csrc/pairing.cu, csrc/aggregate.cu, csrc/ed25519.cu, csrc/multi.cu and
-csrc/decompress.cu, or of them only those `--only` needs and pairing.cu
+csrc/pairing.cu, csrc/aggregate.cu, csrc/ed25519.cu, csrc/multi.cu,
+csrc/decompress.cu and csrc/msm.cu, or of them only those `--only` needs
+and pairing.cu
 (nvcc, the tree's own flags), prints ptxas' lines for their kernels
 (registers, stack frame, spills, cumulative stack), and times by CUDA
 events, after one warm-up launch, --reps launches of
@@ -54,14 +56,19 @@ events, after one warm-up launch, --reps launches of
   g2_decompress_subgroup at 8 rows, 131 (the block through
   multi_verify_compressed), 192 (the gossip slot), 512 and 1,562 (the
   grouped compressed routes, the localization passes): the 64 seeded
-  signatures compressed, tiled.
+  signatures compressed, tiled;
+  g2_subgroup_check at 8 rows, 131 (a block), 192, 512, 1,048 (a window)
+  and 1,562: the 64 seeded signatures' affine words, tiled;
+  msm_horner at the grouped route's shapes — G1 at w = 4 with 12 groups
+  (the unaggregated slot's messages) and 1 (the sync slot), G2 at w = 8
+  with 1 group and 12: 64 seeded Jacobian points as window totals, tiled.
 
 On a tree with both G2 forms of multi_rlc_scale (gpu/bls.py
 multi_g2_lanes) each shape is timed in both (`form` in the line; the
 form the rule does not choose through the C entry,
 testing/group_rows.py multi_launch), and both are checked. Each line gives the
 CUDA-event ms a call over back-to-back calls and the kernels' own ms a
-call from torch.profiler.
+call from torch.profiler, with the kernels it recorded a call.
 
 batch_sign is timed at each lane count `sign_lanes` chooses between (4,
 2 and 1 lanes a signature); each geometry, and g1_scalar_mul, is held
@@ -72,8 +79,10 @@ rows and batch_pubkey on 40 keys, multi_rlc_scale on its edge sets and
 (testing/group_rows.py) and at the 12 × 256 shape, rlc_partial on 64
 mixed groups of 0–17 terms with ∞ and refused flags and at 1 × 512,
 g2_decompress_subgroup on the edge corpus of testing/decompress_rows.py
-beside 40 signatures, exactly; where the tree reports it, each line of
-the last two kernels carries its launch geometry; their lines
+beside 40 signatures, g2_subgroup_check on testing/subgroup_rows.py's
+rows beside 40 signatures, msm_horner on testing/horner_rows.py's groups
+at G1 w = 4 and G2 w = 8, exactly; where the tree reports it, each line
+of the last four kernels carries its launch geometry; their lines
 carry chip_smoke.py's bound (OpModel at the least work, this tree's). `--only
 NAME[,NAME]` keeps the kernels whose names hold one of the NAMEs (e.g.
 `--only multi,group` for multi_rlc_scale and both group sums), for the
@@ -105,6 +114,9 @@ G2_GROUPS = ((12, 256, 131), (4, 128, 128), (1, 64, 64), (1, 512, 512))
 #: rlc_partial's groups a call (each a list of spans)
 PARTIAL_SPANS = ([64], [512], [1048], [1 + i % 8 for i in range(16)])
 DEC_ROWS = (8, 131, 192, 512, 1562)
+SUB_ROWS = (8, 131, 192, 512, 1048, 1562)
+#: msm_horner's (field, window bits, groups)
+HORNER_SHAPES = ((1, 4, 12), (1, 4, 1), (2, 8, 1), (2, 8, 12))
 #: the source of each timed kernel
 SOURCE_OF = {"batch_sign": "sign.cu", "batch_pubkey": "sign.cu",
              "g1_scalar_mul": "kzg.cu", "miller_loop_pairs": "pairing.cu",
@@ -112,7 +124,8 @@ SOURCE_OF = {"batch_sign": "sign.cu", "batch_pubkey": "sign.cu",
              "ed25519_verify": "ed25519.cu", "multi_rlc_scale": "multi.cu",
              "g1_group_sum": "multi.cu", "g2_group_sum": "multi.cu",
              "rlc_partial": "pairing.cu",
-             "g2_decompress_subgroup": "decompress.cu"}
+             "g2_decompress_subgroup": "decompress.cu",
+             "g2_subgroup_check": "decompress.cu", "msm_horner": "msm.cu"}
 CHECK_ROWS = 40
 
 
@@ -196,7 +209,10 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
         """The kernels' own time a call (torch.profiler's CUDA activity,
         copies left out): what CUDA events between back-to-back calls see
         too, unless the host's calls leave the card waiting. None when
-        the profiler records no kernel."""
+        the profiler records no kernel. Beside it the kernels the
+        profiler recorded a call, to be held against the launches a call
+        makes (one for each of the last four kernels): a short count
+        means records were dropped."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -205,11 +221,12 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0)
-                 for e in prof.key_averages()
-                 if not e.key.startswith(("Memcpy", "Memset"))
-                 and str(getattr(e, "device_type", "")).endswith("CUDA"))
-        return us / reps / 1e3 if us else None
+        kernels = [e for e in prof.key_averages()
+                   if not e.key.startswith(("Memcpy", "Memset"))
+                   and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        us = sum(getattr(e, "self_device_time_total", 0) for e in kernels)
+        return {"device_ms": us / reps / 1e3 if us else None,
+                "device_kernels": sum(e.count for e in kernels) / reps}
 
     h = np.stack([B.g2_affine_words(hash_to_g2(b"ladder-%d" % i,
                                                DST_SIGNATURE))[0]
@@ -352,7 +369,7 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
             rows.append({"kernel": "multi_rlc_scale", "rows": n,
                          "form": form, "bound_ms": b_ms,
                          "ms": cuda_ms(lambda: call(*args)),
-                         "device_ms": device_ms(lambda: call(*args))})
+                         **device_ms(lambda: call(*args))})
     g_pts = {1: GR.jacobian_words(GR.progression(
         G1.mul(rng.randrange(1, R)), G1.mul(rng.randrange(1, R)), 64), 1),
              2: GR.jacobian_words(multi_sigs, 2)}
@@ -379,7 +396,7 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
                          "live": live, "bound_ms": bound(
                              ops.group_sum([live] * m, k),
                              m * width * 144 * k + m * (144 * k + 4) + 4),
-                         "ms": cuda_ms(run), "device_ms": device_ms(run)})
+                         "ms": cuda_ms(run), **device_ms(run)})
     fp12 = L.ints_to_words([rng.randrange(L.P) for _ in range(64 * 12)]
                            ).reshape(64, 2, 3, 2, 12)
 
@@ -417,7 +434,7 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
                "bound_ms": bound(ops.partial(spans),
                                  n * (576 + 1) + 2 * n + 8 * len(spans) + 8
                                  + 577 * len(spans)),
-               "ms": cuda_ms(run), "device_ms": device_ms(run),
+               "ms": cuda_ms(run), **device_ms(run),
                "host_ms": host_ms(run)}
         if hasattr(B, "rlc_partial_geometry"):
             row["geometry"] = B.rlc_partial_geometry(args[4])
@@ -434,9 +451,40 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
             return C.g2_decompress_subgroup(dec_rows)
         row = {"kernel": "g2_decompress_subgroup", "rows": n,
                "bound_ms": bound(ops.g2_row * n, n * (96 + 96 + 6)),
-               "ms": cuda_ms(run), "device_ms": device_ms(run)}
+               "ms": cuda_ms(run), **device_ms(run)}
         if hasattr(C, "g2_decompress_subgroup_geometry"):
             row["geometry"] = C.g2_decompress_subgroup_geometry(n)
+        rows.append(row)
+    sub_pts = B.g2_affine_words_many(multi_sigs)
+    for n in (SUB_ROWS if wanted("g2_subgroup_check") else ()):
+        idx = np.arange(n) % 64
+        sub = tuple(torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev)
+                    for a in sub_pts)
+
+        def run():
+            return C.g2_subgroup_check(*sub)
+        row = {"kernel": "g2_subgroup_check", "rows": n,
+               "bound_ms": bound(ops.subgroup(n), n * (96 + 96 + 1 + 1)),
+               "ms": cuda_ms(run), **device_ms(run)}
+        if hasattr(C, "g2_subgroup_check_geometry"):
+            row["geometry"] = C.g2_subgroup_check_geometry(n)
+        rows.append(row)
+    from grandine_tpu_torch.gpu import msm as M
+
+    for k, w, g in (HORNER_SHAPES if wanted("msm_horner") else ()):
+        W = (32 + w - 1) // w
+        totals = torch.from_numpy(np.ascontiguousarray(
+            g_pts[k][np.arange(g * W) % 64])).to(dev)
+
+        def run():
+            return M.msm_horner(totals, g, w)
+        row = {"kernel": "msm_horner", "field": f"G{k}", "w": w,
+               "groups": g,
+               "bound_ms": bound(ops.msm_horner(k, g, W, w),
+                                 (g * W + g) * 144 * k),
+               "ms": cuda_ms(run), **device_ms(run)}
+        if hasattr(M, "msm_horner_geometry"):
+            row["geometry"] = M.msm_horner_geometry(k, g)
         rows.append(row)
     # every geometry against its plain version, exactly
     if wanted("ed25519_verify"):
@@ -517,6 +565,22 @@ def worker(arg: str, reps: int, seed: int, only: str) -> dict:
             torch.equal(g, w) for g, w in zip(
                 C.g2_decompress_subgroup(edges),
                 C.g2_decompress_subgroup_plain(edges)))))
+    if wanted("g2_subgroup_check"):
+        SR = _rows_module("subgroup_rows")
+        *edge_words, _, _ = SR.edge_rows()
+        sub = tuple(torch.from_numpy(np.concatenate([a[:CHECK_ROWS], b])).to(
+            dev) for a, b in zip(sub_pts, edge_words))
+        checks.append(("g2_subgroup_check", {"rows": "edges"}, torch.equal(
+            C.g2_subgroup_check(*sub), C.g2_subgroup_check_plain(*sub))))
+    if wanted("msm_horner"):
+        HR = _rows_module("horner_rows")
+        for k, w in ((1, 4), (2, 8)):
+            totals, names, _ = HR.horner_totals(k, w, seed + k)
+            totals = torch.from_numpy(totals).to(dev)
+            checks.append(("msm_horner", {"field": f"G{k}", "w": w,
+                                          "groups": "edges"}, torch.equal(
+                M.msm_horner(totals, len(names), w),
+                M.msm_horner_plain(totals, len(names), w))))
     return {"tree": arg, "ptxas": ptxas, "stack_limit": _build.stack_limit,
             "nvcc_s": dict(nvcc_s),
             "timings": rows,
@@ -568,10 +632,11 @@ def main() -> None:
             shape = ", ".join(f"{k} {v}" for k, v in r.items()
                               if k not in ("kernel", "ms", "device_ms",
                                            "bound_ms", "geometry",
-                                           "host_ms"))
+                                           "host_ms", "device_kernels"))
             dev_ms = ("" if "device_ms" not in r else
                       "; device not measured" if r["device_ms"] is None
-                      else f"; device {r['device_ms']:.3f} ms (profiler)")
+                      else f"; device {r['device_ms']:.3f} ms (profiler, "
+                      f"{r['device_kernels']:g} kernels a call recorded)")
             b_ms = (f"; bound {r['bound_ms']:.4f} ms" if "bound_ms" in r
                     else "")
             geo = (f"; geometry (blocks, threads, shared bytes, blocks an "

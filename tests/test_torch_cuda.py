@@ -27,6 +27,8 @@ from grandine_tpu_torch.gpu.schemes import dispatch_bls_compressed
 from grandine_tpu_torch.runtime.verify_scheduler import VerifyItem
 from grandine_tpu_torch.testing import decompress_rows as DR
 from grandine_tpu_torch.testing import group_rows as GR
+from grandine_tpu_torch.testing import horner_rows as HR
+from grandine_tpu_torch.testing import subgroup_rows as SR
 from grandine_tpu_torch.testing.pairing_rows import (
     AGGREGATE_EDGES, aggregate_rows, miller_rows)
 
@@ -222,13 +224,30 @@ def _points_rows(world, dev):
     return tuple(torch.from_numpy(a.copy()).to(dev) for a in (sx, sy, inf))
 
 
-def test_g2_subgroup_check_matches_plain(world, cuda_device):
+@pytest.mark.parametrize("n", [0, 8, 131, 192, 512, 1048, 1562])
+def test_g2_subgroup_check_matches_plain(world, cuda_device, n):
+    """The world's signatures, ∞ and a point outside G2, then the edge
+    rows of testing/subgroup_rows.py (n = 0, each verdict the expected
+    one); those rows tiled to n rows, the widths of the paths (8 … 1,562
+    rows; 262 blocks at the window's 1,048): one launch, the flags equal
+    the plain version's."""
     sx, sy, inf = _points_rows(world, cuda_device)
+    ex, ey, einf, _, want = SR.edge_rows()
+    sx, sy, inf = (torch.cat([a, torch.from_numpy(np.ascontiguousarray(
+        b)).to(cuda_device)]) for a, b in ((sx, ex), (sy, ey), (inf, einf)))
+    if n:
+        idx = torch.arange(n, device=cuda_device) % inf.shape[0]
+        sx, sy, inf = sx[idx], sy[idx], inf[idx]
     before = C.g2_subgroup_check.launches
     got = C.g2_subgroup_check(sx, sy, inf)
     _equal((got,), (C.g2_subgroup_check_plain(sx, sy, inf),))
     assert C.g2_subgroup_check.launches == before + 1
-    assert got.tolist() == [True] * len(COMMITTEES) + [True, False]
+    if not n:
+        assert got.tolist() == ([True] * len(COMMITTEES) + [True, False]
+                                + want)
+    blocks, threads, smem, per_sm = C.g2_subgroup_check_geometry(
+        inf.shape[0])
+    assert blocks * threads >= 32 * inf.shape[0] and per_sm > 0
 
 
 @pytest.mark.parametrize("n", [1, 40])
@@ -1036,7 +1055,8 @@ def _msm_case(k, n, n_groups, w, seed, lanes):
 @pytest.mark.parametrize("k,n,groups,w,lanes", [
     (1, 37, 5, 4, 64), (1, 30, 3, 8, 40), (2, 17, 1, 5, 64),
     (2, 40, 2, 8, 64), (1, 1562, 16, 4, None), (2, 1562, 1, 6, None),
-    (2, 512, 1, 8, None)])
+    (2, 512, 1, 8, None), (1, 1562, 12, 4, None), (1, 512, 1, 4, None),
+    (2, 1562, 12, 8, None)])
 def test_msm_kernels_match_plain(cuda_device, k, n, groups, w, lanes):
     """msm_lane_scan, msm_bucket_reduce and msm_horner, G1 (k = 1) and G2,
     each against its plain version on the same operands, word for word: a
@@ -1058,3 +1078,19 @@ def test_msm_kernels_match_plain(cuda_device, k, n, groups, w, lanes):
                                    M.msm_horner)] == [b + 1 for b in before]
     if groups > 1:  # the last group holds no point: ∞
         assert out[-1, 2].abs().sum().item() == 0
+
+
+@pytest.mark.parametrize("k,w", [(1, 4), (2, 8)])
+def test_msm_horner_edges_match_plain(cuda_device, k, w):
+    """msm_horner on the groups of testing/horner_rows.py (∞ totals, no
+    entry, equal and opposite points meeting in an addition, a sum to ∞)
+    at the grouped route's windows: one launch, the words the plain
+    version's, each group's geometry a thread (G1) or a warp (G2)."""
+    totals, names, _ = HR.horner_totals(k, w, 0xC0E0 + k)
+    t = torch.from_numpy(totals).to(cuda_device)
+    before = M.msm_horner.launches
+    out = M.msm_horner(t, len(names), w)
+    _equal((out,), (M.msm_horner_plain(t, len(names), w),))
+    assert M.msm_horner.launches == before + 1
+    blocks, threads, _, _ = M.msm_horner_geometry(k, len(names))
+    assert (blocks, threads) == ((1, 32) if k == 1 else (len(names), 32))

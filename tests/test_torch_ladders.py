@@ -2,8 +2,9 @@
 `batch_pubkey`), csrc/kzg.cu (`g1_scalar_mul`), csrc/aggregate.cu
 (`aggregate_rlc_scale`), csrc/ed25519.cu (`ed25519_verify`),
 csrc/multi.cu (`multi_rlc_scale`, `g1_group_sum`, `g2_group_sum`),
-csrc/pairing.cu (`rlc_partial`) and csrc/decompress.cu
-(`g2_decompress_subgroup`) compiled as plain C++, a row's lanes (or a
+csrc/pairing.cu (`rlc_partial`), csrc/decompress.cu
+(`g2_decompress_subgroup`, `g2_subgroup_check`) and csrc/msm.cu
+(`msm_horner`) compiled as plain C++, a row's lanes (or a
 block's threads and warps) run in turn and the warp's shuffles emulated,
 against the port's plain versions, exact (canonical words).
 
@@ -45,6 +46,15 @@ against the port's plain versions, exact (canonical words).
 - `g2_decompress_subgroup`'s warp (the roots on lane pairs, the ψ check
   as warp programs) on the edge corpus of testing/decompress_rows.py —
   against `g2_decompress_subgroup_plain`.
+- `g2_subgroup_check`'s warp a row on the rows of testing/subgroup_rows.py
+  (G2 points, ∞, cofactor torsion, points outside G2, the decompression
+  corpus's points) — against `g2_subgroup_check_plain` and the host.
+- `msm_horner`'s G1 lane on fpc and G2 warp on the groups of
+  testing/horner_rows.py (∞ totals, a group with no entry, equal and
+  opposite points meeting in an addition, a sum to ∞) — against
+  `msm_horner_plain` and the host anchor; and (1, 1, 0) doubling to itself
+  under point_double and G2DBL, which lets both leave out the doublings
+  of ∞.
 
 The harness builds with g++ into the git-ignored csrc/build/; without g++
 the tests skip (decided in the fixture).
@@ -63,7 +73,8 @@ import torch
 
 from grandine_tpu_torch.crypto import ed25519 as HE
 from grandine_tpu_torch.crypto.constants import DST_SIGNATURE, R, X
-from grandine_tpu_torch.crypto.curves import G1, g1_infinity
+from grandine_tpu_torch.crypto.curves import B1, B2, G1, Point, g1_infinity
+from grandine_tpu_torch.crypto.fields import Fq, Fq2
 from grandine_tpu_torch.crypto.hash_to_curve import hash_to_g2
 from grandine_tpu_torch.gpu import _build
 from grandine_tpu_torch.gpu import bls as B
@@ -71,9 +82,12 @@ from grandine_tpu_torch.gpu import curve as C
 from grandine_tpu_torch.gpu import ed25519 as E
 from grandine_tpu_torch.gpu import kzg as GK
 from grandine_tpu_torch.gpu import limbs as L
+from grandine_tpu_torch.gpu import msm as M
 from grandine_tpu_torch.testing import decompress_rows as DR
 from grandine_tpu_torch.testing import group_rows as GR
+from grandine_tpu_torch.testing import horner_rows as HR
 from grandine_tpu_torch.testing import pubkey_rows as PKR
+from grandine_tpu_torch.testing import subgroup_rows as SR
 from grandine_tpu_torch.testing.pairing_rows import (
     AGGREGATE_EDGES, aggregate_rows)
 
@@ -87,6 +101,7 @@ HARNESS = r"""
 #include "multi.cu"
 #include "pairing.cu"
 #include "decompress.cu"
+#include "msm.cu"
 extern "C" {
 // one pass of an rlc_partial plan over n_tiles tiles, each block's warps
 // and threads in turn; the last pass with the flag operands, the others
@@ -107,6 +122,44 @@ void ladders_g2_decompress(const uint8_t* rows, int n, uint32_t* xs,
   std::vector<uint32_t> sm(12 * G2_DEC_WS);
   for (int r = 0; r < n; r++)
     g2_decompress_warp(sm.data(), rows, r, n, xs, ys, flags, K, nullptr);
+}
+
+// g2_subgroup_check over n rows, each row's warp in turn
+void ladders_g2_subgroup(const uint32_t* sx, const uint32_t* sy,
+                         const bool* s_inf, int n, bool* in_sub,
+                         const uint32_t* K) {
+  std::vector<uint32_t> sm(12 * PSI_WS);
+  for (int r = 0; r < n; r++)
+    g2_subgroup_warp(sm.data(), sx, sy, s_inf, in_sub, r, K);
+}
+
+// msm_horner over G groups of W windows: G1 (k = 1) a lane a group on
+// fpc, G2 a warp a group (its lanes in turn)
+void ladders_horner(int k, const uint32_t* totals, int G, int W, int w,
+                    uint32_t* out, const uint32_t* K) {
+  std::vector<uint32_t> sm(12 * HORNER_WS);
+  for (int g = 0; g < G; g++) {
+    if (k == 1)
+      msm_store(out, (size_t)g, msm_horner_lane(totals, W, w, g, K));
+    else
+      msm_horner_warp(sm.data(), totals, W, w, g, out, K);
+  }
+}
+
+// one doubling of (1, 1, 0) as canonical words: point_double on fpc
+// (3 x 12 words), point_double on fp2 and the G2DBL program (6 x 12 each)
+void ladders_double_inf(uint32_t* out, const uint32_t* K) {
+  jac<fpc> a = point_double(jac_inf<fpc>(K));
+  msm_store(out, 0, a);
+  jac<fp2> b = point_double(jac_inf<fp2>(K));
+  msm_store(out + 36, 0, b);
+  std::vector<uint32_t> sm(12 * (6 + AGG_SCRATCH));
+  jac<fp2> inf = jac_inf<fp2>(K);
+  memcpy(sm.data(), &inf, sizeof inf);
+  tail::run(tail::PROG_G2DBL, sm.data(), sm.data(), nullptr, nullptr,
+            sm.data() + 72);
+  for (int c = 0; c < 6; c++)
+    mont_out(out + 108 + 12 * c, fp_load(sm.data() + 12 * c));
 }
 
 // the compile-time constants of pairing.cu: PARTIAL_WARPS, GROUP_CHUNK
@@ -254,7 +307,7 @@ void ladders_split(const uint32_t* k, int n, uint32_t* out) {
 
 FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-I", _build.CSRC]
 SOURCES = ("sign.cu", "kzg.cu", "aggregate.cu", "ed25519.cu", "multi.cu",
-           "pairing.cu", "decompress.cu")
+           "pairing.cu", "decompress.cu", "msm.cu")
 ABS_X = -X
 X2 = X * X
 rng = random.Random(0x1AD)
@@ -678,3 +731,75 @@ def test_g2_decompress_warp_equals_plain(lib):
             assert not y[i, 1].any() and y[i, 0].any()
         elif name.endswith("√−c0"):
             assert not y[i, 0].any() and y[i, 1].any()
+
+
+# --- g2_subgroup_check: one warp a row --------------------------------------
+
+
+def test_g2_subgroup_warp_equals_plain(lib):
+    """The rows of testing/subgroup_rows.py, a warp a row (lanes in turn):
+    G2 points, ∞, points of E2 outside G2 (a point off the cofactor's
+    torsion, [r]Q in it, a G2 point plus [r]Q) and the points the
+    decompression corpus decodes to — the flags equal
+    `g2_subgroup_check_plain`'s and the host's [r]P = ∞."""
+    sx, sy, inf, names, want = SR.edge_rows()
+    sx, sy = np.ascontiguousarray(sx), np.ascontiguousarray(sy)
+    n = len(names)
+    got = np.zeros(n, bool)
+    lib.ladders_g2_subgroup(_ptr(sx), _ptr(sy), _ptr(inf), n, _ptr(got),
+                            _ptr(K))
+    plain = C.g2_subgroup_check_plain(
+        *(torch.from_numpy(a) for a in (sx, sy, inf)))
+    assert got.tolist() == plain.tolist() == want
+    assert set(want) == {True, False}
+
+
+# --- msm_horner: G1 on fpc, G2 on warp programs -----------------------------
+
+
+def _host_point(words, k):
+    """(3, [2,] 12) Jacobian canonical words → a host point."""
+    v = L.words_to_ints(np.asarray(words).reshape(-1, 12))
+    if k == 1:
+        return Point(*(Fq(c) for c in v), B1)
+    return Point(*(Fq2.from_ints(v[2 * i], v[2 * i + 1]) for i in range(3)),
+                 B2)
+
+
+@pytest.mark.parametrize("k,w", [(1, 4), (2, 8)])
+def test_horner_group_equals_plain(lib, k, w):
+    """The groups of testing/horner_rows.py at the grouped route's window
+    (G1: w = 4, one lane a group on fpc; G2: w = 8, one warp a group):
+    no entry, ∞ totals at the top, in the middle and as a live point's
+    X, Y with Z = 0, a sum that meets itself (the doubling case) and its
+    negation (∞, then the doublings left out), a sum to ∞, one live
+    total — the words equal `msm_horner_plain`'s and each sum is the host
+    anchor's."""
+    totals, names, sums = HR.horner_totals(k, w, 0x4E + k)
+    g = len(names)
+    out = np.zeros((g,) + totals.shape[1:], np.int32)
+    lib.ladders_horner(k, _ptr(totals), g, totals.shape[0] // g, w,
+                       _ptr(out), _ptr(K))
+    want = M.msm_horner_plain(torch.from_numpy(totals), g, w).numpy()
+    assert np.array_equal(out, want)
+    for name, row, s in zip(names, out, sums):
+        assert _host_point(row, k) == s, name
+    inf = np.zeros_like(out[0])
+    inf[0].reshape(-1)[0] = inf[1].reshape(-1)[0] = 1
+    assert np.array_equal(out[names.index("no entry")], inf)
+
+
+def test_infinity_doubles_to_itself(lib):
+    """(1, 1, 0) doubles to (1, 1, 0) word for word under point_double (G1
+    on fpc, G2 on fp2) and the G2DBL program: warp_g2_ladder leaves out
+    ∞'s doublings, and msm_horner starts at the top window's total, where
+    the plain version doubles (1, 1, 0) and then adds that total to it."""
+    out = np.zeros(36 + 72 + 72, np.uint32)
+    lib.ladders_double_inf(_ptr(out), _ptr(K))
+    g1 = np.zeros((3, 12), np.uint32)
+    g1[0, 0] = g1[1, 0] = 1
+    g2 = np.zeros((3, 2, 12), np.uint32)
+    g2[0, 0, 0] = g2[1, 0, 0] = 1
+    assert np.array_equal(out[:36], g1.ravel())
+    assert np.array_equal(out[36:108], g2.ravel())
+    assert np.array_equal(out[108:], g2.ravel())
